@@ -13,9 +13,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``sm_90a``;
 3. the multiproc path: the port's ``run_live`` on the 40-image microscopy
    smoke stream, workers as forked OS processes each running the ``torch``
-   payload on the card, held to the parity bands of the port's
-   ``simulate``.  It runs in a child process: this one has touched CUDA,
-   and forked workers of such a process cannot use it;
+   payload on the card, once at the default payload size and once at full
+   width, each held to the parity bands of the port's ``simulate``.  The
+   workers send their kernel launch counts and per-message device ms back
+   to the master, and each run's launches are summed from a count of 0.
+   It runs in a child process: this one has touched CUDA, and forked
+   workers of such a process cannot use it;
 4. the kernel against its plain PyTorch version on the card, on the
    kernel test shapes, empty and ragged bins and both payload shapes, with
    the kernel's, the plain version's and ``torch.bmm``'s times beside the
@@ -23,7 +26,9 @@ Phases, in order; any failure raises and the script exits nonzero:
 5. the slice at full size: ``run_live`` in-process on the full 767-image
    microscopy stream, one grouped matmul of ``qwen3-moe-30b-a3b`` width per
    message (128 experts, 128-row bins, d = f = 2048, f32), with the
-   kernel's launch count reset before the run and read after it.
+   kernel's launch count reset before the run and read after it.  Its
+   final worker target is held to that of a witness run of the ``sleep``
+   payload on the same stream and scale, made just before it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -39,17 +44,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+MP_FLAG = "--multiproc-phase"  # runs phase 3 in this child interpreter
 
 # the bands of tests/test_backend_parity.py for the microscopy scenario
 UTIL_TOL, TARGET_TOL, MAKESPAN_RATIO = 0.15, 2, 1.6
-# the multiproc phase's wall seconds per scenario second: each forked
-# worker initialises CUDA and loads the kernel while its 15 s boot delay
-# runs, so the delay must cover that in wall time
-MP_TIME_SCALE = 0.2
-# the full-size run starts at 0.05 (peak ~60 msgs/s) and slows the clock
-# until the kernel would keep the card at most this busy at peak concurrency
-FULL_TIME_SCALE, MAX_DEVICE_LOAD = 0.05, 0.4
 PAYLOAD_FULL = {"experts": 128, "rows": 128, "dim": 2048}
+# the multiproc runs: (name, payload kwargs, wall seconds per scenario
+# second).  Each forked worker builds its payload (and initialises CUDA and
+# loads the kernel) while its 15 s boot delay runs, so the delay must cover
+# that in wall time: under a second at the default size, and about 12 s of
+# seeded draws for the full-width weights.
+MP_RUNS = (("default", {}, 0.2), ("full", PAYLOAD_FULL, 2.0))
+# the full-size in-process run (peak ~55 msgs/s); the card must stay at
+# most this busy over it, so that its time fits inside the scaled messages
+FULL_TIME_SCALE, MAX_DEVICE_BUSY = 0.05, 0.4
 
 # H100 SXM data sheet, dense: fp32 on the CUDA cores, bf16 on the tensor
 # cores, device-memory bandwidth
@@ -62,17 +70,17 @@ def _fail(msg: str) -> None:
     raise SystemExit(1)
 
 
-def _assert_parity(sim, live, sim_targets, live_targets, what, endpoint=True):
+def _assert_parity(sim, live, live_targets, final_ref, what):
     """The bands of ``tests/test_backend_parity.py::_assert_parity``.
 
-    ``endpoint=False`` holds the mean worker target within the same band
-    in place of the final one.  On the full 767-image stream the final
-    target is a drain transient that the live backend ends lower than the
-    simulator with any payload, the plain ``sleep`` one included: idle PEs
-    retire on the wall clock, and the predictor scales down a few ticks
-    before the simulator's does.  Both final targets are printed.
+    The final worker target is held to ``final_ref = (who, targets)``: the
+    simulator's on the smoke stream; on the full stream, a live run of the
+    ``sleep`` payload on the same stream and scale.  There the final target
+    is a drain transient of the live runtime, whatever its payload: in its
+    last ticks the target drops below where the simulator's ends.
     """
-    sim_final, live_final = int(sim_targets[-1]), int(live_targets[-1])
+    ref_who, ref_targets = final_ref
+    ref_final, live_final = int(ref_targets[-1]), int(live_targets[-1])
     checks = {
         "live completes >= 90%": live["completed"] >= 0.9 * live["total"],
         "sim completes >= 90%": sim["completed"] >= 0.9 * sim["total"],
@@ -82,11 +90,8 @@ def _assert_parity(sim, live, sim_targets, live_targets, what, endpoint=True):
         "max target within 2": abs(
             live["max_target_workers"] - sim["max_target_workers"]
         ) <= TARGET_TOL,
-        "final target within 2": (
-            not endpoint or abs(live_final - sim_final) <= TARGET_TOL),
-        "mean target within 2": (
-            endpoint
-            or abs(live_targets.mean() - sim_targets.mean()) <= TARGET_TOL),
+        f"final target within 2 of the {ref_who}'s":
+            abs(live_final - ref_final) <= TARGET_TOL,
         "makespan within 1.6x": (
             sim["makespan_s"] / MAKESPAN_RATIO
             <= live["makespan_s"]
@@ -94,11 +99,9 @@ def _assert_parity(sim, live, sim_targets, live_targets, what, endpoint=True):
     }
     keys = ("completed", "total", "makespan_s",
             "mean_scheduled_utilization_active", "max_target_workers")
-    for who, summary, targets in (("sim ", sim, sim_targets),
-                                  ("live", live, live_targets)):
-        print(f"[{what}] {who} {json.dumps({k: summary[k] for k in keys})} "
-              f"final_target={int(targets[-1])} "
-              f"mean_target={float(targets.mean()):.4f}")
+    for who, summary in (("sim ", sim), ("live", live)):
+        print(f"[{what}] {who} {json.dumps({k: summary[k] for k in keys})}")
+    print(f"[{what}] final target: live {live_final}, {ref_who} {ref_final}")
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"{what}: outside the parity bands: {bad}")
@@ -140,32 +143,48 @@ def _simulate(stream, sim_config, irm_config):
 
 def multiproc_phase() -> None:
     """Phase 3, in a child process that never touches CUDA itself."""
+    import numpy as np
+
     from repro_torch.core.irm import IRM
+    from repro_torch.kernels.grouped_matmul import ops
     from repro_torch.runtime import RuntimeConfig, run_live
     from repro_torch.scenarios.engine import summarize_result
 
     stream, sim_config, irm_config = _microscopy(smoke=True)
     sim, sim_targets = _simulate(stream, sim_config, irm_config)
-    cfg = sim_config()
-    stats: dict = {}
-    res = run_live(
-        stream(), cfg, irm=IRM(irm_config()),
-        runtime=RuntimeConfig(time_scale=MP_TIME_SCALE, payload="torch",
-                              transport="multiproc"),
-        stats=stats,
-    )
-    live = summarize_result(res, cfg.dt)
-    if not res.completed == res.total == 40:
-        raise AssertionError(f"multiproc: {res.completed}/{res.total} completed")
-    _assert_parity(sim, live, sim_targets, res.target_workers, "multiproc")
-    print(json.dumps({
-        "multiproc": {
-            "completed": int(res.completed), "total": int(res.total),
-            "time_scale": MP_TIME_SCALE, "wall_s": stats["wall_s"],
+    for size, kwargs, scale in MP_RUNS:
+        what = f"multiproc {size}"
+        cfg = sim_config()
+        stats: dict = {}
+        ops.launches = 0  # the forked workers start from this count
+        res = run_live(
+            stream(), cfg, irm=IRM(irm_config()),
+            runtime=RuntimeConfig(time_scale=scale, payload="torch",
+                                  payload_kwargs=dict(kwargs),
+                                  transport="multiproc"),
+            stats=stats,
+        )
+        live = summarize_result(res, cfg.dt)
+        launches = stats["transport"]["payload_kernel_launches"]
+        dev_ms = np.array(stats["payload_device_ms"])
+        if not res.completed == res.total == 40:
+            raise AssertionError(f"{what}: {res.completed}/{res.total} completed")
+        if launches < res.completed:
+            raise AssertionError(
+                f"{what}: {launches} kernel launches for {res.completed} messages")
+        if len(dev_ms) != res.completed or not (dev_ms > 0).all():
+            raise AssertionError(
+                f"{what}: {len(dev_ms)} device times for {res.completed} messages")
+        _assert_parity(sim, live, res.target_workers, ("sim", sim_targets), what)
+        print(json.dumps({"multiproc": {
+            "payload": size, "completed": int(res.completed),
+            "total": int(res.total), "launches": int(launches),
+            "time_scale": scale, "wall_s": stats["wall_s"],
             "msgs_per_s": stats["messages_per_s"],
-            "workers_spawned": stats["transport"].get("workers_spawned"),
-        }
-    }))
+            "device_ms_mean": float(dev_ms.mean()),
+            "device_ms_p99": float(np.percentile(dev_ms, 99)),
+            "workers_spawned": stats["transport"]["workers_spawned"],
+        }}))
 
 
 def _time_ms(torch, fn, iters: int) -> float:
@@ -281,7 +300,7 @@ def kernel_phase(torch, np):
     }
 
 
-def full_phase(torch, np, kernel_ms: float):
+def full_phase(torch, np):
     """Phase 5: the full microscopy stream in-process; returns launches."""
     from repro_torch.core.irm import IRM
     from repro_torch.kernels.grouped_matmul import ops
@@ -290,23 +309,21 @@ def full_phase(torch, np, kernel_ms: float):
 
     stream, sim_config, irm_config = _microscopy(smoke=False)
     sim, sim_targets = _simulate(stream, sim_config, irm_config)
-    cfg = sim_config()
-    msgs = [m for _, b in stream().batches for m in b]
-    mean_duration = float(np.mean([m.duration for m in msgs]))
-    # peak message rate in scenario time: every PE slot of the capped
-    # fleet busy; the card's load at peak is that rate / scale * kernel time
-    peak_rate = cfg.max_workers * cfg.cores_per_worker / mean_duration
-    scale = max(FULL_TIME_SCALE,
-                peak_rate * kernel_ms / 1e3 / MAX_DEVICE_LOAD)
-    print(f"[full] time_scale={scale:.4g} (peak ~{peak_rate / scale:.1f} "
-          f"msgs/s at {kernel_ms:.3f} ms/launch)")
+    witness = run_live(
+        stream(), sim_config(), irm=IRM(irm_config()),
+        runtime=RuntimeConfig(time_scale=FULL_TIME_SCALE, payload="sleep"),
+    )
+    print(f"[full] time_scale={FULL_TIME_SCALE}; sleep witness: "
+          f"{witness.completed}/{witness.total} completed, final target "
+          f"{int(witness.target_workers[-1])}")
 
+    cfg = sim_config()
     torch.cuda.reset_peak_memory_stats()
     stats: dict = {}
     ops.launches = 0
     res = run_live(
         stream(), cfg, irm=IRM(irm_config()),
-        runtime=RuntimeConfig(time_scale=scale, payload="torch",
+        runtime=RuntimeConfig(time_scale=FULL_TIME_SCALE, payload="torch",
                               payload_kwargs=dict(PAYLOAD_FULL)),
         stats=stats,
     )
@@ -318,24 +335,28 @@ def full_phase(torch, np, kernel_ms: float):
     if launches < res.completed:
         raise AssertionError(
             f"full: {launches} kernel launches for {res.completed} messages")
-    _assert_parity(sim, live, sim_targets, res.target_workers, "full",
-                   endpoint=False)
+    _assert_parity(sim, live, res.target_workers,
+                   ("sleep witness", witness.target_workers), "full")
     lat = np.array([m.done_t - m.arrival for m in res.messages])
     dev_ms = np.array(stats["payload_device_ms"])
+    busy = float(dev_ms.sum() / 1e3 / stats["wall_s"])
     print("[full] " + json.dumps({
         "completed": int(res.completed), "launches": launches,
-        "time_scale": scale, "wall_s": stats["wall_s"],
+        "time_scale": FULL_TIME_SCALE, "wall_s": stats["wall_s"],
         "msgs_per_s": stats["messages_per_s"],
         "latency_p50_s": float(np.percentile(lat, 50)),
         "latency_p99_s": float(np.percentile(lat, 99)),
-        "latency_p50_wall_s": float(np.percentile(lat, 50)) * scale,
-        "latency_p99_wall_s": float(np.percentile(lat, 99)) * scale,
+        "latency_p50_wall_s": float(np.percentile(lat, 50)) * FULL_TIME_SCALE,
+        "latency_p99_wall_s": float(np.percentile(lat, 99)) * FULL_TIME_SCALE,
         "device_ms_mean": float(dev_ms.mean()),
         "device_ms_p99": float(np.percentile(dev_ms, 99)),
-        "device_busy_share": float(dev_ms.sum() / 1e3 / stats["wall_s"]),
+        "device_busy_share": busy,
         "peak_device_mem_gib": peak_mem / 2**30,
         "irm_step_ms_p99": stats["irm_step_ms_p99"],
     }))
+    if not busy <= MAX_DEVICE_BUSY:
+        raise AssertionError(
+            f"full: the card was {busy:.3f} busy, over {MAX_DEVICE_BUSY}")
     return launches
 
 
@@ -343,7 +364,7 @@ def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         _fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
     sys.path.insert(0, str(SRC))
-    if sys.argv[1:] == ["--multiproc-phase"]:
+    if sys.argv[1:] == [MP_FLAG]:
         multiproc_phase()
         return
     import numpy as np
@@ -375,20 +396,25 @@ def main() -> None:
     # 3. the multiproc path, in a child process
     t0 = time.perf_counter()
     child = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--multiproc-phase"],
+        [sys.executable, str(Path(__file__).resolve()), MP_FLAG],
         capture_output=True, text=True, timeout=600,
     )
     sys.stdout.write(child.stdout)
     sys.stderr.write(child.stderr[-4000:])
     if child.returncode != 0:
         raise RuntimeError(f"multiproc phase failed ({child.returncode})")
+    mp_runs = [json.loads(line)["multiproc"]
+               for line in child.stdout.splitlines()
+               if line.startswith('{"multiproc"')]
+    if [r["payload"] for r in mp_runs] != [size for size, _, _ in MP_RUNS]:
+        raise RuntimeError(f"multiproc phase reported {mp_runs}")
     print(f"[multiproc] phase took {time.perf_counter() - t0:.1f} s")
 
     # 4. the kernel against its plain version
     record = kernel_phase(torch, np)
 
     # 5. the slice at full size
-    launches = full_phase(torch, np, record["ms"])
+    launches = full_phase(torch, np)
 
     print(json.dumps({"kernels": [{
         "name": "grouped_matmul",
@@ -396,6 +422,10 @@ def main() -> None:
         "source": "src/repro_torch/kernels/grouped_matmul/csrc/grouped_matmul.cu",
         "replaces": "src/repro/kernels/grouped_matmul/kernel.py:31",
         "launches": launches,
+        "launches_by_path": {
+            **{f"multiproc {r['payload']}": r["launches"] for r in mp_runs},
+            "inproc full": launches,
+        },
         **record,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -351,9 +351,12 @@ async def _drive(
             irm_step_ms_p99=float(np.percentile(arr, 99)),
             messages_per_s=len(master.completed) / max(wall_s, 1e-9),
             transport=transport.stats(),
-            # per-message device ms of an in-process torch payload on the
-            # card (CUDA events around each launch); empty otherwise
-            payload_device_ms=list(getattr(payload, "device_ms", ())),
+            # per-message device ms of the torch payload on the card (CUDA
+            # events around each launch), from the in-process payload or
+            # from the worker processes; empty otherwise
+            payload_device_ms=list(
+                getattr(payload, "device_ms", ()) if payload is not None
+                else getattr(transport, "payload_device_ms", ())),
         )
     return recorder.finalize(
         completed=len(master.completed),
@@ -380,7 +383,7 @@ def run_live(
     experiment); the returned ``SimResult`` feeds the same summaries,
     expectations, and figure dumps.  ``stats``, when given, is filled with
     wall-clock throughput and IRM decision-latency numbers, and with the
-    in-process ``torch`` payload on the card its per-message device ms
+    ``torch`` payload on the card its per-message device ms
     (``chip_smoke.py`` reads them).
     """
     cfg = config or SimConfig()

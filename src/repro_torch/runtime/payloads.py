@@ -18,7 +18,9 @@ Payloads resolve by name through ``make_payload`` so scenarios/CLI can
 select them (``--payload torch``), mirroring ``core.binpack.make_packer``.
 Each payload also exposes ``run_sync(msg, time_scale)``, the blocking
 variant a process-backed transport executes on its worker-side PE threads
-(``runtime.transport.MultiprocTransport``).
+(``runtime.transport.MultiprocTransport``), which returns the message's
+device ms, and ``kernel_launches()``; the transport sends both back to the
+master with each completion.
 """
 
 from __future__ import annotations
@@ -26,12 +28,12 @@ from __future__ import annotations
 import asyncio
 import threading
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..kernels.grouped_matmul.ops import gmm
+from ..kernels.grouped_matmul import ops
 from .annotations import worker_side
 
 __all__ = ["SleepPayload", "TorchPayload", "make_payload", "PAYLOADS"]
@@ -46,10 +48,15 @@ class SleepPayload:
         await clock.sleep(msg.duration)
 
     @worker_side
-    def run_sync(self, msg, time_scale: float) -> None:
-        """Blocking variant for a transport's worker-process PE thread."""
+    def run_sync(self, msg, time_scale: float) -> Optional[float]:
+        """Blocking variant for a transport's worker-process PE thread;
+        returns the message's device ms: ``None``, as it uses no device."""
         if msg.duration > 0:
             time.sleep(msg.duration * time_scale)
+
+    def kernel_launches(self) -> int:
+        """Kernel launches made for this payload: none."""
+        return 0
 
 
 def _standard_normal_f32(rng: np.random.Generator,
@@ -76,8 +83,8 @@ class TorchPayload:
     then ``w (experts, dim, dim)`` — with every bin full.  ``device``
     defaults to ``"cuda"``; with no card that raises: the plain CPU version
     runs only when asked for with ``device="cpu"``.  On the card each
-    message's device time (CUDA events around its launch) is appended to
-    ``device_ms``.
+    message's device time (CUDA events recorded just around its kernel
+    launch) is appended to ``device_ms``.
     """
 
     name = "torch"
@@ -106,6 +113,7 @@ class TorchPayload:
                 )
             device = "cuda"
         self.device = torch.device(device)
+        self._launches0 = ops.launches
         self._x = _tensor(x, np.float32, self.device)
         self._w = _tensor(w, np.float32, self.device)
         self._sizes = _tensor(sizes, np.int32, self.device)
@@ -116,20 +124,29 @@ class TorchPayload:
         self._compute()  # build/load the kernel outside any message's budget
         self.device_ms.clear()
 
+    def kernel_launches(self) -> int:
+        """Kernel launches this process made since the payload was set up,
+        its warm-up included (read from ``ops.launches``)."""
+        return ops.launches - self._launches0
+
     @worker_side
-    def _compute(self):
+    def _compute(self) -> torch.Tensor:
         """One grouped matmul; returns once its result is ready."""
+        return self._timed_compute()[0]
+
+    @worker_side
+    def _timed_compute(self) -> Tuple[torch.Tensor, Optional[float]]:
+        """One grouped matmul and, on the card, its device ms."""
         if self.device.type != "cuda":
-            return gmm(self._x, self._w, self._sizes)
+            return ops.gmm(self._x, self._w, self._sizes), None
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         with torch.cuda.device(self.device), self._launch_lock:
-            start.record()
-            out = gmm(self._x, self._w, self._sizes)
-            end.record()
+            out = ops.gmm(self._x, self._w, self._sizes, (start, end))
         end.synchronize()
-        self.device_ms.append(start.elapsed_time(end))
-        return out
+        ms = start.elapsed_time(end)
+        self.device_ms.append(ms)
+        return out, ms
 
     async def __call__(self, msg, clock) -> None:
         loop = asyncio.get_running_loop()
@@ -139,15 +156,17 @@ class TorchPayload:
         await clock.sleep(msg.duration - spent_virtual)
 
     @worker_side
-    def run_sync(self, msg, time_scale: float) -> None:
+    def run_sync(self, msg, time_scale: float) -> Optional[float]:
         """Blocking variant for a transport's worker-process PE thread:
         the kernel runs on the PE thread itself, then pads to the
-        message's calibrated duration."""
+        message's calibrated duration.  Returns the message's device ms
+        (``None`` off the card)."""
         wall0 = time.perf_counter()
-        self._compute()
+        _, ms = self._timed_compute()
         remaining = msg.duration * time_scale - (time.perf_counter() - wall0)
         if remaining > 0:
             time.sleep(remaining)
+        return ms
 
 
 PAYLOADS: Dict[str, Callable[[], object]] = {

@@ -273,9 +273,10 @@ class InProcTransport(Transport):
 _EV_READY = 0      # (tag, pe_uid) — PE finished its start delay
 _EV_PULL = 1       # (tag, pe_uid, image, decode_ms)
 _EV_COMPLETE = 2   # (tag, pe_uid, blob, start_t, done_t, cpu_s, encode_ms,
-#                     proc_cpu_s)
+#                     proc_cpu_s, device_ms, kernel_launches)
 _EV_PE_EXIT = 3    # (tag, pe_uid) — idle-timeout self-termination
 _EV_METRICS = 4    # (tag, pe_uid, registry_delta) — mergeable metrics flush
+_EV_PAYLOAD = 5    # (tag, kernel_launches) — the payload's set-up launches
 
 # control-channel command tags (master → worker)
 _CMD_START_PE = 0  # (tag, pe_uid, image)
@@ -313,6 +314,7 @@ def _mp_worker_main(
     from .payloads import make_payload
 
     payload = make_payload(payload_spec[0], **payload_spec[1])
+    data_q.put((_EV_PAYLOAD, payload.kernel_launches()))
     cpu0 = _proc_cpu_seconds()
     stop = threading.Event()
     replies: Dict[int, "queue.Queue"] = {}
@@ -352,7 +354,7 @@ def _mp_worker_main(
             decode_ms = (time.perf_counter() - w0) * 1e3
             start_t = now()
             tcpu0 = time.thread_time()
-            payload.run_sync(msg, time_scale)
+            device_ms = payload.run_sync(msg, time_scale)
             cpu_s = time.thread_time() - tcpu0
             done_t = now()
             msg.start_t = start_t
@@ -368,7 +370,8 @@ def _mp_worker_main(
                 data_q.put((_EV_METRICS, uid, reg.delta()))
             data_q.put((
                 _EV_COMPLETE, uid, out, start_t, done_t, cpu_s, encode_ms,
-                _proc_cpu_seconds() - cpu0,
+                _proc_cpu_seconds() - cpu0, device_ms,
+                payload.kernel_launches(),
             ))
             idle_since = now()
 
@@ -404,7 +407,8 @@ def _mp_worker_main(
 class _ProcHandle:
     """Master-side bookkeeping for one worker process."""
 
-    __slots__ = ("proc", "cmd_q", "data_q", "pes", "proc_cpu_s")
+    __slots__ = ("proc", "cmd_q", "data_q", "pes", "proc_cpu_s",
+                 "kernel_launches")
 
     def __init__(self, proc, cmd_q, data_q):
         self.proc = proc
@@ -412,6 +416,7 @@ class _ProcHandle:
         self.data_q = data_q
         self.pes: Dict[int, object] = {}  # pe_uid -> LivePE mirror
         self.proc_cpu_s = 0.0  # latest os.times() user+sys delta reported
+        self.kernel_launches = 0  # latest payload launch count reported
 
 
 class MultiprocTransport(Transport):
@@ -464,6 +469,9 @@ class MultiprocTransport(Transport):
         self._real_core_s = 0.0      # Σ thread-CPU seconds across messages
         self._emulated_core_s = 0.0  # Σ cpu_cores · duration (the model)
         self.proc_cpu_s_total = 0.0  # Σ os.times() deltas across processes
+        # the payload's device work, reported by the workers
+        self.payload_device_ms: List[float] = []  # per completed message
+        self.payload_kernel_launches = 0  # Σ across processes
 
     # ---- provisioning ------------------------------------------------------
     def set_payload_spec(self, name: str, kwargs: dict) -> None:
@@ -549,6 +557,9 @@ class MultiprocTransport(Transport):
             if bus is not None:
                 bus.registry.merge(ev[2])
             return
+        if tag == _EV_PAYLOAD:
+            self._fold_launches(h, ev[1])
+            return
         pe = h.pes.get(ev[1])
         if pe is None:
             return  # PE exited or worker was killed while the event flew
@@ -615,7 +626,8 @@ class MultiprocTransport(Transport):
     @transition("msg", "msg.completed", src="started", dst="completed")
     @transition("pe", "msg.completed", src="busy", dst="idle")
     def _on_complete(self, widx: int, h: _ProcHandle, pe, ev: tuple) -> None:
-        _, _, blob, start_t, done_t, cpu_s, encode_ms, proc_cpu_s = ev
+        (_, _, blob, start_t, done_t, cpu_s, encode_ms, proc_cpu_s,
+         device_ms, kernel_launches) = ev
         pool = self.pool
         msg = pe.msg
         if msg is None:
@@ -634,6 +646,9 @@ class MultiprocTransport(Transport):
         # the run total (handles come and go with reboots/kills)
         self.proc_cpu_s_total += float(proc_cpu_s) - h.proc_cpu_s
         h.proc_cpu_s = float(proc_cpu_s)
+        self._fold_launches(h, kernel_launches)
+        if device_ms is not None:
+            self.payload_device_ms.append(float(device_ms))
         self._account_cpu(
             pool.workers[widx], pe, msg, float(cpu_s),
             float(done_t - start_t),
@@ -647,6 +662,12 @@ class MultiprocTransport(Transport):
                      worker=widx, pe=pe.uid, start_t=msg.start_t,
                      done_t=msg.done_t, arrival=msg.arrival)
         pool.master.complete(msg)
+
+    @loop_only
+    def _fold_launches(self, h: _ProcHandle, kernel_launches: int) -> None:
+        """Each report is the process's running count: fold its delta."""
+        self.payload_kernel_launches += kernel_launches - h.kernel_launches
+        h.kernel_launches = kernel_launches
 
     @loop_only
     def _account_cpu(
@@ -725,7 +746,7 @@ class MultiprocTransport(Transport):
                     pe = h.pes.get(ev[1])
                     if pe is not None:
                         self._on_complete(worker.idx, h, pe, ev)
-                elif ev[0] in (_EV_PE_EXIT, _EV_METRICS):
+                elif ev[0] in (_EV_PE_EXIT, _EV_METRICS, _EV_PAYLOAD):
                     # flushed metric deltas are applied like flushed
                     # completions: they describe work that really happened
                     self._handle_event(worker.idx, h, ev)
@@ -798,6 +819,9 @@ class MultiprocTransport(Transport):
             # whole-process CPU (os.times user+sys), includes the worker's
             # own dispatcher/queue overhead on top of the PE threads
             "proc_cpu_s": self.proc_cpu_s_total,
+            # kernel launches of the workers' payloads, counted where the
+            # kernel launches (warm-ups included)
+            "payload_kernel_launches": self.payload_kernel_launches,
         }
 
 

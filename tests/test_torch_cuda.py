@@ -9,6 +9,8 @@ JAX):
 Without a card each test skips: a CUDA kernel has no CPU mode.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -64,3 +66,24 @@ def test_torch_payload_launches_the_kernel_and_times_it():
     assert payload.device_ms[0] > 0
     want = grouped_matmul_ref(payload._x, payload._w, payload._sizes)
     torch.testing.assert_close(out, want, **TOLS[torch.float32])
+
+
+@pytest.mark.cuda
+def test_gmm_empty_output_counts_no_launch():
+    _need_card()
+    x = torch.zeros((2, 0, 8), device="cuda")
+    w = torch.zeros((2, 8, 4), device="cuda")
+    gs = torch.zeros((2,), dtype=torch.int32, device="cuda")
+    before = ops.launches
+    assert ops.gmm(x, w, gs).shape == (2, 0, 4)
+    assert ops.launches == before
+
+
+@pytest.mark.cuda
+def test_torch_payload_reports_its_launches_and_device_ms():
+    _need_card()
+    payload = TorchPayload()
+    assert payload.kernel_launches() == 1  # the warm-up
+    ms = payload.run_sync(SimpleNamespace(duration=0.0), 0.01)
+    assert payload.kernel_launches() == 2
+    assert ms is not None and ms > 0 and payload.device_ms == [ms]

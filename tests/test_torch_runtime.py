@@ -13,6 +13,7 @@ The multiproc run has a file of its own (``test_torch_multiproc.py``).
 
 import ast
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -28,7 +29,7 @@ from repro.scenarios.registry import scenario_names as ref_scenario_names
 from repro_torch.core.irm import IRM
 from repro_torch.core.sim import simulate
 from repro_torch.runtime import RuntimeConfig, TorchPayload, make_payload, run_live
-from repro_torch.runtime.payloads import PAYLOADS
+from repro_torch.runtime.payloads import PAYLOADS, SleepPayload
 from repro_torch.scenarios import run as cli
 from repro_torch.scenarios.engine import summarize_result
 from repro_torch.scenarios.registry import get_scenario
@@ -92,6 +93,13 @@ def test_torch_payload_from_numpy_reproduces_jax_output():
     got = tp._compute().numpy()
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
     assert tp.device_ms == []  # device times are taken on the card only
+
+
+def test_payloads_off_the_card_report_no_device_work():
+    msg = SimpleNamespace(duration=0.0)
+    for payload in (SleepPayload(), TorchPayload(device="cpu")):
+        assert payload.run_sync(msg, 0.01) is None
+        assert payload.kernel_launches() == 0
 
 
 def test_make_payload_torch_without_card_raises():
