@@ -1,0 +1,20 @@
+"""olmo-1b — dense MHA with non-parametric LayerNorm.  [arXiv:2402.00838; hf]"""
+
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="olmo-1b",
+    family="dense",
+    n_layers=16,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=16,
+    head_dim=128,
+    d_ff=8192,
+    vocab_size=50304,
+    norm_type="layernorm_np",
+    act="swiglu",
+    tie_embeddings=True,
+    rope_theta=10000.0,
+    source="arXiv:2402.00838; hf",
+)

@@ -1,8 +1,6 @@
 """Build and bind the Hopper grouped-matmul kernel (``csrc/grouped_matmul.cu``).
 
-The source is compiled on first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface under ``build/repro_torch/`` at
-the repository root, named by a hash of the source, and loaded with
+The source is compiled on first use (``kernels/nvcc.py``) and loaded with
 ``ctypes``: pointers and the stream cross as ``ctypes.c_void_p``.  Nothing
 GPU-specific happens at import, so CPU-only hosts import this module too.
 
@@ -13,60 +11,25 @@ the kernel agrees with the fp32 reference ``ref.grouped_matmul_ref``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["build", "grouped_matmul", "BUILD_DIR", "SOURCE"]
+from ..nvcc import BUILD_DIR, NVCC_FLAGS, build_library
+
+__all__ = ["build", "grouped_matmul", "BUILD_DIR", "NVCC_FLAGS", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "grouped_matmul.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the grouped-matmul kernel cannot be built")
-
-
 def build() -> Path:
-    """Compile the kernel if this source has no library yet; return its path.
-
-    The library is written under a temporary name and renamed into place,
-    so processes that build at once never load a half-written file.
-    """
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libgrouped_matmul_{digest}.so"
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
-    return lib_path
+    """Compile the kernel if this source has no library yet; return its path."""
+    return build_library(SOURCE)
 
 
 def _library() -> ctypes.CDLL:

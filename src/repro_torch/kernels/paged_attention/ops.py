@@ -1,0 +1,57 @@
+"""Public wrapper for paged decode attention: the Hopper kernel for CUDA
+tensors, the plain PyTorch version for CPU tensors, and the bridge from the
+host-side First-Fit ``PageAllocator`` to the page tables they read.
+
+``launches`` counts the kernel launches this process made through
+``paged_attention``; a run resets it to 0 and reads it back to show that
+its decode path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import List, Optional, Tuple
+
+import torch
+
+from ...serving.kv_cache import PageAllocator
+from .kernel import paged_decode_attention
+from .ref import paged_attention_ref
+
+__all__ = ["paged_attention", "page_table_from_allocator", "launches"]
+
+launches = 0
+_count_lock = threading.Lock()
+
+
+def page_table_from_allocator(
+    allocator: PageAllocator,
+    seq_ids: List[int],
+    device: Optional[torch.device] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(page_table, seq_lens) int32 tensors on ``device`` for ``seq_ids``."""
+    table = torch.from_numpy(allocator.page_table(seq_ids))
+    lens = torch.tensor([allocator.seq_len(s) for s in seq_ids], dtype=torch.int32)
+    return table.to(device), lens.to(device)
+
+
+def paged_attention(
+    q: torch.Tensor,           # (B, H, D)
+    k_pool: torch.Tensor,      # (num_pages, page_size, KVH, D)
+    v_pool: torch.Tensor,      # (num_pages, page_size, KVH, D)
+    page_table: torch.Tensor,  # (B, max_pages) int32, -1 = unused
+    seq_lens: torch.Tensor,    # (B,) int32
+) -> torch.Tensor:
+    """Decode attention over the paged pools (see ``ref.paged_attention_ref``).
+
+    A CUDA tensor launches the kernel or raises; only a tensor that lies on
+    the CPU takes the plain version.
+    """
+    global launches
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pool, v_pool, page_table, seq_lens)
+    out = paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens)
+    if out.numel():  # an empty output launches nothing
+        with _count_lock:
+            launches += 1
+    return out

@@ -1,0 +1,369 @@
+"""Core transformer layers: norms, RoPE, chunked flash attention, MLP, and
+decode attention over the First-Fit paged KV cache.
+
+The prefill attention is the JAX package's chunked online-softmax (flash)
+form in plain PyTorch: peak memory is O(chunk^2) instead of O(S^2), and it
+takes the segment-ID masks of the First-Fit sequence packer, GQA and
+sliding windows.  Decode attends one new token per sequence against its
+pages through ``kernels.paged_attention`` (the Hopper kernel on the card).
+
+Conventions (the JAX package's):
+  q: (B, S, H, D)   k/v: (B, S, KVH, D)   segment_ids: (B, S) int32, 0 = pad
+  positions: (B, S) int32 — within-segment positions (used for RoPE);
+  causality uses absolute sequence indices, so packed segments stay causal.
+Parameters are the JAX package's, keyed by the same names; the projections
+keep its (d, H, hd) and (H, hd, d) layouts.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.paged_attention import ops as paged_ops
+from .params import Spec
+
+__all__ = [
+    "rms_norm",
+    "layer_norm",
+    "norm",
+    "norm_specs",
+    "rope",
+    "repeat_kv",
+    "flash_attention",
+    "attention_specs",
+    "attention",
+    "attention_decode",
+    "mlp_specs",
+    "mlp",
+]
+
+_NEG_INF = -0.7 * torch.finfo(torch.float32).max
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: Optional[torch.Tensor],
+             eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    y = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+    if scale is not None:
+        y = y * (1.0 + scale.float())
+    return y.to(dtype)
+
+
+def layer_norm(
+    x: torch.Tensor,
+    scale: Optional[torch.Tensor],
+    bias: Optional[torch.Tensor],
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """LayerNorm; with scale=bias=None this is OLMo's non-parametric LN."""
+    dtype = x.dtype
+    x = x.float()
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dtype)
+
+
+def norm_specs(norm_type: str, d: int) -> Dict[str, Spec]:
+    if norm_type == "rmsnorm":
+        return {"scale": Spec((d,), ("embed",), init="zeros")}
+    if norm_type == "layernorm":
+        return {
+            "scale": Spec((d,), ("embed",), init="ones"),
+            "bias": Spec((d,), ("embed",), init="zeros"),
+        }
+    if norm_type == "layernorm_np":  # non-parametric (OLMo)
+        return {}
+    raise ValueError(f"unknown norm type {norm_type!r}")
+
+
+def norm(params: Dict[str, torch.Tensor], norm_type: str,
+         x: torch.Tensor) -> torch.Tensor:
+    if norm_type == "rmsnorm":
+        return rms_norm(x, params["scale"])
+    if norm_type == "layernorm":
+        return layer_norm(x, params["scale"], params["bias"])
+    if norm_type == "layernorm_np":
+        return layer_norm(x, None, None)
+    raise ValueError(f"unknown norm type {norm_type!r}")
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """Apply RoPE.  x: (B, S, H, D), positions: (B, S)."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(
+        -math.log(theta)
+        * torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    )
+    angles = positions.float()[..., None] * freqs  # (B, S, half)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Chunked flash attention (plain PyTorch; the prefill path)
+# ---------------------------------------------------------------------------
+
+
+def _mask_chunk(q_idx, kv_idx, seg_q, seg_kv, causal: bool,
+                window: int) -> torch.Tensor:
+    """(B, cq, ck) bool mask: segment match & causality & sliding window."""
+    m = (seg_q[:, :, None] == seg_kv[:, None, :]) & (seg_kv[:, None, :] != 0)
+    if causal:
+        m &= q_idx[None, :, None] >= kv_idx[None, None, :]
+    if window > 0:
+        m &= (q_idx[None, :, None] - kv_idx[None, None, :]) < window
+    return m
+
+
+def _flash_q_chunk(
+    q: torch.Tensor,       # (B, cq, H, D)
+    k: torch.Tensor,       # (B, S, H, D) (KV heads pre-repeated to H)
+    v: torch.Tensor,       # (B, S, H, D)
+    q_start: int,          # absolute index of the chunk's first query
+    seg_q: torch.Tensor,   # (B, cq)
+    seg_kv: torch.Tensor,  # (B, S)
+    *,
+    causal: bool,
+    window: int,
+    chunk_kv: int,
+    scale: float,
+) -> torch.Tensor:
+    B, cq, H, D = q.shape
+    S = k.shape[1]
+    qf = q.float().transpose(1, 2)  # (B, H, cq, D)
+    m_run = torch.full((B, H, cq), _NEG_INF, dtype=torch.float32, device=q.device)
+    l_run = torch.zeros((B, H, cq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, cq, D), dtype=torch.float32, device=q.device)
+    q_idx = torch.arange(q_start, q_start + cq, dtype=torch.int32, device=q.device)
+    q_last = q_start + cq - 1
+    for c0 in range(0, S, chunk_kv):
+        # a chunk wholly above the causal diagonal leaves (m, l, acc) exactly
+        # as they are (every p is 0 and alpha is 1), so it is skipped
+        if causal and c0 > q_last:
+            break
+        k_c = k[:, c0:c0 + chunk_kv].float().transpose(1, 2)  # (B, H, ck, D)
+        v_c = v[:, c0:c0 + chunk_kv]
+        idx_c = torch.arange(c0, c0 + chunk_kv, dtype=torch.int32, device=q.device)
+        # operands exact in fp32, fp32 accumulation
+        s = (qf @ k_c.transpose(-1, -2)) * scale  # (B, H, cq, ck)
+        mask = _mask_chunk(q_idx, idx_c, seg_q, seg_kv[:, c0:c0 + chunk_kv],
+                           causal, window)[:, None]
+        s = torch.where(mask, s, _NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        # fully-masked rows: s == m_new == NEG_INF would give p = 1; zero
+        # them so padded query positions produce exactly 0
+        p = torch.where(mask, p, 0.0)
+        alpha = torch.exp(m_run - m_new)
+        l_run = alpha * l_run + p.sum(dim=-1)
+        # p is rounded to the value type before the PV product, as the JAX
+        # package does; the product itself accumulates in fp32
+        pv = p.to(v_c.dtype).float() @ v_c.float().transpose(1, 2)
+        acc = alpha[..., None] * acc + pv
+        m_run = m_new
+    out = acc / torch.clamp(l_run[..., None], min=1e-30)
+    return out.transpose(1, 2)  # (B, cq, H, D)
+
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, KVH, D) -> (B, S, KVH*n_rep, D)."""
+    if n_rep == 1:
+        return k
+    B, S, KVH, D = k.shape
+    return k[:, :, :, None, :].expand(B, S, KVH, n_rep, D).reshape(
+        B, S, KVH * n_rep, D)
+
+
+def flash_attention(
+    q: torch.Tensor,               # (B, Sq, H, D)
+    k: torch.Tensor,               # (B, Skv, KVH, D)
+    v: torch.Tensor,               # (B, Skv, KVH, D)
+    segment_ids_q: torch.Tensor,   # (B, Sq)
+    segment_ids_kv: torch.Tensor,  # (B, Skv)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    chunk_q: int = 512,
+    chunk_kv: int = 512,
+) -> torch.Tensor:
+    """Chunked online-softmax attention with segment masking.  O(c^2) memory."""
+    B, Sq, H, D = q.shape
+    KVH = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    k = repeat_kv(k, H // KVH)
+    v = repeat_kv(v, H // KVH)
+
+    chunk_q = min(chunk_q, Sq)
+    chunk_kv = min(chunk_kv, k.shape[1])
+
+    def pad_to(x: torch.Tensor, c: int) -> torch.Tensor:
+        rem = (-x.shape[1]) % c  # segment id 0 == masked padding
+        if rem == 0:
+            return x
+        widths = [0, 0] * (x.dim() - 2) + [0, rem]
+        return F.pad(x, widths)
+
+    qp, sq = pad_to(q, chunk_q), pad_to(segment_ids_q, chunk_q)
+    kp, vp = pad_to(k, chunk_kv), pad_to(v, chunk_kv)
+    skv = pad_to(segment_ids_kv, chunk_kv)
+    outs = []
+    for q0 in range(0, qp.shape[1], chunk_q):
+        outs.append(_flash_q_chunk(
+            qp[:, q0:q0 + chunk_q], kp, vp, q0,
+            sq[:, q0:q0 + chunk_q], skv,
+            causal=causal, window=window, chunk_kv=chunk_kv, scale=scale,
+        ))
+    return torch.cat(outs, dim=1)[:, :Sq].to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention block (projections + flash core / paged decode)
+# ---------------------------------------------------------------------------
+
+
+def attention_specs(cfg: Any) -> Dict[str, Any]:
+    d, hd = cfg.d_model, cfg.head_dim_
+    H, KVH = cfg.n_heads, cfg.n_kv_heads
+    specs: Dict[str, Any] = {
+        "wq": Spec((d, H, hd), ("embed", "heads", "head_dim"), init="scaled"),
+        "wk": Spec((d, KVH, hd), ("embed", "kv_heads", "head_dim"), init="scaled"),
+        "wv": Spec((d, KVH, hd), ("embed", "kv_heads", "head_dim"), init="scaled"),
+        "wo": Spec((H, hd, d), ("heads", "head_dim", "embed"), init="scaled"),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = Spec((H, hd), ("heads", "head_dim"), init="zeros")
+        specs["bk"] = Spec((KVH, hd), ("kv_heads", "head_dim"), init="zeros")
+        specs["bv"] = Spec((KVH, hd), ("kv_heads", "head_dim"), init="zeros")
+    if cfg.qk_norm:
+        specs["q_norm"] = Spec((hd,), ("head_dim",), init="zeros")
+        specs["k_norm"] = Spec((hd,), ("head_dim",), init="zeros")
+    return specs
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, d) @ (d, H, hd) -> (B, S, H, hd)."""
+    d, H, hd = w.shape
+    return (x @ w.reshape(d, H * hd)).unflatten(-1, (H, hd))
+
+
+def _project_qkv(
+    p: Dict[str, torch.Tensor], cfg: Any, x: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    return q, k, v
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) @ (H, hd, d) -> (B, S, d)."""
+    H, hd, d = wo.shape
+    return out.flatten(-2) @ wo.reshape(H * hd, d)
+
+
+def attention(
+    p: Dict[str, torch.Tensor],
+    cfg: Any,
+    x: torch.Tensor,            # (B, S, d)
+    segment_ids: torch.Tensor,  # (B, S)
+    positions: torch.Tensor,    # (B, S)
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Causal full-sequence self-attention (prefill).  Returns (out, (k, v))."""
+    q, k, v = _project_qkv(p, cfg, x)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    out = flash_attention(q, k, v, segment_ids, segment_ids,
+                          window=cfg.sliding_window)
+    return _out_proj(out, p["wo"]), (k, v)
+
+
+def attention_decode(
+    p: Dict[str, torch.Tensor],
+    cfg: Any,
+    x: torch.Tensor,           # (B, 1, d)
+    position: torch.Tensor,    # (B,) within-sequence position of the token
+    k_pool: torch.Tensor,      # (num_pages, page_size, KVH, D), written in place
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # (B, max_pages) int32, -1 = unused slot
+    cache_len: torch.Tensor,   # (B,) int32 valid entries *including* this token
+) -> torch.Tensor:
+    """One decode step: write the token's K/V into its page, attend over the
+    sequence's pages with the paged kernel.
+
+    The token goes to slot ``(cache_len - 1) % page_size`` of page
+    ``page_table[b, (cache_len - 1) // page_size]``, which the allocator
+    gave it.  The pools are updated in place: the cache is never copied.
+    """
+    if cfg.sliding_window > 0:
+        raise NotImplementedError("the paged decode kernel has no sliding window")
+    B = x.shape[0]
+    q, k, v = _project_qkv(p, cfg, x)
+    pos = position.reshape(B, 1)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    page_size = k_pool.shape[1]
+    at = cache_len.long() - 1
+    page = page_table.long().gather(1, (at // page_size)[:, None])[:, 0]
+    slot = at % page_size
+    k_pool[page, slot] = k[:, 0].to(k_pool.dtype)
+    v_pool[page, slot] = v[:, 0].to(v_pool.dtype)
+    out = paged_ops.paged_attention(q[:, 0].to(k_pool.dtype), k_pool, v_pool,
+                                    page_table, cache_len)
+    return _out_proj(out.to(x.dtype)[:, None], p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_specs(cfg: Any, d_ff: Optional[int] = None) -> Dict[str, Spec]:
+    d = cfg.d_model
+    f = d_ff or cfg.d_ff
+    if cfg.act == "swiglu":
+        return {
+            "w_gate": Spec((d, f), ("embed", "mlp"), init="scaled"),
+            "w_up": Spec((d, f), ("embed", "mlp"), init="scaled"),
+            "w_down": Spec((f, d), ("mlp", "embed"), init="scaled"),
+        }
+    return {
+        "w_up": Spec((d, f), ("embed", "mlp"), init="scaled"),
+        "w_down": Spec((f, d), ("mlp", "embed"), init="scaled"),
+    }
+
+
+def mlp(p: Dict[str, torch.Tensor], cfg: Any, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = F.gelu(x @ p["w_up"], approximate="tanh")  # jax.nn.gelu's default
+    return h @ p["w_down"]

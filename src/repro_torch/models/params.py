@@ -1,0 +1,116 @@
+"""Minimal functional parameter system, as in the JAX package.
+
+Models declare parameters as ``Spec`` trees (shape + dtype + logical axis
+names + initializer); params are plain nested dicts of tensors keyed by the
+same paths as the JAX package's (``blocks/<pos>/mixer/wq``, ...), with the
+layers stacked over periods in the leading dimension.  From one spec tree:
+
+  - ``init_params``       — tensors drawn from a seeded ``torch.Generator``
+                            under the JAX package's init rules, on any
+                            device (the full-width weights are drawn on the
+                            card, leaf by leaf);
+  - ``params_from_numpy`` — the JAX package's own parameters, carried across
+                            as numpy arrays keyed by the same paths (the
+                            layout is the same, so this is a copy).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["Spec", "init_params", "params_from_numpy", "tree_map"]
+
+Tree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """Declaration of one parameter tensor."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # logical axis per dim (None = replicated)
+    init: str = "normal"  # normal | zeros | ones | scaled (fan-in)
+    scale: float = 1.0
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self) -> None:
+        if len(self.shape) != len(self.axes):
+            raise ValueError(
+                f"spec shape {self.shape} and axes {self.axes} rank mismatch"
+            )
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Tree) -> Tree:
+    """Apply ``fn`` to every leaf of a nested dict, keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _std(spec: Spec) -> float:
+    if spec.init == "normal":
+        return spec.scale
+    # fan-in scaled: the JAX package takes the fan-in from shape[-2], so a
+    # (d, H, hd) projection is scaled by H and a stacked (n, d) leaf by n
+    fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+    return spec.scale / math.sqrt(max(1, fan_in))
+
+
+def _init_one(spec: Spec, generator: torch.Generator, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init not in ("normal", "scaled"):
+        raise ValueError(f"unknown init {spec.init!r}")
+    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return x.mul_(_std(spec)).to(dtype)
+
+
+def init_params(
+    specs: Tree,
+    generator: torch.Generator,
+    dtype: Optional[torch.dtype] = None,
+    device: Optional[torch.device] = None,
+) -> Tree:
+    """Materialize a spec tree, leaf by leaf in sorted path order.
+
+    Draws are fp32 normals from ``generator`` (which must live on
+    ``device``), scaled, then cast to ``dtype`` (default: each spec's own).
+    The rules are the JAX package's; the numbers are not, since the two
+    frameworks' generators differ: to compare the two packages on the same
+    weights, use ``params_from_numpy``.
+    """
+    device = torch.device(device if device is not None else generator.device)
+
+    def build(tree: Tree) -> Tree:
+        if isinstance(tree, dict):  # sorted keys, as jax.tree.flatten
+            return {k: build(tree[k]) for k in sorted(tree)}
+        return _init_one(tree, generator, dtype or tree.dtype, device)
+
+    return build(specs)
+
+
+def params_from_numpy(
+    tree: Tree,
+    dtype: Optional[torch.dtype] = None,
+    device: Optional[torch.device] = None,
+) -> Tree:
+    """The JAX package's parameters (a pytree turned into numpy arrays,
+    keyed by the same ``Spec`` paths) as torch tensors on ``device``."""
+
+    def one(a: Any) -> torch.Tensor:
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":  # ml_dtypes; torch cannot read it
+            a = a.astype(np.float32)
+        t = torch.from_numpy(np.array(a))  # a writable copy
+        return t.to(device=device, dtype=dtype or t.dtype)
+
+    return tree_map(one, tree)

@@ -211,9 +211,15 @@ def _absolute_imports(path: Path):
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    port = ROOT / "src" / "repro_torch"
+    files = sorted(port.rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 30
+    # every subpackage of the port is scanned, the serving slice's included
+    scanned = {p.relative_to(port).parts[0] for p in files if port in p.parents}
+    assert {"configs", "core", "kernels", "launch", "models", "obs", "runtime",
+            "scenarios", "serving"} <= scanned
+    assert port / "kernels" / "paged_attention" / "ops.py" in files
     bad = [
         f"{p.relative_to(ROOT)}:{line} imports {mod}"
         for p in files
