@@ -9,8 +9,9 @@ It needs nothing built beforehand and imports nothing of the JAX package.
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. the card: name and power limit (``nvidia-smi``), torch and CUDA versions;
-2. the build: the grouped-matmul kernel from ``csrc/`` with ``nvcc`` for
-   ``sm_90a``;
+2. the build: the grouped-matmul, paged-attention and packed-attention
+   kernels from ``csrc/``, one ``nvcc`` each for ``sm_90a``, all started
+   together;
 3. the multiproc path: the port's ``run_live`` on the 40-image microscopy
    smoke stream, workers as forked OS processes each running the ``torch``
    payload on the card, once at the default payload size and once at full
@@ -19,35 +20,60 @@ Phases, in order; any failure raises and the script exits nonzero:
    to the master, and each run's launches are summed from a count of 0.
    It runs in a child process: this one has touched CUDA, and forked
    workers of such a process cannot use it;
-4. the kernel against its plain PyTorch version on the card, on the
-   kernel test shapes, empty and ragged bins and both payload shapes, with
-   the kernel's, the plain version's and ``torch.bmm``'s times beside the
-   card's bound;
-5. the slice at full size: ``run_live`` in-process on the full 767-image
-   microscopy stream, one grouped matmul of ``qwen3-moe-30b-a3b`` width per
-   message (128 experts, 128-row bins, d = f = 2048, f32), with the
-   kernel's launch count reset before the run and read after it.  Its
-   final worker target is held to that of a witness run of the ``sleep``
-   payload on the same stream and scale, made just before it.
-
+4. the grouped-matmul kernel against its plain PyTorch version on the
+   card, on the kernel test shapes, empty and ragged bins and both payload
+   shapes, with the kernel's, the plain version's and ``torch.bmm``'s times
+   beside the card's bound;
+5. the streaming slice at full size: ``run_live`` in-process on the full
+   767-image microscopy stream, one grouped matmul of
+   ``qwen3-moe-30b-a3b`` width per message (128 experts, 128-row bins,
+   d = f = 2048, f32), with the kernel's launch count reset before the run
+   and read after it.  Its final worker target is held to that of a witness
+   run of the ``sleep`` payload on the same stream and scale, made just
+   before it;
 6. the paged-decode-attention kernel against its plain version on the
    card at the serving run's decode shape (8 sequences of ragged lengths in
    64-1056 and one of 0, 32 query over 8 KV heads of 128, 16-token pages in
    a 1024-page pool, one -1 table entry inside a live range, NaN in every
    unreferenced page), f32 and bf16, with the kernel's, the plain
    version's and ``scaled_dot_product_attention``'s times beside the bound;
-   ``scaled_dot_product_attention`` is also timed, causal, at the prefill
-   shape, as the yardstick of the packed-attention kernel still to port;
-7. the serving entry point: ``launch.serve.run_local`` on ``qwen3-8b`` at
+7. the packed-attention kernels, forward and backward, against the
+   autograd of their plain version in bf16 (float32 on the card must raise
+   and launch nothing), at the train shape (the segment ids of the first
+   batch the ``StreamingPipeline`` packs at 4096 tokens, 4 rows, plus one
+   fully padded row; 16 heads of 128), at the first later batch of that
+   stream whose rows each hold two documents or more, and at the serving
+   prefill shape (8 x 1024, 32 query over 8 KV heads).  Output and
+   gradients are held by relative l2 over the whole tensor and over each
+   64-row tile of one head, beside the readings of two planted faults (a
+   key tile hidden, delta = 0 in dQ) that must exceed the limits; the
+   kernels', the plain version's and ``scaled_dot_product_attention``'s
+   (causal, forward and backward) times stand beside the bounds;
+8. the attention block at full width: the first layer's
+   ``layers.attention`` of ``olmo-1b`` and of ``qwen3-8b`` on that
+   multi-document batch, output and gradients of its input and its four
+   projections, against the same block built on the plain
+   ``flash_attention``;
+9. the serving entry point: ``launch.serve.run_local`` on ``qwen3-8b`` at
    full width and depth in bf16 (weights drawn on the card from a seed), 8
    prompts and 16 decode steps over a 1024-page First-Fit paged cache,
-   with the kernel's launches held to 36 layers x 16 steps;
-8. ragged serving: 8 prompts of 64-1024 tokens through ``prefill`` and 32
-   paged decode steps (launches held to 36 x 32), the First-Fit watermark,
-   and the first decode step's logits held to the port's own prefill of
-   prompt + token.
+   with the paged kernel's launches held to 36 layers x 16 steps and the
+   packed forward's to 36 in the prefill;
+10. ragged serving: 8 prompts of 64-1024 tokens through ``prefill`` (36
+   packed-forward launches) and 32 paged decode steps (launches held to
+   36 x 32), the First-Fit watermark, and the first decode step's logits
+   held to the port's own prefill of prompt + token, then two more decode
+   steps under ``torch.profiler``;
+11. training: ``launch.train.run`` on ``olmo-1b`` at full width and depth,
+   ``train_4k`` rows of 4096 tokens, batch 4, 8 steps, remat ``"nothing"``,
+   bf16 compute over fp32 masters, checkpointing into a temporary directory
+   it removes after; the packed kernels' launches held to 8 x 16 x 2
+   forward and 8 x 16 backward, then one more step under ``torch.profiler``.
 
 Each phase prints its wall time; a failing phase raises with its name.
+The serving phases run before training, so that no ``torch.profiler``
+session precedes their host-bound decode steps (the profiler may leave the
+host's launch path slower for the rest of the process).
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -90,6 +116,50 @@ DECODE = {"B": 8, "H": 32, "KVH": 8, "D": 128, "page_size": 16,
           "num_pages": 1024, "max_pages": 128}
 PAGED_TOLS = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}  # test_kernels TOLS
 PREFILL = {"B": 8, "S": 1024, "H": 32, "KVH": 8, "D": 128}  # the serving prefill
+# olmo-1b at train_4k: rows of 4096 tokens, 16 heads of 128 (MHA); the
+# global batch of 256 rows is cut to 4 for one card and the time limit
+TRAIN = {"B": 4, "S": 4096, "H": 16, "KVH": 16, "D": 128}
+TRAIN_STEPS = 8
+TRAIN_ARGV = ["--arch", "olmo-1b", "--shape", "train_4k", "--steps", str(TRAIN_STEPS),
+              "--batch-size", str(TRAIN["B"]), "--remat", "nothing",
+              "--ckpt-every", "1000"]
+# The packed kernels against the autograd of their plain version, in bf16
+# (the kernels take bf16 only; float32 on the card raises).  The output is
+# held elementwise to test_kernels' bf16 TOLS.  The output and the gradients
+# are also held by ``rel_l2`` (kernels/packed_attention/ref.py): the whole
+# tensor's ||err|| / ||ref||, and the worst of the same ratio over the
+# 64-row tiles of one head, so that an error confined to the later tiles,
+# whose entries are small beside the first queries' and keys', shows at its
+# own scale.  The kernels round p to bf16 before P.V, P and dS before the
+# backward's products, and take delta from the bf16 output, where the plain
+# version keeps fp32 until its own cast to bf16; bf16 keeps 8 significant
+# bits, so each rounding leaves about 2^-9 relative, independent between
+# entries.  On an H100 80GB HBM3 at 700 W the three shapes read 2.0e-3 to
+# 3.3e-3 whole and at most 4.4e-3 on a tile.
+# Two planted faults built from the plain version are read with the same
+# measure and must exceed the limits: a key tile hidden (a skipped tile;
+# it read 1.65e-2 whole and 0.26 on a tile at least) and delta = 0 in dQ
+# (0.45 whole at least).
+PACKED_TOLS = (2e-2, 2e-2)          # (rtol, atol), test_kernels TOLS in bf16
+PACKED_REL_L2 = (1e-2, 2e-2)        # (whole tensor, worst 64-row tile of a head)
+MULTI_SEGMENT_SEARCH = 16           # packed batches searched for 2+ documents a row
+# The attention block at full width in bf16 (phase 8), kernels against the
+# plain flash_attention, on that multi-document batch: both paths share the
+# bf16 projections, RoPE and norms, and their attention cores both round p
+# to bf16 before P.V; they differ in where the backward rounds (the kernels
+# round P and dS to bf16 for the tensor cores, the plain path rounds dP to
+# bf16 in its autograd) and in summation order.  The output and the input's
+# gradient are read per tensor and per 64-token tile, the four projections'
+# gradients per tensor.  olmo-1b's init gives large scores and a nearly
+# one-hot softmax, where bf16 is at its least accurate: there both bf16
+# paths sit 0.27 (whole) from the same block in fp32, and 8.3e-3 whole and
+# 1.1e-2 on a tile from each other (same card); qwen3-8b's qk-norm keeps
+# them within 6.8e-3 of fp32.  Hence twice the kernel limits, still far
+# under the planted faults' readings; and the kernels may be no further
+# from fp32 than FP32_RATIO x the plain path's distance (measured 1.00 and
+# below).
+BLOCK_REL_L2 = (2e-2, 4e-2)
+FP32_RATIO = 1.5
 SERVE_ARGV = ["--backend", "local", "--arch", "qwen3-8b", "--requests", "8",
               "--gen-tokens", "16", "--pages", "1024"]
 RAGGED_STEPS = 32
@@ -454,8 +524,7 @@ def _decode_inputs(torch, np, dtype):
 
 def paged_kernel_phase(torch, np):
     """Phase 6: the paged kernel against its plain version at the decode
-    shape; returns its record for the kernels line and the prefill
-    yardstick of the packed-attention kernel still to port."""
+    shape; returns its record for the kernels line."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention.kernel import paged_decode_attention
@@ -463,8 +532,6 @@ def paged_kernel_phase(torch, np):
         gather_pages,
         paged_attention_ref,
     )
-    from repro_torch.models.layers import flash_attention
-
     dev = torch.device("cuda")
     record = None
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
@@ -525,59 +592,457 @@ def paged_kernel_phase(torch, np):
                   "library_ms": library_ms}
         del k_d, v_d
 
-    # the yardstick of packed_flash_attention (ROADMAP queue 2 item 2) at the
-    # serving prefill shape: causal sdpa, and the port's plain flash path
-    B, S, H, KVH, D = (PREFILL[k] for k in ("B", "S", "H", "KVH", "D"))
-    gen = torch.Generator(device=dev).manual_seed(17)
-    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn((B, S, KVH, D), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((B, S, KVH, D), generator=gen, device=dev).to(torch.bfloat16)
-    seg = torch.ones((B, S), dtype=torch.int32, device=dev)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    sdpa_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20, flush)
-    flash_ms = _time_ms(torch, lambda: flash_attention(q, k, v, seg, seg), 5, flush)
-    flops = 4.0 * B * H * D * S * (S + 1) / 2  # the causal half, diagonal included
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KVH * D) + 2 * B * S * 4
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS["bfloat16"]
-    yardstick = {
-        "name": "packed_flash_attention (to port)", "shape": PREFILL,
-        "library_ms": sdpa_ms, "plain_ms": flash_ms,
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-    }
-    print(f"[paged] prefill yardstick: {json.dumps(yardstick)}")
     del flush
     torch.cuda.empty_cache()
-    return record, yardstick
+    return record
+
+
+def _train_batches():
+    """The batches the training pipeline packs for olmo-1b at 4096 tokens
+    (``launch/train.py``'s stream: the same documents, seed, rows)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import StreamingPipeline, synthetic_documents
+
+    S = TRAIN["S"]
+    return iter(StreamingPipeline(
+        synthetic_documents(get_config("olmo-1b").vocab_size, mean_len=S // 3,
+                            max_len=4 * S, seed=0),
+        seq_len=S, batch_size=TRAIN["B"], prefetch=0))
+
+
+def _multi_segment_batch():
+    """(index, batch): the first batch of that stream whose rows each hold
+    at least two documents, as most of the train run's rows do."""
+    for i, pb in zip(range(MULTI_SEGMENT_SEARCH), _train_batches()):
+        if (pb.segment_ids.max(axis=1) >= 2).all():
+            return i, pb
+    raise AssertionError(f"none of the first {MULTI_SEGMENT_SEARCH} packed batches "
+                         "holds two documents in every row")
+
+
+def _visible_pairs(np, seg):
+    """The (query, key) pairs causal packed attention must compute: per row
+    and segment id > 0 that occurs n times, n (n + 1) / 2."""
+    pairs = 0
+    for row in seg:
+        _, counts = np.unique(row[row > 0], return_counts=True)
+        pairs += int((counts * (counts + 1) // 2).sum())
+    return pairs
+
+
+def _packed_bound(kind, pairs, B, S, H, KVH, D, dtype):
+    """(bound ms, what bounds it) for the forward (``fwd``: S = QK^T and
+    P.V, 4 D flops per visible pair and head) or the backward (``bwd``: S
+    recomputed, dP, dV, dK, dQ, 10 D), each input read once and each output
+    written once."""
+    item = 4 if dtype == "float32" else 2
+    q_el, kv_el = B * S * H * D, B * S * KVH * D
+    seg_b, lse_b = 2 * B * S * 4, B * H * S * 4
+    if kind == "fwd":
+        flops = 4.0 * D * H * pairs
+        nbytes = (2 * q_el + 2 * kv_el) * item + seg_b + lse_b
+    else:
+        flops = 10.0 * D * H * pairs
+        nbytes = (4 * q_el + 4 * kv_el) * item + seg_b + lse_b
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _within(readings, limits) -> bool:
+    """Every (tensor, worst tile) reading within the (tensor, tile) limits."""
+    return all(w <= limits[0] and t <= limits[1] for w, t in readings.values())
+
+
+def _fmt(readings) -> str:
+    return "{" + ", ".join(f"{n} {w:.2e}/{t:.2e}" for n, (w, t) in readings.items()) + "}"
+
+
+def _plain_rows(torch, packed_ops, q, k, v, g, seg_q, seg_kv):
+    """The plain version's output and (dq, dk, dv), one row of the batch at
+    a time (its scores are dense fp32)."""
+    out, grads = torch.empty_like(q), [torch.empty_like(t) for t in (q, k, v)]
+    for b in range(q.shape[0]):
+        rs = [t[b:b + 1].clone().requires_grad_(True) for t in (q, k, v)]
+        ref = packed_ops.packed_attention_plain(*rs, seg_q[b:b + 1], seg_kv[b:b + 1])
+        ref.backward(g[b:b + 1])
+        out[b:b + 1] = ref.detach()
+        for i in range(3):
+            grads[i][b:b + 1] = rs[i].grad
+        del rs, ref
+    return out, grads
+
+
+def _planted_faults(torch, packed_ops, rel_l2, q, k, v, g, seg, ref_out, ref_grads):
+    """What the error measure reads for two faults a kernel could have,
+    built from the plain version: the key tile at S/2 hidden from every
+    query (a skipped tile: its dk and dv are 0, and the later queries of its
+    document lose it), and dQ taken with delta = 0 (dS = P dP instead of
+    P (dP - delta): dq + scale delta (P K), where P K is the attention
+    output with K for V)."""
+    S, D = q.shape[1], q.shape[3]
+    hidden = seg.clone()
+    hidden[:, S // 2:S // 2 + 64] = int(seg.max()) + 1  # an id no query holds
+    out_h, grads_h = _plain_rows(torch, packed_ops, q, k, v, g, seg, hidden)
+    tile = {n: rel_l2(a, b) for n, a, b in zip(
+        ("out", "dq", "dk", "dv"), (out_h, *grads_h), (ref_out, *ref_grads))}
+    del out_h, grads_h
+    dq0 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for b in range(q.shape[0]):
+        with torch.no_grad():
+            pk = packed_ops.packed_attention_plain(q[b:b + 1], k[b:b + 1], k[b:b + 1],
+                                                   seg[b:b + 1], seg[b:b + 1])
+        delta = (g[b:b + 1].float() * ref_out[b:b + 1].float()).sum(-1, keepdim=True)
+        dq0[b:b + 1] = ref_grads[0][b:b + 1].float() + delta * pk.float() / D ** 0.5
+    return {"key tile hidden": tile, "delta = 0": {"dq": rel_l2(dq0, ref_grads[0])}}
+
+
+def packed_kernel_phase(torch, np):
+    """Phase 7: the packed kernels against the autograd of their plain
+    version at the train shapes and the prefill shape; returns the first
+    train shape's records (forward, backward) for the kernels line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.packed_attention import kernel as pk
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+    from repro_torch.kernels.packed_attention.ref import rel_l2
+
+    dev = torch.device("cuda")
+    # the kernels take bf16 only: f32 on the card raises and launches nothing
+    z = torch.zeros((1, 64, 1, 64), device=dev)
+    ones = torch.ones((1, 64), dtype=torch.int32, device=dev)
+    before = (packed_ops.launches_fwd, packed_ops.launches_bwd)
+    try:
+        packed_ops.packed_attention(z, z, z, ones, ones)
+        refused = False
+    except TypeError:
+        refused = True
+    if not refused or (packed_ops.launches_fwd, packed_ops.launches_bwd) != before:
+        raise AssertionError("float32 on the card did not raise, or launched")
+    print("[packed] float32 on the card: TypeError, no launch")
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    first = np.concatenate([next(_train_batches()).segment_ids,
+                            np.zeros((1, TRAIN["S"]), np.int32)])  # + a padded row
+    multi_idx, multi = _multi_segment_batch()
+    shapes = (("train", dict(TRAIN, B=TRAIN["B"] + 1), first),
+              (f"train batch {multi_idx}", TRAIN, multi.segment_ids),
+              ("prefill", PREFILL, np.ones((PREFILL["B"], PREFILL["S"]), np.int32)))
+    rtol, atol = PACKED_TOLS
+    records = {}
+    for shape_name, shp, seg_np in shapes:
+        B, S, H, KVH, D = (shp[k] for k in ("B", "S", "H", "KVH", "D"))
+        seg = torch.tensor(seg_np, device=dev)
+        pairs = _visible_pairs(np, seg_np)
+        print(f"[packed] {shape_name}: B={B} S={S} H={H} KVH={KVH} D={D}; "
+              f"segments per row {[int(r.max()) for r in seg_np]}; visible pairs "
+              f"{pairs} of {B * S * (S + 1) // 2} causal")
+        gen = torch.Generator(device=dev).manual_seed(23)
+        q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                      for shape in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D),
+                                    (B, S, H, D)))
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = packed_ops.packed_attention(*ts, seg, seg)
+        out.backward(g)
+        out, grads = out.detach(), [t.grad for t in ts]
+        del ts
+        ref_out, ref_grads = _plain_rows(torch, packed_ops, q, k, v, g, seg, seg)
+        err_out = (out.float() - ref_out.float()).abs().max().item()
+        err_g = [(a.float() - b.float()).abs().max().item()
+                 for a, b in zip(grads, ref_grads)]
+        readings = {n: rel_l2(a, b) for n, a, b in zip(
+            ("out", "dq", "dk", "dv"), (out, *grads), (ref_out, *ref_grads))}
+        faults = _planted_faults(torch, packed_ops, rel_l2, q, k, v, g, seg,
+                                 ref_out, ref_grads)
+        checks = {
+            "out within TOLS": torch.allclose(out.float(), ref_out.float(),
+                                              rtol=rtol, atol=atol),
+            f"out, dq, dk, dv within rel l2 {PACKED_REL_L2}": _within(
+                readings, PACKED_REL_L2),
+            "each planted fault reads above the limits": all(
+                not _within(f, PACKED_REL_L2) for f in faults.values()),
+            "finite": all(bool(torch.isfinite(t).all()) for t in (out, *grads)),
+        }
+        pad = seg == 0
+        if bool(pad.all(dim=1).any()):
+            checks["padded row: output and gradients 0"] = bool(
+                (out[pad] == 0).all()) and all(bool((t[pad] == 0).all()) for t in grads)
+        print(f"[packed] {shape_name} bf16: max_abs_err out {err_out:.3e}, dq/dk/dv "
+              f"{[f'{e:.3e}' for e in err_g]}; rel l2 (tensor/worst tile) "
+              f"{_fmt(readings)}; planted faults " + "; ".join(
+                  f"{n} {_fmt(f)}" for n, f in faults.items()) + f" {checks}")
+        if not all(checks.values()):
+            raise AssertionError(f"packed kernels disagree with their plain version "
+                                 f"at the {shape_name} shape: {checks}")
+        del out, grads, ref_out, ref_grads
+        torch.cuda.empty_cache()
+        # times, bounds and the library yardstick
+        o, lse = pk.packed_flash_attention(q, k, v, seg, seg)
+        reps = 5
+        fwd_ms = _time_ms(torch, lambda: pk.packed_flash_attention(q, k, v, seg, seg),
+                          reps, flush)
+        bwd_ms = _time_ms(torch, lambda: pk.packed_flash_attention_bwd(
+            q, k, v, seg, seg, o, g, lse), reps, flush)
+        ps = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        with torch.no_grad():
+            plain_fwd_ms = _time_ms(torch, lambda: packed_ops.packed_attention_plain(
+                *ps, seg, seg), 3, flush)
+        ref = packed_ops.packed_attention_plain(*ps, seg, seg)
+        plain_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
+            ref, ps, g, retain_graph=True), 3, flush)
+        del ref, ps
+        torch.cuda.empty_cache()
+        hs = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+        gt = g.transpose(1, 2).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*hs, is_causal=True,
+                                                  enable_gqa=H != KVH)
+
+        with torch.no_grad():
+            sdpa_fwd_ms = _time_ms(torch, sdpa, reps, flush)
+        sd = sdpa()
+        sdpa_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
+            sd, hs, gt, retain_graph=True), reps, flush)
+        fwd_again = _time_ms(torch, lambda: pk.packed_flash_attention(q, k, v, seg, seg),
+                             reps, flush)
+        del sd, hs, o, lse
+        fb, fb_by = _packed_bound("fwd", pairs, B, S, H, KVH, D, "bfloat16")
+        bb, bb_by = _packed_bound("bwd", pairs, B, S, H, KVH, D, "bfloat16")
+        useful = 4.0 * D * H * pairs
+        print(f"[packed] {shape_name} bf16: forward {fwd_ms:.4f} ms (again "
+              f"{fwd_again:.4f}; {useful / fwd_ms / 1e9:.1f} TFLOP/s of visible "
+              f"work), plain {plain_fwd_ms:.4f} ms, sdpa causal {sdpa_fwd_ms:.4f} ms, "
+              f"bound {fb:.4f} ms ({fb_by}); backward {bwd_ms:.4f} ms "
+              f"({2.5 * useful / bwd_ms / 1e9:.1f} TFLOP/s), plain {plain_bwd_ms:.4f} ms, "
+              f"sdpa causal {sdpa_bwd_ms:.4f} ms, bound {bb:.4f} ms ({bb_by})")
+        records[shape_name] = (
+            {"max_abs_err": err_out, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+             "bound_ms": fb, "bound_by": fb_by, "library_ms": sdpa_fwd_ms},
+            {"max_abs_err": max(err_g), "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+             "bound_ms": bb, "bound_by": bb_by, "library_ms": sdpa_bwd_ms},
+        )
+        del q, k, v, g
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return records["train"]
+
+
+def block_phase(torch, np):
+    """Phase 8: the first layer's attention block of olmo-1b and qwen3-8b at
+    full width on a packed batch whose rows each hold several documents,
+    through the kernels (``layers.attention`` on CUDA tensors) and through
+    the plain ``flash_attention``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+    from repro_torch.kernels.packed_attention.ref import rel_l2
+    from repro_torch.models.layers import (
+        _out_proj,
+        _project_qkv,
+        attention,
+        attention_specs,
+        flash_attention,
+        rope,
+    )
+    from repro_torch.models.params import init_params
+
+    dev = torch.device("cuda")
+    idx, pb = _multi_segment_batch()
+    seg = torch.tensor(pb.segment_ids, device=dev)
+    pos = torch.tensor(pb.positions, device=dev)
+    B, S = seg.shape
+    print(f"[block] batch {idx} of the train stream: segments per row "
+          f"{[int(r.max()) for r in pb.segment_ids]}")
+    for arch in ("olmo-1b", "qwen3-8b"):
+        cfg = get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(29)
+        p = init_params(attention_specs(cfg), gen, torch.bfloat16, dev)
+        x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+
+        def kernels(pp, xx):
+            return attention(pp, cfg, xx, seg, pos)[0]
+
+        def plain(pp, xx):
+            q, k, v = _project_qkv(pp, cfg, xx)
+            q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
+            out = flash_attention(q, k, v, seg, seg, window=cfg.sliding_window)
+            return _out_proj(out, pp["wo"])
+
+        def run(block, dtype=torch.bfloat16):
+            pp = {n: t.to(dtype) for n, t in p.items()}
+            ws = {n: pp[n].clone().requires_grad_(True) for n in ("wq", "wk", "wv", "wo")}
+            xx = x.to(dtype, copy=True).requires_grad_(True)
+            out = block(dict(pp, **ws), xx)
+            out.backward(g.to(dtype))
+            return {"out": out.detach(), "dx": xx.grad,
+                    **{n: w.grad for n, w in ws.items()}}
+
+        def readings(a, b):
+            # (B, S, d) in 64-token tiles; the weight gradients as whole tensors
+            return {n: rel_l2(a[n].unsqueeze(2), b[n].unsqueeze(2))
+                    if n in ("out", "dx") else rel_l2(a[n], b[n], block=0) for n in a}
+
+        packed_ops.launches_fwd = packed_ops.launches_bwd = 0
+        got = run(kernels)
+        torch.cuda.synchronize()
+        launches = (packed_ops.launches_fwd, packed_ops.launches_bwd)
+        want = run(plain)
+        exact = run(plain, torch.float32)  # the same block in fp32: the yardstick
+        torch.cuda.synchronize()
+        vs_plain, vs_fp32 = readings(got, want), readings(got, exact)
+        plain_vs_fp32 = readings(want, exact)
+        checks = {f"kernels vs plain within rel l2 {BLOCK_REL_L2}":
+                  _within(vs_plain, BLOCK_REL_L2),
+                  f"kernels within {FP32_RATIO}x the plain path's distance to fp32":
+                  all(w <= FP32_RATIO * pw and t <= FP32_RATIO * pt for (w, t), (pw, pt)
+                      in zip(vs_fp32.values(), plain_vs_fp32.values())),
+                  "finite": all(bool(torch.isfinite(t).all()) for t in got.values()),
+                  "one forward, one backward launch": launches == (1, 1)}
+        print(f"[block] {arch} (H={cfg.n_heads}, KVH={cfg.n_kv_heads}, "
+              f"qk_norm={cfg.qk_norm}): rel l2 (tensor/worst tile) kernels vs plain "
+              f"{_fmt(vs_plain)}; kernels vs fp32 {_fmt(vs_fp32)}; plain vs fp32 "
+              f"{_fmt(plain_vs_fp32)} {checks}")
+        if not all(checks.values()):
+            raise AssertionError(f"the {arch} attention block disagrees with the "
+                                 f"plain flash path: {checks}")
+        del p, x, g, got, want, exact
+        torch.cuda.empty_cache()
+
+
+def _profile_train_step(torch, step_fn, params, opt_state, batch):
+    """Device time of one more train step by kernel, from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels.append((us / 1e3, e.count, e.key))
+    kernels.sort(reverse=True)
+    device_ms = sum(ms for ms, _, _ in kernels)
+    packed = {name: sum(ms for ms, _, key in kernels if name in key)
+              for name in ("packed_attn_fwd", "packed_attn_dkdv", "packed_attn_dq",
+                           "packed_attn_delta")}
+    return {
+        "device_ms": device_ms,
+        "profiled_wall_ms": wall_ms,
+        "kernel_launches": sum(n for _, n, _ in kernels),
+        "packed_kernels_ms": packed,
+        "top_kernels_ms": [[key[:60], ms] for ms, _, key in kernels[:8]],
+    }
+
+
+def train_phase(torch, np):
+    """Phase 11: olmo-1b training at full width and depth through
+    ``launch.train.run``; returns the packed kernels' (forward, backward)
+    launches of the controller's steps."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+    from repro_torch.launch import train
+
+    cfg = get_config("olmo-1b")
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build")
+    seen: dict = {}
+
+    def after_run(step_fn, params, opt_state, batches):
+        # the controller's steps are done: read the counts, then profile
+        seen["launches"] = (packed_ops.launches_fwd, packed_ops.launches_bwd)
+        seen["profile"] = _profile_train_step(torch, step_fn, params, opt_state,
+                                              next(batches))
+
+    try:
+        packed_ops.launches_fwd = packed_ops.launches_bwd = 0
+        stats = train.run(train.parse_args(TRAIN_ARGV + ["--ckpt-dir", ckpt_dir]),
+                          after_run=after_run)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    fwd, bwd = seen["launches"]
+    prof = seen["profile"]
+    prof["device_busy_share"] = prof["device_ms"] / stats["step_ms_p50"]
+    ck = stats["checkpoint"]
+    print("[train] " + json.dumps({
+        "arch": stats["arch"], "seq_len": stats["seq_len"],
+        "batch_size": stats["batch_size"], "steps": stats["steps"],
+        "step_ms": stats["step_ms"], "step_ms_p50": stats["step_ms_p50"],
+        "tokens_per_s": stats["tokens_per_s"],
+        "tokens_per_s_p50_step": stats["tokens_per_s_p50_step"],
+        "losses": stats["losses"],
+        "grad_norms": stats["grad_norms"], "launches_fwd": fwd, "launches_bwd": bwd,
+        "segments_per_row": stats["segments_per_row"], "token_fill": stats["token_fill"],
+        "peak_device_mem_gib": stats["peak_device_mem_gib"],
+        "checkpoint_gb": ck.get("bytes", 0) / 1e9,
+        "checkpoint_snapshot_s": ck.get("snapshot_s"),
+        "checkpoint_write_s": ck.get("write_s"),
+    }))
+    print("[train] step profile: " + json.dumps(prof))
+    n = cfg.n_layers * TRAIN_STEPS
+    checks = {
+        "8 steps": stats["steps"] == TRAIN_STEPS == len(stats["losses"]),
+        "losses and grad norms finite": bool(np.isfinite(stats["losses"]).all()
+                                             and np.isfinite(stats["grad_norms"]).all()),
+        f"forward launches == {n} x 2": fwd == 2 * n,
+        f"backward launches == {n}": bwd == n,
+        "rows hold several segments": stats["segments_per_row"] >= 2,
+        "the final checkpoint was written": ck.get("step") == TRAIN_STEPS
+        and ck.get("write_s") is not None,
+    }
+    print(f"[train] checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"training: {checks}")
+    torch.cuda.empty_cache()
+    return fwd, bwd
 
 
 def serve_phase(torch):
-    """Phase 7: the serving entry point at full width; returns its launches."""
+    """Phase 9: the serving entry point at full width; returns the paged
+    kernel's launches and the packed forward's."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.packed_attention import ops as packed_ops
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.launch import serve
 
     cfg = get_config("qwen3-8b")
     torch.cuda.reset_peak_memory_stats()
     ops.launches = 0
+    packed_ops.launches_fwd = packed_ops.launches_bwd = 0
     stats = serve.run_local(serve.parse_args(SERVE_ARGV))
     launches = ops.launches
+    packed = (packed_ops.launches_fwd, packed_ops.launches_bwd)
     want = cfg.n_layers * stats["gen_tokens"]
     peak = torch.cuda.max_memory_allocated() / 2**30
     print("[serve] " + json.dumps({
-        "launches": launches, "prefill_s": stats["prefill_s"],
+        "launches": launches, "packed_launches_fwd_bwd": packed,
+        "prefill_s": stats["prefill_s"],
         "decode_ms_per_step": stats["decode_s"] / stats["gen_tokens"] * 1e3,
         "tokens_per_s": stats["sequences"] * stats["gen_tokens"] / stats["seconds"],
         "peak_device_mem_gib": peak, "pages_used": stats["pages_used"],
     }))
     if launches != want:
         raise AssertionError(f"{launches} paged-kernel launches, want {want}")
+    if packed != (cfg.n_layers, 0):
+        raise AssertionError(f"packed-attention launches (forward, backward) "
+                             f"{packed}, want ({cfg.n_layers}, 0): one prefill")
     if not stats["logits_finite"] or stats["tokens"].shape != (8, 17):
         raise AssertionError(f"bad output: finite={stats['logits_finite']}, "
                              f"tokens {tuple(stats['tokens'].shape)}")
     torch.cuda.empty_cache()
-    return launches
+    return launches, packed[0]
 
 
 def _profile_decode(torch, model, params, tok, cache, step_wall_ms):
@@ -616,9 +1081,10 @@ def _profile_decode(torch, model, params, tok, cache, step_wall_ms):
 
 
 def ragged_phase(torch, np):
-    """Phase 8: ragged prompts through prefill and paged decode at full
-    width; returns the decode launches."""
+    """Phase 10: ragged prompts through prefill and paged decode at full
+    width; returns the decode launches and the packed forward's."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.packed_attention import ops as packed_ops
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.launch import serve
     from repro_torch.models import build_model
@@ -653,11 +1119,13 @@ def ragged_phase(torch, np):
 
     cache = new_cache()
     torch.cuda.synchronize()
+    packed_ops.launches_fwd = packed_ops.launches_bwd = 0
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, batch(S), cache)
     tok = serve.greedy(logits)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_packed = (packed_ops.launches_fwd, packed_ops.launches_bwd)
 
     ops.launches = 0
     finite = torch.isfinite(logits).all()
@@ -696,7 +1164,8 @@ def ragged_phase(torch, np):
         "decode_ms_per_step": decode_s * 1e3 / RAGGED_STEPS,
         "decode_ms_p50": sorted(step_ms)[RAGGED_STEPS // 2],
         "tokens_per_s": B * RAGGED_STEPS / decode_s,
-        "launches": launches, "watermark": watermark, "pages_used": used,
+        "launches": launches, "prefill_packed_launches_fwd_bwd": prefill_packed,
+        "watermark": watermark, "pages_used": used,
         "pages_needed": need, "utilization": alloc.utilization(),
         "first_step_max_abs_dlogit": delta, "max_abs_logit": scale,
         "first_step_rel_l2": rel_l2, "peak_device_mem_gib": peak,
@@ -705,6 +1174,8 @@ def ragged_phase(torch, np):
     checks = {
         f"launches == {cfg.n_layers} x {RAGGED_STEPS}":
             launches == cfg.n_layers * RAGGED_STEPS,
+        f"prefill: {cfg.n_layers} packed forward launches":
+            prefill_packed == (cfg.n_layers, 0),
         "all logits finite": bool(finite),
         "First-Fit keeps the pool dense": watermark == used == need,
         f"first step within {FIRST_STEP_TOL} of max |logit|":
@@ -715,7 +1186,7 @@ def ragged_phase(torch, np):
         raise AssertionError(f"ragged serving: {checks}")
     del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, prefill_packed[0]
 
 
 def main() -> None:
@@ -746,6 +1217,7 @@ def main() -> None:
 
     # 2. the build: one nvcc per source, all started together
     from repro_torch.kernels.grouped_matmul import kernel as gmm_kernel
+    from repro_torch.kernels.packed_attention import kernel as packed_kernel
     from repro_torch.kernels.paged_attention import kernel as paged_kernel
 
     def timed_build(kernel):
@@ -753,8 +1225,9 @@ def main() -> None:
         return kernel.build(), time.perf_counter() - t0
 
     with _phase("build"):
-        with ThreadPoolExecutor(2) as pool:
-            builds = list(pool.map(timed_build, (gmm_kernel, paged_kernel)))
+        kernels = (gmm_kernel, paged_kernel, packed_kernel)
+        with ThreadPoolExecutor(len(kernels)) as pool:
+            builds = list(pool.map(timed_build, kernels))
         for lib, secs in builds:
             print(f"[build] {lib.relative_to(ROOT)} in {secs:.2f} s")
 
@@ -784,15 +1257,27 @@ def main() -> None:
 
     # 6. the paged kernel against its plain version
     with _phase("kernel paged_attention"):
-        paged_record, _ = paged_kernel_phase(torch, np)
+        paged_record = paged_kernel_phase(torch, np)
 
-    # 7. the serving entry point at full width
+    # 7. the packed-attention kernels against their plain version
+    with _phase("kernel packed_attention"):
+        packed_fwd_record, packed_bwd_record = packed_kernel_phase(torch, np)
+
+    # 8. the attention block at full width, kernels against the plain path
+    with _phase("attention block"):
+        block_phase(torch, np)
+
+    # 9. the serving entry point at full width
     with _phase("serve run_local"):
-        serve_launches = serve_phase(torch)
+        serve_launches, serve_packed = serve_phase(torch)
 
-    # 8. ragged prompts through prefill and paged decode
+    # 10. ragged prompts through prefill and paged decode
     with _phase("ragged serve"):
-        ragged_launches = ragged_phase(torch, np)
+        ragged_launches, ragged_packed = ragged_phase(torch, np)
+
+    # 11. training at full width and depth
+    with _phase("train"):
+        train_fwd, train_bwd = train_phase(torch, np)
 
     print(json.dumps({"kernels": [{
         "name": "grouped_matmul",
@@ -814,6 +1299,24 @@ def main() -> None:
         "launches_by_path": {"serve run_local": serve_launches,
                              "ragged serve": ragged_launches},
         **paged_record,
+    }, {
+        "name": "packed_flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/packed_attention/csrc/packed_attention.cu",
+        "replaces": "src/repro/kernels/packed_attention/kernel.py:39",
+        "launches": train_fwd,
+        "launches_by_path": {"train": train_fwd, "serve run_local": serve_packed,
+                             "ragged serve": ragged_packed},
+        **packed_fwd_record,
+    }, {
+        "name": "packed_flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/packed_attention/csrc/packed_attention.cu",
+        "replaces": "src/repro/models/layers.py:147",
+        "launches": train_bwd,
+        "launches_by_path": {"train": train_bwd, "serve run_local": 0,
+                             "ragged serve": 0},
+        **packed_bwd_record,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,0 +1,176 @@
+"""Build and bind the Hopper packed-flash-attention kernels
+(``csrc/packed_attention.cu``): the forward, and the backward that computes
+dQ, dK and dV from the forward's output and row logsumexps.  They take
+bf16 tensors (the training and serving dtype) and run their products on the
+tensor cores (``mma.sync``), with the softmax and every sum in fp32; any
+other dtype raises.  The plain version (``ref.py``) is the CPU path and the
+oracle on the card.
+
+Both take the model's layout, q ``(B, Sq, H, D)`` and k, v ``(B, Skv, KVH,
+D)`` with KV head ``h // (H // KVH)`` indexed in the kernel (never
+repeated), and need no padding: ragged tails are masked inside.  The source
+is compiled on first use (``kernels/nvcc.py``) and loaded with ``ctypes``;
+nothing GPU-specific happens at import, so CPU-only hosts import this
+module too.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from ..nvcc import build_library
+
+__all__ = ["build", "packed_flash_attention", "packed_flash_attention_bwd",
+           "SOURCE", "HEAD_DIMS"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "packed_attention.cu"
+HEAD_DIMS = (16, 32, 64, 128)   # the kernels' template instances
+_MAX_GRID_YZ = 65535
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def build() -> Path:
+    """Compile the kernels if this source has no library yet; return its path."""
+    return build_library(SOURCE)
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.packed_attn_fwd.argtypes = [ptr] * 7 + [i32] * 8 + [ctypes.c_float, ptr]
+            lib.packed_attn_fwd.restype = i32
+            lib.packed_attn_bwd.argtypes = [ptr] * 12 + [i32] * 8 + [ctypes.c_float, ptr]
+            lib.packed_attn_bwd.restype = i32
+            lib.packed_attn_error_string.argtypes = [i32]
+            lib.packed_attn_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           seg_q: torch.Tensor, seg_kv: torch.Tensor,
+           **extra: torch.Tensor) -> Tuple[int, int, int, int, int, int]:
+    """Raise on any input the kernels do not take; return the shape."""
+    named = (("q", q), ("k", k), ("v", v), ("segment_ids_q", seg_q),
+             ("segment_ids_kv", seg_kv), *extra.items())
+    for name, t in named:
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if not all(t.device == q.device for _, t in named):
+        raise ValueError("all inputs must be on one device")
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        raise TypeError(f"the kernels take bfloat16 q, k, v, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if seg_q.dtype != torch.int32 or seg_kv.dtype != torch.int32:
+        raise TypeError(f"segment ids must be int32, got {seg_q.dtype}, {seg_kv.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"want q (B, Sq, H, D) and k, v (B, Skv, KVH, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    _, Skv, KVH, Dk = k.shape
+    if (k.shape[0] != B or Dk != D or tuple(seg_q.shape) != (B, Sq)
+            or tuple(seg_kv.shape) != (B, Skv)):
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, segment ids "
+            f"{tuple(seg_q.shape)}, {tuple(seg_kv.shape)}")
+    if KVH == 0 or H % KVH:
+        raise ValueError(f"H = {H} is not a multiple of KVH = {KVH}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernels take head dims {HEAD_DIMS}, got {D}")
+    if max(H, B) > _MAX_GRID_YZ:
+        raise ValueError(f"at most {_MAX_GRID_YZ} heads and rows, got H={H}, B={B}")
+    for name, t in extra.items():
+        if t.dtype != (torch.float32 if name == "lse" else q.dtype):
+            raise TypeError(f"{name} has dtype {t.dtype}")
+    return B, Sq, Skv, H, KVH, D
+
+
+def _raise_on(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"packed-attention {what} launch failed: "
+                           f"{_library().packed_attn_error_string(code).decode()}")
+
+
+def packed_flash_attention(
+    q: torch.Tensor,               # (B, Sq, H, D)
+    k: torch.Tensor,               # (B, Skv, KVH, D)
+    v: torch.Tensor,               # (B, Skv, KVH, D)
+    segment_ids_q: torch.Tensor,   # (B, Sq) int32, 0 = padding
+    segment_ids_kv: torch.Tensor,  # (B, Skv) int32
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward on the current stream.
+
+    Returns ``out`` (B, Sq, H, D) in q's dtype and ``lse`` (B, H, Sq) fp32,
+    each row's logsumexp of its scaled visible scores (+inf for a row that
+    sees no key).  Raises on any input it does not take and on a launch the
+    driver refuses; it never falls back to the plain version.
+    """
+    B, Sq, Skv, H, KVH, D = _check(q, k, v, segment_ids_q, segment_ids_kv)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    lib = _library()
+    with torch.cuda.device(q.device):
+        code = lib.packed_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            segment_ids_q.data_ptr(), segment_ids_kv.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, Sq, Skv, H, KVH, D, int(causal), int(window),
+            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+    _raise_on(code, "forward")
+    return out, lse
+
+
+def packed_flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_ids_q: torch.Tensor,
+    segment_ids_kv: torch.Tensor,
+    out: torch.Tensor,             # the forward's output
+    dout: torch.Tensor,            # the gradient of the loss by out
+    lse: torch.Tensor,             # the forward's (B, H, Sq) logsumexps
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward on the current stream: (dq, dk, dv) in the
+    inputs' dtype and layouts.  Three kernels run: delta = rowsum(dO * O),
+    then dK/dV and dQ."""
+    B, Sq, Skv, H, KVH, D = _check(q, k, v, segment_ids_q, segment_ids_kv,
+                                   out=out, dout=dout, lse=lse)
+    if out.shape != q.shape or dout.shape != q.shape or tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)} and lse "
+                         f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        code = lib.packed_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            segment_ids_q.data_ptr(), segment_ids_kv.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KVH, D, int(causal),
+            int(window), 1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+    _raise_on(code, "backward")
+    return dq, dk, dv

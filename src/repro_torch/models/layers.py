@@ -1,11 +1,14 @@
 """Core transformer layers: norms, RoPE, chunked flash attention, MLP, and
 decode attention over the First-Fit paged KV cache.
 
-The prefill attention is the JAX package's chunked online-softmax (flash)
-form in plain PyTorch: peak memory is O(chunk^2) instead of O(S^2), and it
-takes the segment-ID masks of the First-Fit sequence packer, GQA and
-sliding windows.  Decode attends one new token per sequence against its
-pages through ``kernels.paged_attention`` (the Hopper kernel on the card).
+Full-sequence attention (training and prefill) runs on the card through
+``kernels.packed_attention``: the Hopper forward and backward kernels, with
+the segment-ID masks of the First-Fit sequence packer, GQA and sliding
+windows.  On the CPU it is the JAX package's chunked online-softmax (flash)
+form in plain PyTorch (``flash_attention``): peak memory O(chunk^2) instead
+of O(S^2), differentiable by autograd.  Decode attends one new token per
+sequence against its pages through ``kernels.paged_attention`` (the Hopper
+kernel on the card).
 
 Conventions (the JAX package's):
   q: (B, S, H, D)   k/v: (B, S, KVH, D)   segment_ids: (B, S) int32, 0 = pad
@@ -23,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.packed_attention import ops as packed_ops
 from ..kernels.paged_attention import ops as paged_ops
 from .params import Spec
 
@@ -124,7 +128,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Chunked flash attention (plain PyTorch; the prefill path)
+# Chunked flash attention (plain PyTorch; the CPU path)
 # ---------------------------------------------------------------------------
 
 
@@ -297,12 +301,18 @@ def attention(
     segment_ids: torch.Tensor,  # (B, S)
     positions: torch.Tensor,    # (B, S)
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Causal full-sequence self-attention (prefill).  Returns (out, (k, v))."""
+    """Causal full-sequence self-attention (training and prefill).  Returns
+    (out, (k, v)).  On the card the attention core is the packed-attention
+    kernels (differentiable); on the CPU, the plain chunked flash path."""
     q, k, v = _project_qkv(p, cfg, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = flash_attention(q, k, v, segment_ids, segment_ids,
-                          window=cfg.sliding_window)
+    if x.device.type == "cpu":
+        out = flash_attention(q, k, v, segment_ids, segment_ids,
+                              window=cfg.sliding_window)
+    else:  # the Hopper kernels, or a raise: never the plain version
+        out = packed_ops.packed_attention(q, k, v, segment_ids, segment_ids,
+                                          window=cfg.sliding_window)
     return _out_proj(out, p["wo"]), (k, v)
 
 

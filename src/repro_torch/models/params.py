@@ -18,12 +18,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["Spec", "init_params", "params_from_numpy", "tree_map"]
+__all__ = ["Spec", "init_params", "params_from_numpy", "tree_map", "tree_paths",
+           "tree_leaves", "tree_unflatten"]
 
 Tree = Any
 
@@ -45,11 +46,41 @@ class Spec:
             )
 
 
-def tree_map(fn: Callable[[Any], Any], tree: Tree) -> Tree:
-    """Apply ``fn`` to every leaf of a nested dict, keeping its structure."""
+def tree_map(fn: Callable[..., Any], tree: Tree, *rest: Tree) -> Tree:
+    """Apply ``fn`` to every leaf of a nested dict (and the same leaf of
+    each tree in ``rest``, which share its structure), keeping the
+    structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_paths(tree: Tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[Tuple[str, ...], Any]]:
+    """(key path, leaf) pairs in sorted key order, as ``jax.tree.flatten``
+    orders the leaves of nested dicts."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree) for pair in tree_paths(tree[k], prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def tree_leaves(tree: Tree) -> List[Any]:
+    return [leaf for _, leaf in tree_paths(tree)]
+
+
+def tree_unflatten(template: Tree, leaves: List[Any]) -> Tree:
+    """A tree shaped like ``template`` (empty dicts included) holding
+    ``leaves`` in the order of ``tree_paths(template)``."""
+    it = iter(leaves)
+
+    def build(tree: Tree) -> Tree:
+        if isinstance(tree, dict):
+            return {k: build(tree[k]) for k in sorted(tree)}
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
 
 
 def _std(spec: Spec) -> float:

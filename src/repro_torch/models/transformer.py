@@ -1,27 +1,40 @@
-"""Decoder-only LM assembled from an ``ArchConfig``: the dense serving path.
+"""Decoder-only LM assembled from an ``ArchConfig``: the dense training and
+serving paths.
 
 Parameters keep the JAX package's layout: each position of the layer
 pattern is a dict of tensors stacked over periods, so the JAX package's
 parameters carry across as a copy (``params.params_from_numpy``).  The
-layer stack is a Python loop over periods with the pattern unrolled inside.
+layer stack is a Python loop over periods with the pattern unrolled inside;
+each stacked leaf is unbound once per call, so autograd stacks its
+gradient once rather than once per layer.
 
-Serving entry points, with the JAX package's argument order and returns:
+Entry points, with the JAX package's argument order and returns:
+  - ``loss``        : training forward + chunked cross-entropy, over rows
+                      the First-Fit sequence packer fills with documents;
   - ``prefill``     : full-sequence forward; writes every valid token's K/V
                       into the pages the First-Fit allocator gives its row;
   - ``decode_step`` : one new token per sequence, attending over its pages
                       through the paged-attention kernel.
-The cache is the paged one (``init_paged_cache``): a K pool and a V pool
-``(n_layers, num_pages, page_size, KVH, D)``, the port's ``PageAllocator``,
-the active sequence ids and their lengths.  Both entry points update it in
-place and return it.
+On the card, ``loss`` and ``prefill`` attend through the packed-attention
+kernels (``layers.attention``).  The cache is the paged one
+(``init_paged_cache``): a K pool and a V pool ``(n_layers, num_pages,
+page_size, KVH, D)``, the port's ``PageAllocator``, the active sequence ids
+and their lengths.  Both serving entry points update it in place and return
+it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..kernels.paged_attention.ops import page_table_from_allocator
 from ..serving.kv_cache import PageAllocator, PagedCacheLayout
@@ -36,12 +49,64 @@ from .layers import (
 )
 from .params import Spec, tree_map
 
-__all__ = ["DecoderLM", "pad_vocab"]
+__all__ = ["DecoderLM", "chunked_cross_entropy", "pad_vocab"]
 
 
 def pad_vocab(v: int, multiple: int = 256) -> int:
     """Pad vocab to a multiple of 256, as the JAX package does."""
     return ((v + multiple - 1) // multiple) * multiple
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy (never materializes (B, S, V) logits)
+# ---------------------------------------------------------------------------
+
+
+def _chunk_loss(h_c: torch.Tensor, table_f: torch.Tensor, l_c: torch.Tensor):
+    logits = h_c.float() @ table_f.T  # (B, chunk, V) fp32
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, l_c.clamp(min=0).long()[..., None])[..., 0]
+    valid = (l_c >= 0).float()
+    ce = (lse - picked) * valid
+    zl = lse.square() * valid
+    return ce.sum(), zl.sum(), valid.sum()
+
+
+def chunked_cross_entropy(
+    hidden: torch.Tensor,   # (B, S, d)
+    table: torch.Tensor,    # (V, d) embedding/unembedding table
+    labels: torch.Tensor,   # (B, S) int, -1 = masked
+    *,
+    chunk: int = 512,
+    z_loss: float = 1e-4,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy plus ``z_loss`` x mean lse^2 over the
+    labels that are not -1.  Each chunk of ``chunk`` positions computes its
+    fp32 logits against the table under ``torch.utils.checkpoint``, so only
+    one chunk's (B, chunk, V) logits live at a time, forward or backward.
+    The table is cast to fp32 once, outside the chunks (the JAX package casts
+    it inside each; the values are the same)."""
+    B, S, d = hidden.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    table_f = table.float()
+    zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    ce_sum, zl_sum, n_valid = zero, zero, zero
+    for c0 in range(0, hidden.shape[1], chunk):
+        ce, zl, nv = checkpoint(_chunk_loss, hidden[:, c0:c0 + chunk], table_f,
+                                labels[:, c0:c0 + chunk], use_reentrant=False)
+        ce_sum, zl_sum, n_valid = ce_sum + ce, zl_sum + zl, n_valid + nv
+    n_valid = torch.clamp(n_valid, min=1.0)
+    loss = ce_sum / n_valid + z_loss * zl_sum / n_valid
+    return loss, {"ce": ce_sum / n_valid, "tokens": n_valid}
+
+
+# ---------------------------------------------------------------------------
+# Block specs, rematerialisation
+# ---------------------------------------------------------------------------
 
 
 def _block_specs(cfg: Any, pos: int) -> Dict[str, Any]:
@@ -66,6 +131,37 @@ def _stack_period(cfg: Any, spec_tree: Any) -> Any:
                        init=s.init, scale=s.scale, dtype=s.dtype),
         spec_tree,
     )
+
+
+def _zero_aux(device: torch.device) -> Dict[str, torch.Tensor]:
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"moe_load_balance": z, "moe_z_loss": z, "moe_drop_fraction": z}
+
+
+# the products JAX's dots_with_no_batch_dims_saveable keeps: matrix products
+# without batch dims (the projections, the MLP); attention's batched
+# products and everything elementwise are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under the JAX package's remat policy: ``"nothing"`` saves no
+    activation inside ``fn`` (a non-reentrant checkpoint), ``"dots"`` saves
+    the outputs of the matrix products (a selective checkpoint),
+    ``"everything"`` saves all (no checkpoint)."""
+    if policy == "everything":
+        return fn
+    if policy == "nothing":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if policy == "dots":
+        return lambda *args: checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(_save_dots))
+    raise ValueError(f"unknown remat policy {policy!r}")
 
 
 @dataclasses.dataclass
@@ -102,18 +198,92 @@ class DecoderLM:
     def _logits(self, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
         return x.float() @ self._table(params).float().T
 
-    def _layers(self, params: Dict[str, Any]):
-        """(layer index, pattern position, that layer's params) in order."""
+    def _periods(self, params: Dict[str, Any]) -> List[Dict[str, Any]]:
+        """Each period's params, ``{pos: block params}``, every stacked leaf
+        unbound once (one autograd node per leaf, not one per layer)."""
         cfg = self.cfg
-        for period in range(cfg.n_periods):
-            for pos in range(len(cfg.pattern)):
-                p = tree_map(lambda t: t[period], params["blocks"][str(pos)])
-                yield period * len(cfg.pattern) + pos, p
+        parts = {str(pos): tree_map(lambda t: t.unbind(0), params["blocks"][str(pos)])
+                 for pos in range(len(cfg.pattern))}
+        return [{pos: tree_map(lambda leaf: leaf[period], tree)
+                 for pos, tree in parts.items()}
+                for period in range(cfg.n_periods)]
+
+    def _layers(self, params: Dict[str, Any]):
+        """(layer index, that layer's params) in order."""
+        n = len(self.cfg.pattern)
+        for period, blocks in enumerate(self._periods(params)):
+            for pos in range(n):
+                yield period * n + pos, blocks[str(pos)]
 
     def _ffn(self, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
         if "ffn" not in p:
             return x
         return x + mlp(p["ffn"], self.cfg, norm(p["ln2"], self.cfg.norm_type, x))
+
+    # ---- training forward -----------------------------------------------------
+    def _apply_block_train(
+        self,
+        char: str,
+        p: Dict[str, Any],
+        x: torch.Tensor,
+        seg: torch.Tensor,
+        pos_ids: torch.Tensor,
+        aux: Dict[str, torch.Tensor],
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        cfg = self.cfg
+        if char == "M":
+            raise NotImplementedError("Mamba blocks are ROADMAP queue 1 item 6")
+        if char in ("l", "s"):
+            raise NotImplementedError("xLSTM blocks are ROADMAP queue 1 item 6")
+        if char != "A":
+            raise ValueError(f"unknown pattern char {char!r}")
+        h = norm(p["ln1"], cfg.norm_type, x)
+        out, _ = attention(p["mixer"], cfg, h, seg, pos_ids)
+        x = x + out
+        if "ffn" in p:
+            if "router" in p["ffn"]:
+                raise NotImplementedError("the MoE layer is ROADMAP queue 1 item 4")
+            x = x + mlp(p["ffn"], cfg, norm(p["ln2"], cfg.norm_type, x))
+        return x, aux
+
+    def hidden_states(
+        self,
+        params: Dict[str, Any],
+        batch: Dict[str, torch.Tensor],
+        *,
+        remat_policy: Optional[str] = "nothing",
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The final-normed hidden states (B, S, d) and the aux losses (0
+        for dense models).  Each period of the pattern runs under
+        ``remat_policy`` (None: no checkpoint)."""
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        seg, pos_ids = batch["segment_ids"], batch["positions"]
+        aux = _zero_aux(x.device)
+
+        def period_body(blocks, x, aux):
+            for pos, char in enumerate(cfg.pattern):
+                x, aux = self._apply_block_train(char, blocks[str(pos)], x, seg,
+                                                 pos_ids, aux)
+            return x, aux
+
+        body = period_body if remat_policy is None else _remat(period_body, remat_policy)
+        for blocks in self._periods(params):
+            x, aux = body(blocks, x, aux)
+        return norm(params["final_norm"], cfg.norm_type, x), aux
+
+    def loss(
+        self,
+        params: Dict[str, Any],
+        batch: Dict[str, torch.Tensor],
+        *,
+        remat_policy: Optional[str] = "nothing",
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        x, aux = self.hidden_states(params, batch, remat_policy=remat_policy)
+        loss, metrics = chunked_cross_entropy(x, self._table(params), batch["labels"])
+        loss = loss + aux["moe_load_balance"] + aux["moe_z_loss"]
+        metrics = dict(metrics, **aux, loss=loss)
+        return loss, metrics
 
     # ---- cache allocation ---------------------------------------------------
     def init_paged_cache(

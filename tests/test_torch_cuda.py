@@ -177,3 +177,146 @@ def test_paged_decode_on_card_launches_once_per_layer_and_step():
     assert paged_ops.launches == before + 2 * 3  # 2 layers x 3 decode steps
     assert stats["logits_finite"]
     assert stats["tokens"].shape == stats_cpu["tokens"].shape == (4, 4)
+
+
+# ---------------------------------------------------------------------------
+# packed attention, forward and backward
+# ---------------------------------------------------------------------------
+
+# The kernels take bf16 only (float32 on the card raises).  Forward:
+# tests/test_kernels.py's bf16 TOLS.  Output and gradients: ``rel_l2``
+# (ref.py), ||err|| / ||ref|| over the whole tensor and over each 64-row
+# tile of one head, within REL_L2; the kernels round P and dS to bf16 as
+# tensor-core operands and take delta from the bf16 output, where the plain
+# version keeps fp32 (chip_smoke.py's PACKED_REL_L2 gives the argument and
+# the planted faults these limits catch).
+PACKED_TOLS = dict(rtol=2e-2, atol=2e-2)
+REL_L2 = (1e-2, 2e-2)  # (whole tensor, worst 64-row tile of a head)
+# (S, H, KVH, D, window): test_kernels' grid, GQA, a window, ragged lengths
+PACKED_CASES = [(256, 4, 4, 64, 0), (512, 4, 2, 64, 0), (384, 4, 1, 32, 0),
+                (200, 4, 2, 16, 0), (256, 2, 2, 32, 64), (300, 8, 2, 128, 0)]
+
+
+def _packed_segments(rng, B, S, max_segs=4, pad_frac=0.2):
+    seg = np.zeros((B, S), np.int32)
+    for b in range(B):
+        n_real = int(S * (1 - pad_frac * rng.random()))
+        cuts = np.sort(rng.choice(np.arange(1, n_real), size=max_segs - 1,
+                                  replace=False))
+        bounds = [0, *cuts, n_real]
+        for i in range(len(bounds) - 1):
+            seg[b, bounds[i]:bounds[i + 1]] = i + 1
+    return seg
+
+
+def _packed_run(fn, q, k, v, g):
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*ts)
+    out.backward(g)
+    return out.detach(), [t.grad for t in ts]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PACKED_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_packed_kernels_match_plain_on_card(case):
+    _need_card()
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+    from repro_torch.kernels.packed_attention.ref import rel_l2
+
+    S, H, KVH, D, window = case
+    B = 2
+    rng = np.random.default_rng(sum(case))
+
+    def t(shape):
+        return torch.tensor(rng.normal(size=shape), device="cuda").to(torch.bfloat16)
+
+    q, k, v, g = t((B, S, H, D)), t((B, S, KVH, D)), t((B, S, KVH, D)), t((B, S, H, D))
+    seg = torch.tensor(_packed_segments(rng, B, S), device="cuda")
+    before = (packed_ops.launches_fwd, packed_ops.launches_bwd)
+    out, grads = _packed_run(
+        lambda *a: packed_ops.packed_attention(*a, seg, seg, window=window), q, k, v, g)
+    torch.cuda.synchronize()
+    assert (packed_ops.launches_fwd, packed_ops.launches_bwd) == (before[0] + 1,
+                                                                  before[1] + 1)
+    ref, ref_grads = _packed_run(
+        lambda *a: packed_ops.packed_attention_plain(*a, seg, seg, window=window),
+        q, k, v, g)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), **PACKED_TOLS)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (out, *grads), (ref, *ref_grads),
+                          strict=True):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        whole, tile = rel_l2(a, b)
+        assert whole <= REL_L2[0] and tile <= REL_L2[1], (name, whole, tile)
+
+
+@pytest.mark.cuda
+def test_packed_kernels_refuse_float32_on_card():
+    _need_card()
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+
+    x = torch.zeros((1, 64, 2, 32), device="cuda")
+    seg = torch.ones((1, 64), dtype=torch.int32, device="cuda")
+    before = (packed_ops.launches_fwd, packed_ops.launches_bwd)
+    with pytest.raises(TypeError, match="bfloat16"):
+        packed_ops.packed_attention(x, x, x, seg, seg)
+    assert (packed_ops.launches_fwd, packed_ops.launches_bwd) == before
+
+
+@pytest.mark.cuda
+def test_packed_padded_row_gives_zero_output_and_gradient():
+    _need_card()
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+
+    rng = np.random.default_rng(9)
+    B, S, H, KVH, D = 2, 256, 4, 2, 64
+
+    def t(shape):
+        return torch.tensor(rng.normal(size=shape), device="cuda").to(torch.bfloat16)
+
+    q, k, v, g = t((B, S, H, D)), t((B, S, KVH, D)), t((B, S, KVH, D)), t((B, S, H, D))
+    seg = torch.tensor(_packed_segments(rng, B, S), device="cuda")
+    seg[1] = 0
+    out, (dq, dk, dv) = _packed_run(
+        lambda *a: packed_ops.packed_attention(*a, seg, seg), q, k, v, g)
+    torch.cuda.synchronize()
+    pad = seg == 0
+    assert (out[1] == 0).all() and torch.isfinite(out).all()
+    for grad in (dq, dk, dv):
+        assert (grad[pad] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat,fwd_per_layer", [("nothing", 2), ("dots", 2),
+                                                 ("everything", 1)])
+def test_packed_launches_per_train_step(remat, fwd_per_layer):
+    """A 2-layer model: under remat "nothing" and "dots" each layer's
+    attention forward runs twice (once more in the recomputation), under
+    "everything" once; its backward once."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+    from repro_torch.launch.train import make_params
+    from repro_torch.models import build_model
+    from repro_torch.training import OptimizerConfig, init_opt_state, make_train_step
+
+    cfg = get_config("olmo-1b").smoke()
+    model = build_model(cfg)
+    dev = torch.device("cuda")
+    params = make_params(model, 0, dev)
+    rng = np.random.default_rng(0)
+    batch = {
+        "tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (2, 128)),
+                               dtype=torch.int32, device=dev),
+        "labels": torch.tensor(rng.integers(0, cfg.vocab_size, (2, 128)),
+                               dtype=torch.int32, device=dev),
+        "segment_ids": torch.tensor(_packed_segments(rng, 2, 128), device=dev),
+        "positions": torch.arange(128, dtype=torch.int32, device=dev).expand(2, 128),
+    }
+    step = make_train_step(model, OptimizerConfig(), remat_policy=remat)
+    packed_ops.launches_fwd = packed_ops.launches_bwd = 0
+    _, _, metrics = step(params, init_opt_state(params), batch)
+    torch.cuda.synchronize()
+    assert packed_ops.launches_fwd == 2 * fwd_per_layer
+    assert packed_ops.launches_bwd == 2
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])

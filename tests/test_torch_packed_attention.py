@@ -1,0 +1,257 @@
+"""The port's packed attention on the CPU against the JAX package's.
+
+The port's plain version (``ref.packed_attention_ref`` and the model-layout
+``ops.packed_attention`` on CPU tensors) is held to the JAX package's
+``packed_attention_ref`` and to its Pallas kernel in interpret mode, on the
+grid of ``tests/test_kernels.py`` with its tolerances (``TOLS``: 2e-5 in
+f32, 2e-2 in bf16).  Its gradient, which the Hopper backward kernel is held
+to on the card, is held to ``jax.grad`` of the JAX package's chunked flash
+path, the gradient the JAX train step takes.  Inputs are made with numpy
+from a seed and handed to both packages.
+
+The Hopper kernels themselves run only on a card (``tests/test_torch_cuda.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.packed_attention.kernel import packed_flash_attention as jax_kernel
+from repro.kernels.packed_attention.ops import packed_attention as jax_packed
+from repro.kernels.packed_attention.ref import packed_attention_ref as jax_ref
+from repro.models.layers import flash_attention as jax_flash
+from repro_torch.kernels.packed_attention import kernel, ops
+from repro_torch.kernels.packed_attention.ref import packed_attention_ref
+from repro_torch.models.layers import flash_attention
+
+TOLS = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# the gradients: each within 2e-4 of its largest magnitude (f32; the two
+# packages sum the products of the backward in different orders)
+GRAD_REL = 2e-4
+
+
+def random_packed_segments(rng, B, S, max_segs=4, pad_frac=0.2):
+    """Segment ids like the First-Fit packer emits: contiguous, 0-padded
+    (``tests/test_kernels.py``'s generator)."""
+    seg = np.zeros((B, S), np.int32)
+    for b in range(B):
+        n_real = int(S * (1 - pad_frac * rng.random()))
+        cuts = np.sort(rng.choice(np.arange(1, n_real), size=min(max_segs - 1,
+                       n_real - 1), replace=False)) if n_real > 1 else []
+        bounds = [0, *cuts, n_real]
+        for i in range(len(bounds) - 1):
+            seg[b, bounds[i]:bounds[i + 1]] = i + 1
+    return seg
+
+
+def qkv(rng, B, S, H, KVH, D):
+    return (rng.normal(size=(B, S, H, D)), rng.normal(size=(B, S, KVH, D)),
+            rng.normal(size=(B, S, KVH, D)))
+
+
+def jx(a, dtype="float32"):
+    return jnp.asarray(np.asarray(a, np.float32), getattr(jnp, dtype))
+
+
+def tt(a, dtype="float32"):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(getattr(torch, dtype))
+
+
+def f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def heads_first(x):
+    return np.ascontiguousarray(np.swapaxes(x, 1, 2))
+
+
+@pytest.mark.parametrize("S,block", [(256, 128), (512, 256), (384, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ref_matches_jax_kernel_and_ref(S, block, dtype):
+    rng = np.random.default_rng(0)
+    B, H, D = 2, 4, 64
+    q, k, v = (heads_first(x) for x in qkv(rng, B, S, H, H, D))
+    seg = random_packed_segments(rng, B, S)
+    out = packed_attention_ref(tt(q, dtype), tt(k, dtype), tt(v, dtype),
+                               tt(seg).int(), tt(seg).int())
+    assert out.dtype == getattr(torch, dtype)
+    jargs = (jx(q, dtype), jx(k, dtype), jx(v, dtype), jnp.asarray(seg), jnp.asarray(seg))
+    want_kernel = jax_kernel(*jargs, causal=True, block_q=block, block_kv=block,
+                             interpret=True)
+    want_ref = jax_ref(*jargs, causal=True)
+    np.testing.assert_allclose(f32(out), f32(want_kernel), **TOLS[dtype])
+    np.testing.assert_allclose(f32(out), f32(want_ref), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("KVH", [1, 2, 4])
+def test_gqa_wrapper_matches_jax(KVH):
+    rng = np.random.default_rng(1)
+    B, S, H, D = 1, 256, 4, 32
+    q, k, v = qkv(rng, B, S, H, KVH, D)
+    seg = random_packed_segments(rng, B, S)
+    out = ops.packed_attention(tt(q), tt(k), tt(v), torch.from_numpy(seg),
+                               torch.from_numpy(seg))
+    want = jax_packed(jx(q), jx(k), jx(v), jnp.asarray(seg), jnp.asarray(seg),
+                      interpret=True)
+    np.testing.assert_allclose(f32(out), f32(want), **TOLS["float32"])
+
+
+def test_sliding_window_matches_jax():
+    rng = np.random.default_rng(2)
+    B, S, H, D = 1, 256, 2, 32
+    q, k, v = (heads_first(x) for x in qkv(rng, B, S, H, H, D))
+    seg = np.ones((B, S), np.int32)
+    out = packed_attention_ref(tt(q), tt(k), tt(v), torch.from_numpy(seg),
+                               torch.from_numpy(seg), window=64)
+    want = jax_kernel(jx(q), jx(k), jx(v), jnp.asarray(seg), jnp.asarray(seg),
+                      causal=True, window=64, block_q=128, block_kv=128,
+                      interpret=True)
+    np.testing.assert_allclose(f32(out), f32(want), **TOLS["float32"])
+
+
+def test_fully_padded_rows_are_zero():
+    rng = np.random.default_rng(3)
+    B, S, H, D = 2, 256, 2, 32
+    q, k, v = qkv(rng, B, S, H, H, D)
+    seg = np.zeros((B, S), np.int32)
+    seg[0] = 1  # row 1 fully padded
+    out = ops.packed_attention(tt(q), tt(k), tt(v), torch.from_numpy(seg),
+                               torch.from_numpy(seg))
+    assert torch.isfinite(out).all()
+    assert (out[1] == 0).all()
+
+
+def test_no_attention_across_segments():
+    """Segment 1's output does not depend on segment 2's keys and values."""
+    rng = np.random.default_rng(4)
+    B, S, H, D = 1, 256, 2, 32
+    q, k, v = qkv(rng, B, S, H, H, D)
+    seg = torch.from_numpy(np.concatenate(
+        [np.ones(128, np.int32), np.full(128, 2, np.int32)])[None])
+    out1 = ops.packed_attention(tt(q), tt(k), tt(v), seg, seg)
+    k2, v2 = k.copy(), v.copy()
+    k2[:, 128:] = rng.normal(size=(1, 128, H, D))
+    v2[:, 128:] = rng.normal(size=(1, 128, H, D))
+    out2 = ops.packed_attention(tt(q), tt(k2), tt(v2), seg, seg)
+    torch.testing.assert_close(out1[:, :128], out2[:, :128], rtol=0, atol=0)
+
+
+def test_model_layout_wrapper_matches_jax_wrapper():
+    """(B, S, H, D) with separate KV heads, a ragged length the JAX wrapper
+    pads to a block multiple and the port does not."""
+    rng = np.random.default_rng(5)
+    B, S, H, KVH, D = 2, 200, 4, 2, 32
+    q, k, v = qkv(rng, B, S, H, KVH, D)
+    seg = random_packed_segments(rng, B, S)
+    out = ops.packed_attention(tt(q), tt(k), tt(v), torch.from_numpy(seg),
+                               torch.from_numpy(seg))
+    assert out.shape == (B, S, H, D)
+    for use_kernel in (True, False):
+        want = jax_packed(jx(q), jx(k), jx(v), jnp.asarray(seg), jnp.asarray(seg),
+                          use_kernel=use_kernel, interpret=True)
+        np.testing.assert_allclose(f32(out), f32(want), **TOLS["float32"])
+
+
+def test_model_flash_path_matches_the_wrapper():
+    """The port's two plain versions, the chunked flash path the model runs
+    on the CPU and the dense one the kernels are held to, agree."""
+    rng = np.random.default_rng(6)
+    B, S, H, KVH, D = 2, 256, 4, 2, 32
+    q, k, v = qkv(rng, B, S, H, KVH, D)
+    seg = torch.from_numpy(random_packed_segments(rng, B, S))
+    a = flash_attention(tt(q), tt(k), tt(v), seg, seg, chunk_q=128, chunk_kv=128)
+    b = ops.packed_attention(tt(q), tt(k), tt(v), seg, seg)
+    torch.testing.assert_close(a, b, rtol=3e-5, atol=3e-5)
+
+
+# ---------------------------------------------------------------------------
+# The gradient: autograd of the plain version against jax.grad of the JAX
+# package's flash path
+# ---------------------------------------------------------------------------
+
+
+GRAD_CASES = [
+    # (B, S, H, KVH, D, window)
+    (2, 256, 4, 2, 32, 0),
+    (2, 192, 4, 1, 16, 0),
+    (1, 256, 2, 2, 32, 64),
+]
+
+
+def _grad_inputs(case, seed):
+    B, S, H, KVH, D, window = case
+    rng = np.random.default_rng(seed)
+    q, k, v = qkv(rng, B, S, H, KVH, D)
+    seg = random_packed_segments(rng, B, S)
+    seg[-1] = 0  # a fully padded row
+    g = rng.normal(size=(B, S, H, D))
+    return q, k, v, seg, g, window
+
+
+def _jax_grads(q, k, v, seg, g, window):
+    def f(q_, k_, v_):
+        out = jax_flash(q_, k_, v_, jnp.asarray(seg), jnp.asarray(seg),
+                        causal=True, window=window, chunk_q=64, chunk_kv=64)
+        return jnp.sum(out * jnp.asarray(g, jnp.float32))
+
+    return jax.grad(f, argnums=(0, 1, 2))(jx(q), jx(k), jx(v))
+
+
+@pytest.mark.parametrize("plain", ["ops", "flash"])
+@pytest.mark.parametrize("case", GRAD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_gradient_matches_jax_grad_of_flash(case, plain):
+    q, k, v, seg, g, window = _grad_inputs(case, seed=sum(case))
+    ts = [tt(x).requires_grad_(True) for x in (q, k, v)]
+    st = torch.from_numpy(seg)
+    if plain == "ops":
+        out = ops.packed_attention(*ts, st, st, window=window)
+    else:
+        out = flash_attention(*ts, st, st, window=window, chunk_q=64, chunk_kv=64)
+    out.backward(tt(g))
+    want = _jax_grads(q, k, v, seg, g, window)
+    for name, t, w in zip(("dq", "dk", "dv"), ts, want, strict=True):
+        w = f32(w)
+        err = np.abs(f32(t.grad) - w).max()
+        assert err <= GRAD_REL * np.abs(w).max(), (name, err, np.abs(w).max())
+    # the padded row gets no gradient, and neither do keys of segment 0
+    pad = seg == 0
+    for t in ts:
+        assert (t.grad[torch.from_numpy(pad)] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# The CPU path and the kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_path_launches_nothing():
+    rng = np.random.default_rng(7)
+    q, k, v = qkv(rng, 1, 64, 2, 2, 16)
+    seg = torch.ones((1, 64), dtype=torch.int32)
+    before = (ops.launches_fwd, ops.launches_bwd)
+    ts = [tt(x).requires_grad_(True) for x in (q, k, v)]
+    ops.packed_attention(*ts, seg, seg).sum().backward()
+    assert (ops.launches_fwd, ops.launches_bwd) == before
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    q = torch.zeros((1, 64, 2, 16))
+    seg = torch.ones((1, 64), dtype=torch.int32)
+    lse = torch.zeros((1, 2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.packed_flash_attention(q, q, q, seg, seg)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.packed_flash_attention_bwd(q, q, q, seg, seg, q, q, lse)
+
+
+def test_kernel_source_is_built_for_sm90a():
+    from repro_torch.kernels.nvcc import NVCC_FLAGS
+
+    assert "arch=compute_90a,code=sm_90a" in NVCC_FLAGS
+    src = kernel.SOURCE.read_text()
+    for entry in ("packed_attn_fwd", "packed_attn_bwd", "packed_attn_error_string"):
+        assert f'extern "C"' in src and entry in src
