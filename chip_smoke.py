@@ -46,9 +46,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    prefill shape (8 x 1024, 32 query over 8 KV heads).  Output and
    gradients are held by relative l2 over the whole tensor and over each
    64-row tile of one head, beside the readings of two planted faults (a
-   key tile hidden, delta = 0 in dQ) that must exceed the limits; the
-   kernels', the plain version's and ``scaled_dot_product_attention``'s
-   (causal, forward and backward) times stand beside the bounds;
+   key tile hidden, delta = 0 in dQ) that must exceed the limits; at the
+   train shape a second forward and backward must give the same bits; the
+   tile pairs each kernel skipped, computed masked and computed unmasked,
+   counted by the kernels themselves (``kernel.tile_census``), must equal
+   ``ref.tile_schedule``'s count (the same rule in PyTorch) times the heads,
+   and their shares are printed per shape; the kernels', the plain version's and
+   ``scaled_dot_product_attention``'s (causal, forward and backward) times
+   stand beside the bounds, and each shape's record goes into the kernels
+   line under ``by_shape``;
 8. the attention block at full width: the first layer's
    ``layers.attention`` of ``olmo-1b`` and of ``qwen3-8b`` on that
    multi-document batch, output and gradients of its input and its four
@@ -696,15 +702,24 @@ def _planted_faults(torch, packed_ops, rel_l2, q, k, v, g, seg, ref_out, ref_gra
     return {"key tile hidden": tile, "delta = 0": {"dq": rel_l2(dq0, ref_grads[0])}}
 
 
+def _kernel_run(packed_ops, q, k, v, g, seg):
+    """The kernels' output and (dq, dk, dv) through ``ops.packed_attention``."""
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = packed_ops.packed_attention(*ts, seg, seg)
+    out.backward(g)
+    return out.detach(), [t.grad for t in ts]
+
+
 def packed_kernel_phase(torch, np):
     """Phase 7: the packed kernels against the autograd of their plain
-    version at the train shapes and the prefill shape; returns the first
-    train shape's records (forward, backward) for the kernels line."""
+    version at the train shapes and the prefill shape; returns each shape's
+    records (forward, backward) for the kernels line, the train shape's
+    first."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.packed_attention import kernel as pk
     from repro_torch.kernels.packed_attention import ops as packed_ops
-    from repro_torch.kernels.packed_attention.ref import rel_l2
+    from repro_torch.kernels.packed_attention.ref import census_rule, rel_l2, tile_shares
 
     dev = torch.device("cuda")
     # the kernels take bf16 only: f32 on the card raises and launches nothing
@@ -740,11 +755,7 @@ def packed_kernel_phase(torch, np):
         q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
                       for shape in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D),
                                     (B, S, H, D)))
-        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        out = packed_ops.packed_attention(*ts, seg, seg)
-        out.backward(g)
-        out, grads = out.detach(), [t.grad for t in ts]
-        del ts
+        out, grads = _kernel_run(packed_ops, q, k, v, g, seg)
         ref_out, ref_grads = _plain_rows(torch, packed_ops, q, k, v, g, seg, seg)
         err_out = (out.float() - ref_out.float()).abs().max().item()
         err_g = [(a.float() - b.float()).abs().max().item()
@@ -773,10 +784,36 @@ def packed_kernel_phase(torch, np):
         if not all(checks.values()):
             raise AssertionError(f"packed kernels disagree with their plain version "
                                  f"at the {shape_name} shape: {checks}")
+        if shape_name == "train":
+            # the kernels use no atomics: a second forward and backward on the
+            # same inputs give the same bits
+            out2, grads2 = _kernel_run(packed_ops, q, k, v, g, seg)
+            same = torch.equal(out, out2) and all(
+                torch.equal(a, b) for a, b in zip(grads, grads2))
+            print(f"[packed] {shape_name}: a second forward and backward bitwise equal "
+                  f"to the first: {same}")
+            if not same:
+                raise AssertionError("the packed kernels are not deterministic")
+            del out2, grads2
         del out, grads, ref_out, ref_grads
         torch.cuda.empty_cache()
-        # times, bounds and the library yardstick
+        # the tiles each kernel classed, counted by the kernels, against the
+        # rule in PyTorch once per head (per KV head in dK/dV)
+        pk.tile_census(on=True)
         o, lse = pk.packed_flash_attention(q, k, v, seg, seg)
+        pk.packed_flash_attention_bwd(q, k, v, seg, seg, o, g, lse)
+        census = pk.tile_census(on=False)
+        rule = census_rule(seg, seg, H, KVH)
+        tiles = {kern: tile_shares(census[kern]) for kern in census}
+        print(f"[packed] {shape_name}: tile pairs in range skipped/full/masked, counted "
+              f"by the kernels (tile census) " + "; ".join(
+                  f"{kern} {x['skipped']:.3f}/{x['full']:.3f}/{x['masked']:.3f} of "
+                  f"{x['tiles']}" for kern, x in tiles.items())
+              + f"; equal to ref.tile_schedule's x heads: {census == rule}")
+        if census != rule:
+            raise AssertionError(f"the kernels' tile census {census} differs from "
+                                 f"ref.tile_schedule's {rule} at the {shape_name} shape")
+        # times, bounds and the library yardstick
         reps = 5
         fwd_ms = _time_ms(torch, lambda: pk.packed_flash_attention(q, k, v, seg, seg),
                           reps, flush)
@@ -817,15 +854,17 @@ def packed_kernel_phase(torch, np):
               f"sdpa causal {sdpa_bwd_ms:.4f} ms, bound {bb:.4f} ms ({bb_by})")
         records[shape_name] = (
             {"max_abs_err": err_out, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
-             "bound_ms": fb, "bound_by": fb_by, "library_ms": sdpa_fwd_ms},
+             "bound_ms": fb, "bound_by": fb_by, "library_ms": sdpa_fwd_ms,
+             "tiles": tiles["forward"]},
             {"max_abs_err": max(err_g), "ms": bwd_ms, "plain_ms": plain_bwd_ms,
-             "bound_ms": bb, "bound_by": bb_by, "library_ms": sdpa_bwd_ms},
+             "bound_ms": bb, "bound_by": bb_by, "library_ms": sdpa_bwd_ms,
+             "tiles": tiles["dk/dv"]},
         )
         del q, k, v, g
         torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
-    return records["train"]
+    return records
 
 
 def block_phase(torch, np):
@@ -1261,7 +1300,8 @@ def main() -> None:
 
     # 7. the packed-attention kernels against their plain version
     with _phase("kernel packed_attention"):
-        packed_fwd_record, packed_bwd_record = packed_kernel_phase(torch, np)
+        packed_records = packed_kernel_phase(torch, np)
+        packed_fwd_record, packed_bwd_record = packed_records["train"]
 
     # 8. the attention block at full width, kernels against the plain path
     with _phase("attention block"):
@@ -1308,6 +1348,7 @@ def main() -> None:
         "launches_by_path": {"train": train_fwd, "serve run_local": serve_packed,
                              "ragged serve": ragged_packed},
         **packed_fwd_record,
+        "by_shape": {n: fwd for n, (fwd, _) in packed_records.items()},
     }, {
         "name": "packed_flash_attention_bwd",
         "route": "cuda",
@@ -1317,6 +1358,7 @@ def main() -> None:
         "launches_by_path": {"train": train_bwd, "serve run_local": 0,
                              "ragged serve": 0},
         **packed_bwd_record,
+        "by_shape": {n: bwd for n, (_, bwd) in packed_records.items()},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

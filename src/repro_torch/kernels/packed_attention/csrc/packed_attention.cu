@@ -15,46 +15,82 @@
 //
 // Semantics the tests pin (those of the Pallas kernel and of jax.grad):
 //   - a query row with no visible key (segment 0, or alone in a window that
-//     holds nothing) gives exactly 0, and its dq is 0;
+//     holds nothing) gives exactly 0, and its dq is 0; its lse is +inf;
 //   - keys of segment 0 get dk = dv = 0; no key is seen across segments;
 //   - p is rounded to the value type before P.V (kernel.py:105), and the
 //     row sum l takes the unrounded p; the scale is 1/sqrt(D) and masked
 //     scores are -0.7 x FLT_MAX, as in the Pallas kernel;
 //   - ragged lengths need no padding: rows past Sq or Skv read as zeros of
-//     segment 0 and are never written.
-//
-// Design.  Tiles of 64 query rows by 64 key rows, 128 threads a block, the
-// products on the tensor cores (mma.sync, bf16 operands, fp32 sums).
-//   - Forward: one block per (query tile, head, row of the batch), a loop
-//     over the key tiles that can matter: from the window's first tile to
-//     the causal diagonal.  A tile whose nonzero segment ids do not overlap
-//     the query tile's is skipped before it is loaded: it would leave
-//     (m, l, acc) exactly as they are.  Packed rows hold their documents in
-//     order, so this skips most of the causal triangle.  (m, l, acc) stay in
-//     registers; each row's logsumexp m + log(l) is written for the
-//     backward, +inf for a row with no visible key.
-//   - Backward (FlashAttention-2's recomputation, deterministic, no
-//     atomics): a small kernel takes delta = rowsum(dO * O) in fp32; one
-//     block per (key tile, KV head, row) loops over the query tiles that can
-//     see it and over the G query heads of its KV head, recomputes
-//     P = exp(S - lse) under the same mask and accumulates dV += P^T dO and
-//     dK += dS^T Q with dS = P * (dO V^T - delta), all in registers; one
-//     block per (query tile, head, row) accumulates dQ = dS K the same way.
-//     Both skip tiles as the forward does.  P and dS are rounded to bf16 as
-//     the operands of dV, dK and dQ's products.
+//     segment 0 and are never written;
+//   - the backward is deterministic: no atomics in any sum, a fixed order
+//     of sums (the tile census below counts tiles apart from them).
 //
 // Bound.  The work is 4 D flops per visible (query, key) pair and head
-// forward, and 10 D backward (S recomputed, dP, dV, dK, dQ),
-// against 2 (H + 2 KVH) D elements of q, k, v and out per token.  With
-// documents of hundreds of tokens that is hundreds of flops per byte, at or
-// above the H100's bf16 ridge of 295: the kernels are bound by operations.
-// mma.sync reaches only part of the tensor cores' 989 TFLOP/s; wgmma with
-// TMA-fed, warp-specialised pipelines is the next step.
+// forward, and 10 D backward (S recomputed, dP, dV, dK, dQ), against
+// 2 (H + 2 KVH) D elements of q, k, v and out per token.  With documents of
+// hundreds of tokens that is hundreds of flops per byte, at or above the
+// H100's bf16 ridge of 295: the kernels are bound by operations, so the
+// design is about keeping the tensor cores fed.
+//
+// Design for D = 64 and 128 (every full-width config with attention):
+// warp-specialised blocks of three warpgroups (384 threads).  Warpgroup 0
+// is the producer: its first thread keeps TMA copies of the streamed tiles
+// in flight into a ring of stages signalled by mbarriers (a "full" barrier
+// per stage that the copies complete, an "empty" one the consumers release),
+// and its second warp copies the per-row statistics (segment ids, lse,
+// delta) of the same tiles into the stage; it gives its registers to the
+// consumers (setmaxnreg).  Warpgroups 1 and 2 are consumers, each owning 64
+// rows of the block's tile, and run every product as wgmma: scores from two
+// shared-memory operands, the next product's A operand (P, dS) from
+// registers, rounded to bf16 there.  In the forward the two consumers take
+// turns to issue their products (named barriers), so that one's softmax
+// overlaps the other's products.
+//   - Tiles live in shared memory as the TMA writes them: D / 64 boxes of
+//     (rows, 64) bf16 with the 128-byte swizzle, straight from the model
+//     layout (B, S, H, D) by a 4-d tensor map with its strides (no copy, no
+//     transpose, no repeat of KV heads); TMA's zero fill past the end
+//     replaces the masking of ragged tails on loads.
+//   - Tile schedule.  At block start every warp scans part of the tiles in
+//     the causal/window range and classifies each (query tile, key tile)
+//     pair by its segment ids: skipped (the nonzero ids of the two tiles do
+//     not overlap: exactly a no-op for (m, l, acc) and for the gradients),
+//     full (one nonzero segment across both tiles and the pair wholly inside
+//     the causal and window limits: no mask is applied), or masked
+//     (everything else: visible() per element).  Producer and consumers then
+//     walk the same list with no barrier per tile.  ref.tile_schedule is the
+//     same rule in PyTorch; the tile census holds the two to each other.
+//   - Forward: one block per (128 queries, head, row), key tiles of 128;
+//     the softmax runs on the accumulator fragments in base 2 (log2(e)
+//     folded into the scale) while the previous tile's P.V is on the
+//     tensor cores; each row's logsumexp is written for the backward.
+//     Blocks take the query tiles last to first, so the longest causal
+//     rows start first.
+//   - Backward (FlashAttention-2's recomputation): a small kernel takes
+//     delta = rowsum(dO * O) in fp32; one block per (128 keys, KV head, row)
+//     keeps K and V in shared memory, streams Q and dO tiles of 64 queries
+//     for every kept query tile and each of the G heads, and accumulates dV
+//     += P^T dO and dK += dS^T Q in registers (S^T = K Q^T and dP^T = V dO^T
+//     on wgmma); one block per (128 queries, head, row) streams K and V
+//     tiles of 128 keys and accumulates dQ = dS K.  dQ stays a kernel of its
+//     own (it recomputes S and dP: 14 D flops per pair against the bound's
+//     10 D) so that no sum needs atomics.
+// Head dims 16 and 32 occur only in the .smoke() configs and the card
+// tests; they keep the previous design (mma.sync m16n8k16 on 64 x 64 tiles,
+// loads through registers, four warps), dispatched by D in the launchers.
 //
 // Limits, checked by the Python wrapper: bf16 only; D in {16, 32, 64, 128};
 // the pointers 16-byte aligned; segment ids >= 0 (the tile skip compares
-// their ranges).
+// their ranges).  Checked here, at D = 64 and 128: a block's tile schedule
+// (a byte per tile in range) fits the card's shared memory beside its
+// stages, which on an H100 holds rows of over 4 million keys and queries.
+//
+// Tile census.  packed_attn_tile_census turns on counting, per kernel
+// (forward, dK/dV, dQ at D = 64 and 128), of the tiles each block's schedule
+// classes skipped, masked and full; the counts are summed with atomics into
+// a device array apart from every output.  Off (the default) it costs a
+// load and a branch per warp and block.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
@@ -64,8 +100,8 @@
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per tile
-constexpr int BK = 64;          // key rows per tile
+constexpr int BQ = 64;          // query rows per tile (head dims 16, 32)
+constexpr int BK = 64;          // key rows per tile (head dims 16, 32)
 constexpr int MMA_THREADS = 128;
 constexpr int DELTA_THREADS = 256;
 constexpr float NEG_INF = -0.7f * FLT_MAX;
@@ -110,7 +146,7 @@ __device__ __forceinline__ void key_tiles(int q0, int Skv, int causal, int windo
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core building blocks: mma.sync m16n8k16, bf16 operands, fp32 sums
+// Head dims 16 and 32: mma.sync m16n8k16, bf16 operands, fp32 sums
 // ---------------------------------------------------------------------------
 //
 // Each warp owns 16 rows of the 64-row tile (queries in the forward and in
@@ -230,9 +266,7 @@ template <int D> constexpr size_t bwd_mma_smem() {
     return 4 * mma_tile_bytes<D>() + 2 * 64 * sizeof(int) + 2 * 64 * sizeof(float);
 }
 
-// ---------------------------------------------------------------------------
-// Forward
-// ---------------------------------------------------------------------------
+// Forward, head dims 16 and 32
 
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
@@ -357,9 +391,7 @@ packed_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 }
 
-// ---------------------------------------------------------------------------
-// Backward
-// ---------------------------------------------------------------------------
+// Backward: delta for every head dim; dK/dV and dQ for head dims 16 and 32
 
 // delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d] in fp32; a warp per row.
 __global__ void __launch_bounds__(DELTA_THREADS)
@@ -591,10 +623,1081 @@ packed_attn_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// Head dims 64 and 128: Hopper building blocks (mbarrier, TMA, wgmma)
+// ---------------------------------------------------------------------------
+
+constexpr int WG = 128;                  // threads of a warpgroup
+constexpr int HOP_THREADS = 3 * WG;      // producer + two consumers
+constexpr int HOP_WARPS = HOP_THREADS / 32;
+constexpr int CONSUMER_WARPS = 8;        // the arrivals that release a stage
+constexpr int STAT_LANES = 32;           // the statistics warp's arrivals
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr uint8_t SKIP = 0, MASKED = 1, FULL = 2;
+constexpr int CENSUS_FWD = 0, CENSUS_DKDV = 1, CENSUS_DQ = 2;
+
+// The tile census: [kernel][class] counts, and whether to take them.
+__device__ unsigned long long g_census[3][3];
+__device__ int g_census_on;
+
+// 2^x on the special-function unit, subnormal results flushed to 0.
+// exp2f without fast math wraps it to keep them, which cost the backward a
+// quarter of its time; a p below 2^-126 is nothing beside a row sum of 1.
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+    return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                            ~static_cast<uintptr_t>(1023));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive and add `bytes` to the transactions the current phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                     smem_u32(bar)),
+                 "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t a = smem_u32(bar);
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(a), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+
+// One box of a (d, head, row, batch) tensor map into shared memory; the
+// copy completes its bytes on `bar`.  Coordinates past the end read as 0.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap& map, uint64_t* bar,
+                                         int d, int h, int row, int b) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_u32(bar)), "r"(d), "r"(h), "r"(row),
+        "r"(b)
+        : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ void wg_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers that an asynchronous wgmma reads or writes stay where they are
+// until its wait: the compiler may not move their uses across this point.
+template <int R>
+__device__ __forceinline__ void keep(float (&d)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void keep(uint32_t (&a)[R][4]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// A wgmma shared-memory matrix descriptor, 128-byte swizzle: 8-row groups
+// 1024 bytes apart; `lbo` is the distance between the 64-column boxes along
+// N of an MN-major operand (not read for a K-major one).
+__device__ __forceinline__ uint64_t sw128_desc(const unsigned char* p, uint32_t lbo) {
+    return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+           (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+           (1ull << 62);
+}
+
+// A (ROWS, D) bf16 tile is D / 64 boxes of (ROWS, 64), each ROWS x 128
+// bytes.  As a K-major operand: rows row0 .. row0 + 63 (A) or all its rows
+// (B), columns 16 kk .. 16 kk + 15.
+template <int ROWS>
+__device__ __forceinline__ uint64_t kmajor(const unsigned char* tile, int row0, int kk) {
+    return sw128_desc(tile + (kk >> 2) * ROWS * 128 + row0 * 128 + (kk & 3) * 32, 0);
+}
+
+// As the MN-major B operand of a product over its rows: rows 16 kk ..
+// 16 kk + 15, all D columns.
+template <int ROWS>
+__device__ __forceinline__ uint64_t mnmajor(const unsigned char* tile, int kk) {
+    return sw128_desc(tile + kk * 16 * 128, ROWS * 128);
+}
+
+// d (64 x N) (+)= A . B^T on the tensor cores, A and B K-major in shared
+// memory; and d (64 x N) += A . B with A (64 x 16) bf16 fragments in
+// registers and B (16 x N) MN-major in shared memory.  The accumulator of a
+// thread (warp w of the warpgroup, lane = 4 g + t) holds rows 16 w + g and
+// 16 w + g + 8, columns 8 j + 2 t + {0, 1}: d[4 j + 2 hr + e] is row
+// 16 w + g + 8 hr, column 8 j + 2 t + e.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                         int scale_d);
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b,
+                                              int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b,
+                                              int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x N) = A[a_row0 ..] . B^T over D, A an (AR, D) tile, B an (N, D) tile.
+template <int D, int N, int AR>
+__device__ __forceinline__ void gemm_ss(float (&d)[N / 2], const unsigned char* A, int a_row0,
+                                        const unsigned char* B) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<N>(d, kmajor<AR>(A, a_row0, kk), kmajor<N>(B, 0, kk), kk > 0);
+}
+
+// d (64 x D) += P . M, P (64 x 16 KS) as bf16 fragments, M a (16 KS, D) tile.
+template <int D, int KS>
+__device__ __forceinline__ void gemm_rs(float (&d)[D / 2], const uint32_t (&p)[KS][4],
+                                        const unsigned char* M) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) wgmma_rs<D>(d, p[kk], mnmajor<16 * KS>(M, kk));
+}
+
+// The bf16 A fragments of a 64 x N accumulator tile (a score tile turned
+// into the next product's left operand): k-step kk takes columns
+// 16 kk .. 16 kk + 15, the accumulators of n8 tiles 2 kk and 2 kk + 1.
+template <int N>
+__device__ __forceinline__ void to_frags(uint32_t (&a)[N / 16][4], const float (&s)[N / 2]) {
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+        a[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The tile schedule
+// ---------------------------------------------------------------------------
+
+// The nonzero ids of T rows from row0 (rows at or past n read as 0): their
+// range [lo, hi] (hi = 0 if there is none), and whether all T ids are one
+// nonzero id.  One warp, every lane gets the result.
+struct SegSummary {
+    int lo, hi;
+    bool uniform;
+};
+
+template <int T>
+__device__ __forceinline__ SegSummary seg_summary(const int* seg, int row0, int n) {
+    const int lane = threadIdx.x & 31;
+    int lo = INT_MAX, hi = 0;
+    unsigned zero = 0;
+#pragma unroll
+    for (int e = 0; e < T / 32; ++e) {
+        const int r = row0 + lane + 32 * e;
+        const int s = r < n ? __ldg(seg + r) : 0;
+        if (s) {
+            lo = min(lo, s);
+            hi = max(hi, s);
+        } else {
+            zero = 1u;
+        }
+    }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    zero = __reduce_or_sync(0xffffffffu, zero);
+    return {lo, hi, zero == 0u && lo == hi};
+}
+
+// A (query tile, key tile) pair: SKIP if no key of the one can be visible
+// to a query of the other by segment; FULL if every pair is visible (one
+// nonzero segment across both, wholly inside the causal and window
+// limits); MASKED otherwise.
+__device__ __forceinline__ uint8_t pair_class(SegSummary q, SegSummary k, int q0, int bq,
+                                              int k0, int bk, int causal, int window) {
+    if (disjoint(q.lo, q.hi, k.lo, k.hi)) return SKIP;
+    const bool inside =
+        (!causal || k0 + bk - 1 <= q0) && (window <= 0 || q0 + bq - 1 - k0 < window);
+    return q.uniform && k.uniform && q.lo == k.lo && inside ? FULL : MASKED;
+}
+
+// The key tiles of size bk a query tile [q0, q0 + bq) can see: from the
+// window's first to the causal diagonal.
+__device__ __forceinline__ void key_range(int q0, int bq, int bk, int Skv, int causal,
+                                          int window, int& begin, int& n) {
+    int end = (Skv + bk - 1) / bk;
+    if (causal) end = min(end, (q0 + bq - 1) / bk + 1);
+    const int lo = q0 - window + 1;  // the first key the tile's first query sees
+    begin = (window > 0 && lo > 0) ? lo / bk : 0;
+    n = max(end - begin, 0);
+}
+
+// The query tiles of size bq that can see a key tile [k0, k0 + bk).
+__device__ __forceinline__ void query_range(int k0, int bk, int bq, int Sq, int causal,
+                                            int window, int& begin, int& n) {
+    begin = causal ? k0 / bq : 0;
+    int end = (Sq + bq - 1) / bq;
+    if (window > 0) end = min(end, (k0 + bk - 1 + window - 1) / bq + 1);
+    n = max(end - begin, 0);
+}
+
+// Every warp of the block classifies its share of the n tiles that the
+// fixed tile (`fixed`, at row f0) meets; cls[i] is tile begin + i's class.
+// With the census on, each warp adds its classes to g_census[CENSUS].
+template <int TF, int TV, bool FIXED_IS_QUERY, int CENSUS>
+__device__ __forceinline__ void build_schedule(const int* seg_f, int f0, int nf,
+                                               const int* seg_v, int nv, int begin, int n,
+                                               int causal, int window, uint8_t* cls) {
+    const int warp = threadIdx.x >> 5;
+    const SegSummary fixed = seg_summary<TF>(seg_f, f0, nf);
+    unsigned masked = 0, full = 0, all = 0;
+    for (int i = warp; i < n; i += HOP_WARPS) {
+        const int v0 = (begin + i) * TV;
+        const SegSummary other = seg_summary<TV>(seg_v, v0, nv);
+        const uint8_t c = FIXED_IS_QUERY
+                              ? pair_class(fixed, other, f0, TF, v0, TV, causal, window)
+                              : pair_class(other, fixed, v0, TV, f0, TF, causal, window);
+        if ((threadIdx.x & 31) == 0) cls[i] = c;
+        masked += c == MASKED;
+        full += c == FULL;
+        ++all;
+    }
+    if ((threadIdx.x & 31) == 0 && all > 0 && g_census_on) {
+        atomicAdd(&g_census[CENSUS][SKIP], (unsigned long long)(all - masked - full));
+        atomicAdd(&g_census[CENSUS][MASKED], (unsigned long long)masked);
+        atomicAdd(&g_census[CENSUS][FULL], (unsigned long long)full);
+    }
+}
+
+// The producer's and the consumers' walk over the ring of stages.
+struct Ring {
+    int stage = 0;
+    uint32_t phase = 0;
+    template <int STAGES>
+    __device__ __forceinline__ void next() {
+        if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1u;
+        }
+    }
+};
+
+// The forward's two consumer warpgroups take turns to issue their products
+// (named barriers 1 and 2, one per consumer, each counting both
+// warpgroups), so that one's softmax runs while the other's products are on
+// the tensor cores, instead of both at once; the backward kernels gained
+// nothing from it.  Consumer 1 passes the first turn to consumer 0
+// (turns_start); consumer 0 takes the last pass back at the end
+// (turns_end), so every arrival is matched.
+__device__ __forceinline__ void turn_wait(int c) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + c), "n"(2 * WG) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int c) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(2 - c), "n"(2 * WG) : "memory");
+}
+__device__ __forceinline__ void turns_start(int c) {
+    if (c == 1) turn_pass(1);
+}
+__device__ __forceinline__ void turns_end(int c) {
+    if (c == 0) turn_wait(0);
+}
+
+// ---------------------------------------------------------------------------
+// Forward, head dims 64 and 128
+// ---------------------------------------------------------------------------
+
+// The next kept tile at or after i (n if none).
+__device__ __forceinline__ int next_kept(const uint8_t* cls, int i, int n) {
+    while (i < n && cls[i] == SKIP) ++i;
+    return i;
+}
+
+// A thread's two query rows of a 64-row score tile: index and segment id.
+struct TileRows {
+    int qi0, qi1, sq0, sq1;
+};
+
+// The forward's online softmax on a 64 x BK score tile held as wgmma
+// accumulators (a row's 4 lanes share its statistics): scores scaled to
+// base 2 and masked where the tile is MASKED, (m, l) updated with this
+// lane's part of l, s replaced by p, alpha the rescaling of the previous O.
+// Accumulator index x is column 8 (x / 4) + 2 t + (x & 1) of row half
+// (x / 2) & 1.
+template <int BK>
+__device__ __forceinline__ void fwd_softmax(float (&s)[BK / 2], uint8_t cl, const int* kseg,
+                                            int k0, const TileRows& rows, int causal,
+                                            int window, float scale2, float (&m)[2],
+                                            float (&l)[2], float (&alpha)[2]) {
+    const int t = threadIdx.x & 3;
+    const int qi[2] = {rows.qi0, rows.qi1}, sq[2] = {rows.sq0, rows.sq1};
+    // bit 2 j + e of ok[hr]: column 8 j + 2 t + e is visible to row hr.  Only
+    // the bits depend on the class: the accumulators are written on one path.
+    static_assert(BK == 128, "one bit per column of the thread's 32");
+    uint32_t ok[2] = {~0u, ~0u};
+    if (cl == MASKED) {
+        ok[0] = ok[1] = 0u;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int col = 8 * j + 2 * t + e;
+                const int sk = kseg[col];
+#pragma unroll
+                for (int hr = 0; hr < 2; ++hr)
+                    ok[hr] |= (uint32_t)visible(qi[hr], k0 + col, sq[hr], sk, causal, window)
+                              << (2 * j + e);
+            }
+    }
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x) {
+        const int hr = (x >> 1) & 1, bit = 2 * (x >> 2) + (x & 1);
+        s[x] = (ok[hr] >> bit) & 1u ? s[x] * scale2 : NEG_INF;
+        mx[hr] = fmaxf(mx[hr], s[x]);
+    }
+    float mu[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+        float x = mx[hr];
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        const float m_new = fmaxf(m[hr], x);
+        alpha[hr] = ex2(m[hr] - m_new);
+        m[hr] = m_new;
+        mu[hr] = m_new == NEG_INF ? 0.f : m_new;  // a row that sees nothing yet: p = 0
+    }
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x) {
+        const int hr = (x >> 1) & 1;
+        const float p = ex2(s[x] - mu[hr]);
+        s[x] = p;
+        rs[hr] += p;
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) l[hr] = alpha[hr] * l[hr] + rs[hr];
+}
+
+template <int D>
+struct FwdLayout {
+    static constexpr int BQ = 128, BK = 128, STAGES = 2;
+    static constexpr int TILE = BK * D * 2;
+    static constexpr int Q = 0;
+    static constexpr int K = Q + BQ * D * 2;               // [STAGES] K tiles
+    static constexpr int V = K + STAGES * TILE;            // [STAGES] V tiles
+    static constexpr int KSEG = V + STAGES * TILE;         // int [STAGES][BK]
+    // q, then per stage: K full, V full, K empty, V empty
+    static constexpr int BARS = KSEG + STAGES * BK * 4;
+    static constexpr int CLS = BARS + 8 * (1 + 4 * STAGES);
+    // + a class a tile of the schedule, + the alignment to 1024
+    static size_t bytes(int tiles) { return (size_t)CLS + tiles + 1024; }
+};
+
+// One block per (128 queries, head, row).  K and V tiles have barriers of
+// their own: K_i is released once S_i = Q K_i^T is in, V_i once P_i V_i is,
+// so that K_{i+1} streams in while P_{i-1} V_{i-1} still holds its V.
+template <int D>
+__global__ void __launch_bounds__(HOP_THREADS, 1)
+packed_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
+                             __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Sq,
+                             int Skv, int H, int KVH, int causal, int window, float scale) {
+    using L = FwdLayout<D>;
+    constexpr int BQ_ = L::BQ, BK_ = L::BK, ST = L::STAGES;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* sm = align1024(smem_raw);
+    uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + L::BARS);
+    uint64_t* k_full = qbar + 1;
+    uint64_t* v_full = k_full + ST;
+    uint64_t* k_empty = v_full + ST;
+    uint64_t* v_empty = k_empty + ST;
+    int* kseg = reinterpret_cast<int*>(sm + L::KSEG);
+    uint8_t* cls = sm + L::CLS;
+
+    const int nq = (Sq + BQ_ - 1) / BQ_;
+    const int q0 = (nq - 1 - (int)blockIdx.x) * BQ_, h = blockIdx.y, b = blockIdx.z;
+    const int kh = h / (H / KVH);
+    const int* sq_row = seg_q + (long)b * Sq;
+    const int* sk_row = seg_kv + (long)b * Skv;
+
+    if (threadIdx.x == 0) {
+        mbar_init(qbar, 1);
+        for (int s = 0; s < ST; ++s) {
+            mbar_init(&k_full[s], 1 + STAT_LANES);
+            mbar_init(&v_full[s], 1);
+            mbar_init(&k_empty[s], CONSUMER_WARPS);
+            mbar_init(&v_empty[s], CONSUMER_WARPS);
+        }
+        mbar_fence_init();
+        mbar_expect_tx(qbar, BQ_ * D * 2);
+        for (int x = 0; x < D / 64; ++x)
+            tma_load(sm + L::Q + x * BQ_ * 128, tq, qbar, 64 * x, h, q0, b);
+    }
+    int kt0, n;
+    key_range(q0, BQ_, BK_, Skv, causal, window, kt0, n);
+    build_schedule<BQ_, BK_, true, CENSUS_FWD>(sq_row, q0, Sq, sk_row, Skv, kt0, n, causal,
+                                               window, cls);
+    __syncthreads();
+
+    if (threadIdx.x < WG) {
+        // ---- producer ----
+        regs_dec<PRODUCER_REGS>();
+        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+        if (warp == 0 && lane == 0) {
+            Ring r;
+            for (int i = 0; i < n; ++i) {
+                if (cls[i] == SKIP) continue;
+                const int k0 = (kt0 + i) * BK_;
+                unsigned char* ks = sm + L::K + r.stage * L::TILE;
+                unsigned char* vs = sm + L::V + r.stage * L::TILE;
+                mbar_wait(&k_empty[r.stage], r.phase ^ 1u);
+                mbar_expect_tx(&k_full[r.stage], L::TILE);
+                for (int x = 0; x < D / 64; ++x)
+                    tma_load(ks + x * BK_ * 128, tk, &k_full[r.stage], 64 * x, kh, k0, b);
+                mbar_wait(&v_empty[r.stage], r.phase ^ 1u);
+                mbar_expect_tx(&v_full[r.stage], L::TILE);
+                for (int x = 0; x < D / 64; ++x)
+                    tma_load(vs + x * BK_ * 128, tv, &v_full[r.stage], 64 * x, kh, k0, b);
+                r.next<ST>();
+            }
+        } else if (warp == 1) {
+            // the key segment ids of each masked tile, beside its K
+            Ring r;
+            for (int i = 0; i < n; ++i) {
+                const uint8_t c = cls[i];
+                if (c == SKIP) continue;
+                mbar_wait(&k_empty[r.stage], r.phase ^ 1u);
+                if (c == MASKED) {
+                    const int k0 = (kt0 + i) * BK_;
+#pragma unroll
+                    for (int e = 0; e < BK_ / 32; ++e) {
+                        const int kj = k0 + lane + 32 * e;
+                        kseg[r.stage * BK_ + lane + 32 * e] = kj < Skv ? __ldg(sk_row + kj) : 0;
+                    }
+                }
+                mbar_arrive(&k_full[r.stage]);
+                r.next<ST>();
+            }
+        }
+    } else {
+        // ---- consumers: 64 query rows each ----
+        regs_inc<CONSUMER_REGS>();
+        const int c = threadIdx.x / WG - 1, tid = threadIdx.x % WG;
+        const int w = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+        const int row0 = 64 * c;  // the consumer's rows of the block's tile
+        int qi[2], sq[2];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+            qi[hr] = q0 + row0 + 16 * w + g + 8 * hr;
+            sq[hr] = qi[hr] < Sq ? __ldg(sq_row + qi[hr]) : 0;
+        }
+        const float scale2 = scale * LOG2E;
+        float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+        float o[D / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+        // Each tile's softmax overlaps the previous tile's P.V on the tensor
+        // cores: S_i = Q K_i^T and O += P_{i-1} V_{i-1} are issued together,
+        // the softmax of S_i runs once S_i is in, and O is rescaled once
+        // P_{i-1} V_{i-1} is in too.  The first kept tile is taken before the
+        // loop, so that no wgmma is issued on a branch.
+        mbar_wait(qbar, 0);
+        const TileRows rows{qi[0], qi[1], sq[0], sq[1]};
+        turns_start(c);
+        Ring r;
+        int i = next_kept(cls, 0, n);
+        if (i < n) {
+            float s[BK_ / 2];
+            mbar_wait(&k_full[r.stage], r.phase);
+            turn_wait(c);
+            wg_fence();
+            gemm_ss<D, BK_, BQ_>(s, sm + L::Q, row0, sm + L::K + r.stage * L::TILE);
+            wg_commit();
+            turn_pass(c);
+            wg_wait<0>();
+            keep(s);
+            float alpha[2];
+            fwd_softmax<BK_>(s, cls[i], kseg + r.stage * BK_, (kt0 + i) * BK_, rows, causal,
+                             window, scale2, m, l, alpha);
+            if ((tid & 31) == 0) mbar_arrive(&k_empty[r.stage]);  // K_i and its ids are read
+            uint32_t pf[BK_ / 16][4];  // P_{i-1}, bf16
+            to_frags<BK_>(pf, s);
+            int prev = r.stage;  // the stage of V_{i-1}
+            uint32_t prev_phase = r.phase;
+            r.next<ST>();
+            for (i = next_kept(cls, i + 1, n); i < n; i = next_kept(cls, i + 1, n)) {
+                // no branch and no wait loop while a product is in flight
+                mbar_wait(&k_full[r.stage], r.phase);
+                mbar_wait(&v_full[prev], prev_phase);
+                turn_wait(c);
+                wg_fence();
+                gemm_ss<D, BK_, BQ_>(s, sm + L::Q, row0, sm + L::K + r.stage * L::TILE);
+                wg_commit();
+                gemm_rs<D, BK_ / 16>(o, pf, sm + L::V + prev * L::TILE);
+                wg_commit();
+                turn_pass(c);
+                wg_wait<1>();
+                keep(s);
+                fwd_softmax<BK_>(s, cls[i], kseg + r.stage * BK_, (kt0 + i) * BK_, rows, causal,
+                                 window, scale2, m, l, alpha);
+                wg_wait<0>();
+                keep(o);
+                keep(pf);
+                if ((tid & 31) == 0) {
+                    mbar_arrive(&k_empty[r.stage]);  // K_i and its ids are read
+                    mbar_arrive(&v_empty[prev]);
+                }
+#pragma unroll
+                for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+                to_frags<BK_>(pf, s);  // p rounded to bf16 for P.V
+                prev = r.stage;
+                prev_phase = r.phase;
+                r.next<ST>();
+            }
+            mbar_wait(&v_full[prev], prev_phase);
+            turn_wait(c);
+            wg_fence();
+            gemm_rs<D, BK_ / 16>(o, pf, sm + L::V + prev * L::TILE);
+            wg_commit();
+            turn_pass(c);
+            wg_wait<0>();
+            keep(o);
+            keep(pf);
+            if ((tid & 31) == 0) mbar_arrive(&v_empty[prev]);
+        }
+        turns_end(c);
+
+        const long q_rs = (long)H * D;
+        __nv_bfloat16* ob = out + (long)b * Sq * q_rs + (long)h * D;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+            float x = l[hr];
+            x += __shfl_xor_sync(0xffffffffu, x, 1);
+            x += __shfl_xor_sync(0xffffffffu, x, 2);
+            if (qi[hr] >= Sq) continue;
+            const float lm = fmaxf(x, 1e-30f);
+#pragma unroll
+            for (int j = 0; j < D / 8; ++j)
+                *reinterpret_cast<uint32_t*>(ob + (long)qi[hr] * q_rs + 8 * j + 2 * t) =
+                    pack_bf16(o[4 * j + 2 * hr] / lm, o[4 * j + 2 * hr + 1] / lm);
+            if (t == 0)
+                lse[((long)b * H + h) * Sq + qi[hr]] =
+                    x > 0.f ? (m[hr] + log2f(x)) / LOG2E : INFINITY;
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Backward, head dims 64 and 128
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_STAGES = 3;
+
+// The per-row statistics of a streamed query tile (dK/dV): lse in base 2,
+// delta and segment ids of its 64 queries.
+struct QStats {
+    float lse2[64];
+    float delta[64];
+    int seg[64];
+};
+
+template <int D>
+struct DkdvLayout {
+    static constexpr int BK = 128, BQ = 64, STAGES = BWD_STAGES;
+    static constexpr int KV_TILE = BK * D * 2, Q_TILE = BQ * D * 2;
+    static constexpr int K = 0, V = KV_TILE;
+    static constexpr int Q = 2 * KV_TILE;                  // [STAGES] Q tiles
+    static constexpr int DO = Q + STAGES * Q_TILE;         // [STAGES] dO tiles
+    static constexpr int STATS = DO + STAGES * Q_TILE;     // QStats [STAGES]
+    static constexpr int BARS = STATS + STAGES * (int)sizeof(QStats);  // kv, full[], empty[]
+    static constexpr int CLS = BARS + 8 * (1 + 2 * STAGES);
+    static size_t bytes(int tiles) { return (size_t)CLS + tiles + 1024; }
+};
+
+// One block per (128 keys, KV head, row): dK and dV of its keys.
+template <int D>
+__global__ void __launch_bounds__(HOP_THREADS, 1)
+packed_attn_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                              int Sq, int Skv, int H, int KVH, int causal, int window,
+                              float scale) {
+    using L = DkdvLayout<D>;
+    constexpr int BQ_ = L::BQ, BK_ = L::BK, ST = L::STAGES;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* sm = align1024(smem_raw);
+    uint64_t* kvbar = reinterpret_cast<uint64_t*>(sm + L::BARS);
+    uint64_t* full = kvbar + 1;
+    uint64_t* empty = full + ST;
+    QStats* stats = reinterpret_cast<QStats*>(sm + L::STATS);
+    uint8_t* cls = sm + L::CLS;
+
+    const int k0 = blockIdx.x * BK_, kh = blockIdx.y, b = blockIdx.z;
+    const int G = H / KVH;
+    const int* sq_row = seg_q + (long)b * Sq;
+    const int* sk_row = seg_kv + (long)b * Skv;
+
+    if (threadIdx.x == 0) {
+        mbar_init(kvbar, 1);
+        for (int s = 0; s < ST; ++s) {
+            mbar_init(&full[s], 1 + STAT_LANES);
+            mbar_init(&empty[s], CONSUMER_WARPS);
+        }
+        mbar_fence_init();
+        mbar_expect_tx(kvbar, 2 * L::KV_TILE);
+        for (int x = 0; x < D / 64; ++x) {
+            tma_load(sm + L::K + x * BK_ * 128, tk, kvbar, 64 * x, kh, k0, b);
+            tma_load(sm + L::V + x * BK_ * 128, tv, kvbar, 64 * x, kh, k0, b);
+        }
+    }
+    int qt0, n;
+    query_range(k0, BK_, BQ_, Sq, causal, window, qt0, n);
+    build_schedule<BK_, BQ_, false, CENSUS_DKDV>(sk_row, k0, Skv, sq_row, Sq, qt0, n, causal,
+                                                 window, cls);
+    __syncthreads();
+
+    if (threadIdx.x < WG) {
+        regs_dec<PRODUCER_REGS>();
+        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+        if (warp == 0 && lane == 0) {
+            Ring r;
+            for (int i = 0; i < n; ++i) {
+                if (cls[i] == SKIP) continue;
+                const int q0 = (qt0 + i) * BQ_;
+                for (int hg = 0; hg < G; ++hg) {
+                    const int h = kh * G + hg;
+                    mbar_wait(&empty[r.stage], r.phase ^ 1u);
+                    mbar_expect_tx(&full[r.stage], 2 * L::Q_TILE);
+                    unsigned char* qs = sm + L::Q + r.stage * L::Q_TILE;
+                    unsigned char* dos = sm + L::DO + r.stage * L::Q_TILE;
+                    for (int x = 0; x < D / 64; ++x) {
+                        tma_load(qs + x * BQ_ * 128, tq, &full[r.stage], 64 * x, h, q0, b);
+                        tma_load(dos + x * BQ_ * 128, tdo, &full[r.stage], 64 * x, h, q0, b);
+                    }
+                    r.next<ST>();
+                }
+            }
+        } else if (warp == 1) {
+            Ring r;
+            for (int i = 0; i < n; ++i) {
+                if (cls[i] == SKIP) continue;
+                const int q0 = (qt0 + i) * BQ_;
+                for (int hg = 0; hg < G; ++hg) {
+                    const long ro = ((long)b * H + kh * G + hg) * Sq;
+                    mbar_wait(&empty[r.stage], r.phase ^ 1u);
+                    QStats& st = stats[r.stage];
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int x = lane + 32 * e, qi = q0 + x;
+                        const bool in = qi < Sq;
+                        st.lse2[x] = in ? __ldg(lse + ro + qi) * LOG2E : INFINITY;
+                        st.delta[x] = in ? __ldg(delta + ro + qi) : 0.f;
+                        st.seg[x] = in ? __ldg(sq_row + qi) : 0;
+                    }
+                    mbar_arrive(&full[r.stage]);
+                    r.next<ST>();
+                }
+            }
+        }
+    } else {
+        // ---- consumers: 64 keys each ----
+        regs_inc<CONSUMER_REGS>();
+        const int c = threadIdx.x / WG - 1, tid = threadIdx.x % WG;
+        const int w = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+        const int row0 = 64 * c;
+        int kj[2], sk[2];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+            kj[hr] = k0 + row0 + 16 * w + g + 8 * hr;
+            sk[hr] = kj[hr] < Skv ? __ldg(sk_row + kj[hr]) : 0;
+        }
+        const float scale2 = scale * LOG2E;
+        float gk[D / 2], gv[D / 2];
+#pragma unroll
+        for (int x = 0; x < D / 2; ++x) gk[x] = gv[x] = 0.f;
+
+        mbar_wait(kvbar, 0);
+        Ring r;
+        for (int i = 0; i < n; ++i) {
+            const uint8_t cl = cls[i];
+            if (cl == SKIP) continue;
+            const int q0 = (qt0 + i) * BQ_;
+            for (int hg = 0; hg < G; ++hg) {
+                const unsigned char* qs = sm + L::Q + r.stage * L::Q_TILE;
+                const unsigned char* dos = sm + L::DO + r.stage * L::Q_TILE;
+                const QStats& st = stats[r.stage];
+                mbar_wait(&full[r.stage], r.phase);
+
+                // S^T = K Q^T and dP^T = V dO^T for the consumer's 64 keys;
+                // then P^T and dS^T = P^T (dP^T - delta) on the fragments
+                // (columns are queries), rounded to bf16 for the products.
+                float s[BQ_ / 2], dp[BQ_ / 2];
+                wg_fence();
+                gemm_ss<D, BQ_, BK_>(s, sm + L::K, row0, qs);
+                gemm_ss<D, BQ_, BK_>(dp, sm + L::V, row0, dos);
+                wg_commit();
+                wg_wait<0>();
+                keep(s);
+                keep(dp);
+#pragma unroll
+                for (int j = 0; j < BQ_ / 8; ++j)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int col = 8 * j + 2 * t + e;
+                        const float lq = st.lse2[col], dl = st.delta[col];
+                        const int sqc = st.seg[col];
+#pragma unroll
+                        for (int hr = 0; hr < 2; ++hr) {
+                            const int x = 4 * j + 2 * hr + e;
+                            const float p =
+                                cl == MASKED &&
+                                        !visible(q0 + col, kj[hr], sqc, sk[hr], causal, window)
+                                    ? 0.f
+                                    : ex2(s[x] * scale2 - lq);
+                            s[x] = p;
+                            dp[x] = p * (dp[x] - dl);
+                        }
+                    }
+                uint32_t pf[BQ_ / 16][4], df[BQ_ / 16][4];
+                to_frags<BQ_>(pf, s);
+                to_frags<BQ_>(df, dp);
+                wg_fence();
+                gemm_rs<D, BQ_ / 16>(gv, pf, dos);  // dV += P^T dO
+                gemm_rs<D, BQ_ / 16>(gk, df, qs);   // dK += dS^T Q
+                wg_commit();
+                wg_wait<0>();
+                keep(gv);
+                keep(gk);
+                keep(pf);
+                keep(df);
+                if ((tid & 31) == 0) mbar_arrive(&empty[r.stage]);
+                r.next<ST>();
+            }
+        }
+
+        const long kv_rs = (long)KVH * D;
+        const long kv_off = (long)b * Skv * kv_rs + (long)kh * D;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+            if (kj[hr] >= Skv) continue;
+            const long off = kv_off + (long)kj[hr] * kv_rs;
+#pragma unroll
+            for (int j = 0; j < D / 8; ++j) {
+                *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * t) =
+                    pack_bf16(gk[4 * j + 2 * hr] * scale, gk[4 * j + 2 * hr + 1] * scale);
+                *reinterpret_cast<uint32_t*>(dv + off + 8 * j + 2 * t) =
+                    pack_bf16(gv[4 * j + 2 * hr], gv[4 * j + 2 * hr + 1]);
+            }
+        }
+    }
+}
+
+template <int D>
+struct DqLayout {
+    static constexpr int BQ = 128, BK = 128, STAGES = 2;
+    static constexpr int Q_TILE = BQ * D * 2, KV_TILE = BK * D * 2;
+    static constexpr int Q = 0, DO = Q_TILE;
+    static constexpr int K = 2 * Q_TILE;                   // [STAGES] K tiles
+    static constexpr int V = K + STAGES * KV_TILE;         // [STAGES] V tiles
+    static constexpr int KSEG = V + STAGES * KV_TILE;      // int [STAGES][BK]
+    static constexpr int BARS = KSEG + STAGES * BK * 4;    // q, full[], empty[]
+    static constexpr int CLS = BARS + 8 * (1 + 2 * STAGES);
+    static size_t bytes(int tiles) { return (size_t)CLS + tiles + 1024; }
+};
+
+// One block per (128 queries, head, row): dQ of its queries.
+template <int D>
+__global__ void __launch_bounds__(HOP_THREADS, 1)
+packed_attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H, int KVH,
+                            int causal, int window, float scale) {
+    using L = DqLayout<D>;
+    constexpr int BQ_ = L::BQ, BK_ = L::BK, ST = L::STAGES;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* sm = align1024(smem_raw);
+    uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + L::BARS);
+    uint64_t* full = qbar + 1;
+    uint64_t* empty = full + ST;
+    int* kseg = reinterpret_cast<int*>(sm + L::KSEG);
+    uint8_t* cls = sm + L::CLS;
+
+    const int nq = (Sq + BQ_ - 1) / BQ_;
+    const int q0 = (nq - 1 - (int)blockIdx.x) * BQ_, h = blockIdx.y, b = blockIdx.z;
+    const int kh = h / (H / KVH);
+    const int* sq_row = seg_q + (long)b * Sq;
+    const int* sk_row = seg_kv + (long)b * Skv;
+
+    if (threadIdx.x == 0) {
+        mbar_init(qbar, 1);
+        for (int s = 0; s < ST; ++s) {
+            mbar_init(&full[s], 1 + STAT_LANES);
+            mbar_init(&empty[s], CONSUMER_WARPS);
+        }
+        mbar_fence_init();
+        mbar_expect_tx(qbar, 2 * L::Q_TILE);
+        for (int x = 0; x < D / 64; ++x) {
+            tma_load(sm + L::Q + x * BQ_ * 128, tq, qbar, 64 * x, h, q0, b);
+            tma_load(sm + L::DO + x * BQ_ * 128, tdo, qbar, 64 * x, h, q0, b);
+        }
+    }
+    int kt0, n;
+    key_range(q0, BQ_, BK_, Skv, causal, window, kt0, n);
+    build_schedule<BQ_, BK_, true, CENSUS_DQ>(sq_row, q0, Sq, sk_row, Skv, kt0, n, causal,
+                                              window, cls);
+    __syncthreads();
+
+    if (threadIdx.x < WG) {
+        regs_dec<PRODUCER_REGS>();
+        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+        if (warp == 0 && lane == 0) {
+            Ring r;
+            for (int i = 0; i < n; ++i) {
+                if (cls[i] == SKIP) continue;
+                const int k0 = (kt0 + i) * BK_;
+                mbar_wait(&empty[r.stage], r.phase ^ 1u);
+                mbar_expect_tx(&full[r.stage], 2 * L::KV_TILE);
+                unsigned char* ks = sm + L::K + r.stage * L::KV_TILE;
+                unsigned char* vs = sm + L::V + r.stage * L::KV_TILE;
+                for (int x = 0; x < D / 64; ++x) {
+                    tma_load(ks + x * BK_ * 128, tk, &full[r.stage], 64 * x, kh, k0, b);
+                    tma_load(vs + x * BK_ * 128, tv, &full[r.stage], 64 * x, kh, k0, b);
+                }
+                r.next<ST>();
+            }
+        } else if (warp == 1) {
+            Ring r;
+            for (int i = 0; i < n; ++i) {
+                const uint8_t c = cls[i];
+                if (c == SKIP) continue;
+                mbar_wait(&empty[r.stage], r.phase ^ 1u);
+                if (c == MASKED) {
+                    const int k0 = (kt0 + i) * BK_;
+#pragma unroll
+                    for (int e = 0; e < BK_ / 32; ++e) {
+                        const int kj = k0 + lane + 32 * e;
+                        kseg[r.stage * BK_ + lane + 32 * e] = kj < Skv ? __ldg(sk_row + kj) : 0;
+                    }
+                }
+                mbar_arrive(&full[r.stage]);
+                r.next<ST>();
+            }
+        }
+    } else {
+        // ---- consumers: 64 queries each ----
+        regs_inc<CONSUMER_REGS>();
+        const int c = threadIdx.x / WG - 1, tid = threadIdx.x % WG;
+        const int w = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+        const int row0 = 64 * c;
+        int qi[2], sq[2];
+        float lq[2], dl[2];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+            qi[hr] = q0 + row0 + 16 * w + g + 8 * hr;
+            const bool in = qi[hr] < Sq;
+            const long ro = ((long)b * H + h) * Sq + qi[hr];
+            sq[hr] = in ? __ldg(sq_row + qi[hr]) : 0;
+            lq[hr] = in ? __ldg(lse + ro) * LOG2E : INFINITY;
+            dl[hr] = in ? __ldg(delta + ro) : 0.f;
+        }
+        const float scale2 = scale * LOG2E;
+        float gq[D / 2];
+#pragma unroll
+        for (int x = 0; x < D / 2; ++x) gq[x] = 0.f;
+
+        // P is taken while dP is on the tensor cores.
+        mbar_wait(qbar, 0);
+        Ring r;
+        for (int i = 0; i < n; ++i) {
+            const uint8_t cl = cls[i];
+            if (cl == SKIP) continue;
+            const int k0 = (kt0 + i) * BK_;
+            const unsigned char* ks = sm + L::K + r.stage * L::KV_TILE;
+            mbar_wait(&full[r.stage], r.phase);
+
+            float s[BK_ / 2], dp[BK_ / 2];
+            wg_fence();
+            gemm_ss<D, BK_, BQ_>(s, sm + L::Q, row0, ks);
+            wg_commit();
+            gemm_ss<D, BK_, BQ_>(dp, sm + L::DO, row0, sm + L::V + r.stage * L::KV_TILE);
+            wg_commit();
+            wg_wait<1>();
+            keep(s);
+
+            const int* kseg_s = kseg + r.stage * BK_;
+#pragma unroll
+            for (int j = 0; j < BK_ / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int col = 8 * j + 2 * t + e;
+                    const int skc = cl == MASKED ? kseg_s[col] : 0;
+#pragma unroll
+                    for (int hr = 0; hr < 2; ++hr) {
+                        float& x = s[4 * j + 2 * hr + e];
+                        x = cl == MASKED && !visible(qi[hr], k0 + col, sq[hr], skc, causal, window)
+                                ? 0.f
+                                : ex2(x * scale2 - lq[hr]);
+                    }
+                }
+            wg_wait<0>();
+            keep(dp);
+#pragma unroll
+            for (int x = 0; x < BK_ / 2; ++x) dp[x] = s[x] * (dp[x] - dl[(x >> 1) & 1]);
+            uint32_t df[BK_ / 16][4];
+            to_frags<BK_>(df, dp);
+            wg_fence();
+            gemm_rs<D, BK_ / 16>(gq, df, ks);  // dQ += dS K
+            wg_commit();
+            wg_wait<0>();
+            keep(gq);
+            keep(df);
+            if ((tid & 31) == 0) mbar_arrive(&empty[r.stage]);
+            r.next<ST>();
+        }
+
+        const long q_rs = (long)H * D;
+        __nv_bfloat16* qb = dq + (long)b * Sq * q_rs + (long)h * D;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+            if (qi[hr] >= Sq) continue;
+#pragma unroll
+            for (int j = 0; j < D / 8; ++j)
+                *reinterpret_cast<uint32_t*>(qb + (long)qi[hr] * q_rs + 8 * j + 2 * t) =
+                    pack_bf16(gq[4 * j + 2 * hr] * scale, gq[4 * j + 2 * hr + 1] * scale);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
+
+constexpr int ERR_UNSUPPORTED = -1;
+constexpr int ERR_TENSOR_MAP = -2;
+constexpr int ERR_TOO_LONG = -3;
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -603,10 +1706,11 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                                 (int)bytes);
 }
 
+// Head dims 16 and 32: the mma.sync kernels.
 template <int D>
-int launch_fwd(const void* q, const void* k, const void* v, const void* seg_q,
-               const void* seg_kv, void* out, void* lse, int B, int Sq, int Skv,
-               int H, int KVH, int causal, int window, float scale, cudaStream_t st) {
+int launch_fwd_mma(const void* q, const void* k, const void* v, const void* seg_q,
+                   const void* seg_kv, void* out, void* lse, int B, int Sq, int Skv, int H,
+                   int KVH, int causal, int window, float scale, cudaStream_t st) {
     const dim3 grid((Sq + BQ - 1) / BQ, H, B);
     auto kernel = packed_attn_fwd_mma_kernel<D>;
     cudaError_t err = allow_smem(kernel, fwd_mma_smem<D>());
@@ -620,23 +1724,14 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* seg_q,
 }
 
 template <int D>
-int launch_bwd(const void* q, const void* k, const void* v, const void* seg_q,
-               const void* seg_kv, const void* out, const void* dout, const void* lse,
-               void* delta, void* dq, void* dk, void* dv, int B, int Sq, int Skv,
-               int H, int KVH, int causal, int window, float scale, cudaStream_t st) {
-    const long rows = (long)B * Sq * H;
-    const int warps = DELTA_THREADS / 32;
-    packed_attn_delta_kernel<<<(unsigned)((rows + warps - 1) / warps), DELTA_THREADS, 0,
-                               st>>>(static_cast<const bf16*>(out),
-                                     static_cast<const bf16*>(dout),
-                                     static_cast<float*>(delta), B, Sq, H, D);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-
+int launch_bwd_mma(const void* q, const void* k, const void* v, const void* seg_q,
+                   const void* seg_kv, const void* dout, const void* lse, const void* delta,
+                   void* dq, void* dk, void* dv, int B, int Sq, int Skv, int H, int KVH,
+                   int causal, int window, float scale, cudaStream_t st) {
     const dim3 kv_grid((Skv + BK - 1) / BK, KVH, B), q_grid((Sq + BQ - 1) / BQ, H, B);
     auto dkdv = packed_attn_dkdv_mma_kernel<D>;
-    if ((err = allow_smem(dkdv, bwd_mma_smem<D>())) != cudaSuccess)
-        return static_cast<int>(err);
+    cudaError_t err = allow_smem(dkdv, bwd_mma_smem<D>());
+    if (err != cudaSuccess) return static_cast<int>(err);
     dkdv<<<kv_grid, MMA_THREADS, bwd_mma_smem<D>(), st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const int*>(seg_q),
@@ -658,23 +1753,150 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* seg_q,
     return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int ERR_UNSUPPORTED = -1;
+// Head dims 64 and 128: TMA tensor maps, encoded on the host per call by the
+// driver's cuTensorMapEncodeTiled (found through the runtime, so the library
+// links nothing but the runtime).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+    static const EncodeTiled fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+                cudaSuccess ||
+            found != cudaDriverEntryPointSuccess)
+            p = nullptr;
+        return reinterpret_cast<EncodeTiled>(p);
+    }();
+    return fn;
+}
+
+// A (B, S, heads, D) bf16 tensor in the model layout, read in boxes of 64
+// columns (128 bytes, swizzled by 128 bytes) by `rows` rows of one head of
+// one batch row; coordinates (d, head, row, batch).  Rows past S read as 0.
+bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads, int D, int rows) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                   (cuuint64_t)S * heads * D * 2};
+    const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+    const cuuint32_t elem[4] = {1, 1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                  strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map of k or v; with no key at all, of q (the kernels then read nothing).
+bool make_kv_map(CUtensorMap* map, const void* kv, const void* q, int B, int Sq, int Skv,
+                 int H, int KVH, int D, int rows) {
+    return Skv > 0 ? make_map(map, kv, B, Skv, KVH, D, rows)
+                   : make_map(map, q, B, Sq, H, D, rows);
+}
+
+// The shared memory a block takes with a schedule of `tiles` tiles, or 0 if
+// the card has less.
+template <typename L>
+size_t schedule_smem(int tiles) {
+    int dev = 0, most = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+            cudaSuccess)
+        return 0;
+    const size_t bytes = L::bytes(tiles);
+    return bytes <= (size_t)most ? bytes : 0;
+}
+
+template <int D>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, const void* seg_q,
+                     const void* seg_kv, void* out, void* lse, int B, int Sq, int Skv, int H,
+                     int KVH, int causal, int window, float scale, cudaStream_t st) {
+    using L = FwdLayout<D>;
+    const size_t smem = schedule_smem<L>((Skv + L::BK - 1) / L::BK);
+    if (smem == 0) return ERR_TOO_LONG;
+    CUtensorMap tq, tk, tv;
+    if (!make_map(&tq, q, B, Sq, H, D, L::BQ) ||
+        !make_kv_map(&tk, k, q, B, Sq, Skv, H, KVH, D, L::BK) ||
+        !make_kv_map(&tv, v, q, B, Sq, Skv, H, KVH, D, L::BK))
+        return ERR_TENSOR_MAP;
+    auto kernel = packed_attn_fwd_wgmma_kernel<D>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((Sq + L::BQ - 1) / L::BQ, H, B);
+    kernel<<<grid, HOP_THREADS, smem, st>>>(
+        tq, tk, tv, static_cast<const int*>(seg_q), static_cast<const int*>(seg_kv),
+        static_cast<bf16*>(out), static_cast<float*>(lse), Sq, Skv, H, KVH, causal, window,
+        scale);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* seg_q,
+                     const void* seg_kv, const void* dout, const void* lse, const void* delta,
+                     void* dq, void* dk, void* dv, int B, int Sq, int Skv, int H, int KVH,
+                     int causal, int window, float scale, cudaStream_t st) {
+    using KL = DkdvLayout<D>;
+    using QL = DqLayout<D>;
+    const size_t kv_smem = schedule_smem<KL>((Sq + KL::BQ - 1) / KL::BQ);
+    const size_t q_smem = schedule_smem<QL>((Skv + QL::BK - 1) / QL::BK);
+    if (kv_smem == 0 || q_smem == 0) return ERR_TOO_LONG;
+    static_assert(KL::BK == QL::BK, "one K and one V map serve both kernels");
+    CUtensorMap tq_kv, tdo_kv, tq_q, tdo_q, tk, tv;  // Q and dO boxes of each kernel's rows
+    if (!make_map(&tq_kv, q, B, Sq, H, D, KL::BQ) ||
+        !make_map(&tdo_kv, dout, B, Sq, H, D, KL::BQ) ||
+        !make_map(&tq_q, q, B, Sq, H, D, QL::BQ) ||
+        !make_map(&tdo_q, dout, B, Sq, H, D, QL::BQ) ||
+        !make_map(&tk, k, B, Skv, KVH, D, KL::BK) || !make_map(&tv, v, B, Skv, KVH, D, KL::BK))
+        return ERR_TENSOR_MAP;
+    const int* sq = static_cast<const int*>(seg_q);
+    const int* sk = static_cast<const int*>(seg_kv);
+    const float* ls = static_cast<const float*>(lse);
+    const float* dl = static_cast<const float*>(delta);
+
+    auto dkdv = packed_attn_dkdv_wgmma_kernel<D>;
+    cudaError_t err = allow_smem(dkdv, kv_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dkdv<<<dim3((Skv + KL::BK - 1) / KL::BK, KVH, B), HOP_THREADS, kv_smem, st>>>(
+        tq_kv, tdo_kv, tk, tv, sq, sk, ls, dl, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), Sq, Skv, H, KVH, causal, window, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    auto dqk = packed_attn_dq_wgmma_kernel<D>;
+    if ((err = allow_smem(dqk, q_smem)) != cudaSuccess) return static_cast<int>(err);
+    dqk<<<dim3((Sq + QL::BQ - 1) / QL::BQ, H, B), HOP_THREADS, q_smem, st>>>(
+        tq_q, tdo_q, tk, tv, sq, sk, ls, dl, static_cast<bf16*>(dq), Sq, Skv, H, KVH,
+        causal, window, scale);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int launch_delta(const void* out, const void* dout, void* delta, int B, int Sq, int H, int D,
+                 cudaStream_t st) {
+    const long rows = (long)B * Sq * H;
+    const int warps = DELTA_THREADS / 32;
+    packed_attn_delta_kernel<<<(unsigned)((rows + warps - 1) / warps), DELTA_THREADS, 0, st>>>(
+        static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
+        static_cast<float*>(delta), B, Sq, H, D);
+    return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes), bf16 tensors.  Each launches on
 // `stream`, does not synchronise, and returns cudaGetLastError() after its
-// launches (-1 for a head dim it does not take).
+// launches, or a negative code of its own (packed_attn_error_string).
 extern "C" int packed_attn_fwd(const void* q, const void* k, const void* v,
                                const void* seg_q, const void* seg_kv, void* out,
                                void* lse, int B, int Sq, int Skv, int H, int KVH, int D,
                                int causal, int window, float scale, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (D) {
-        case 16: return launch_fwd<16>(q, k, v, seg_q, seg_kv, out, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
-        case 32: return launch_fwd<32>(q, k, v, seg_q, seg_kv, out, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
-        case 64: return launch_fwd<64>(q, k, v, seg_q, seg_kv, out, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
-        case 128: return launch_fwd<128>(q, k, v, seg_q, seg_kv, out, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        case 16: return launch_fwd_mma<16>(q, k, v, seg_q, seg_kv, out, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        case 32: return launch_fwd_mma<32>(q, k, v, seg_q, seg_kv, out, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        case 64: return launch_fwd_wgmma<64>(q, k, v, seg_q, seg_kv, out, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        case 128: return launch_fwd_wgmma<128>(q, k, v, seg_q, seg_kv, out, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
         default: return ERR_UNSUPPORTED;
     }
 }
@@ -685,16 +1907,36 @@ extern "C" int packed_attn_bwd(const void* q, const void* k, const void* v,
                                void* dk, void* dv, int B, int Sq, int Skv, int H, int KVH,
                                int D, int causal, int window, float scale, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (D != 16 && D != 32 && D != 64 && D != 128) return ERR_UNSUPPORTED;
+    const int err = launch_delta(out, dout, delta, B, Sq, H, D, st);
+    if (err != 0) return err;
     switch (D) {
-        case 16: return launch_bwd<16>(q, k, v, seg_q, seg_kv, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KVH, causal, window, scale, st);
-        case 32: return launch_bwd<32>(q, k, v, seg_q, seg_kv, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KVH, causal, window, scale, st);
-        case 64: return launch_bwd<64>(q, k, v, seg_q, seg_kv, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KVH, causal, window, scale, st);
-        case 128: return launch_bwd<128>(q, k, v, seg_q, seg_kv, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KVH, causal, window, scale, st);
-        default: return ERR_UNSUPPORTED;
+        case 16: return launch_bwd_mma<16>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        case 32: return launch_bwd_mma<32>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        case 64: return launch_bwd_wgmma<64>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        default: return launch_bwd_wgmma<128>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KVH, causal, window, scale, st);
     }
 }
 
+// The tile census of the current device: copies the counts taken since the
+// last call into counts[kernel * 3 + class] (kernels forward, dK/dV, dQ;
+// classes skipped, masked, full), zeroes them and turns counting on or off.
+// Synchronises with the device.
+extern "C" int packed_attn_tile_census(int on, unsigned long long* counts) {
+    cudaError_t err = cudaDeviceSynchronize();
+    if (err == cudaSuccess) err = cudaMemcpyFromSymbol(counts, g_census, sizeof(g_census));
+    static const unsigned long long zero[3][3] = {};
+    if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_census, zero, sizeof(zero));
+    if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_census_on, &on, sizeof(on));
+    if (err == cudaSuccess) err = cudaDeviceSynchronize();
+    return static_cast<int>(err);
+}
+
 extern "C" const char* packed_attn_error_string(int code) {
-    if (code == ERR_UNSUPPORTED) return "unsupported head dim (want 16, 32, 64 or 128)";
-    return cudaGetErrorString(static_cast<cudaError_t>(code));
+    switch (code) {
+        case ERR_UNSUPPORTED: return "unsupported head dim (want 16, 32, 64 or 128)";
+        case ERR_TENSOR_MAP: return "TMA tensor map encoding failed";
+        case ERR_TOO_LONG: return "a row too long for its tile schedule in shared memory";
+        default: return cudaGetErrorString(static_cast<cudaError_t>(code));
+    }
 }

@@ -1,17 +1,27 @@
 """Build and bind the Hopper packed-flash-attention kernels
 (``csrc/packed_attention.cu``): the forward, and the backward that computes
 dQ, dK and dV from the forward's output and row logsumexps.  They take
-bf16 tensors (the training and serving dtype) and run their products on the
-tensor cores (``mma.sync``), with the softmax and every sum in fp32; any
-other dtype raises.  The plain version (``ref.py``) is the CPU path and the
-oracle on the card.
+bf16 tensors (the training and serving dtype), with the softmax and every
+sum in fp32; any other dtype raises.  At head dims 64 and 128 they are
+warp-specialised: a producer warpgroup streams tiles by TMA into a ring of
+shared-memory stages, two consumer warpgroups run the products as
+``wgmma``; at head dims 16 and 32 (the ``.smoke()`` configs) they run
+``mma.sync`` on 64 x 64 tiles.  The plain version (``ref.py``) is the CPU
+path and the oracle on the card; ``ref.tile_schedule`` is their rule for
+which tiles they skip and which they compute without a mask, and
+``tile_census`` counts the classes the D = 64 and 128 kernels gave their
+tiles, to hold the two to each other.
 
 Both take the model's layout, q ``(B, Sq, H, D)`` and k, v ``(B, Skv, KVH,
 D)`` with KV head ``h // (H // KVH)`` indexed in the kernel (never
-repeated), and need no padding: ragged tails are masked inside.  The source
-is compiled on first use (``kernels/nvcc.py``) and loaded with ``ctypes``;
-nothing GPU-specific happens at import, so CPU-only hosts import this
-module too.
+repeated), and need no padding: ragged tails read as zeros of segment 0.
+At D = 64 and 128 a block keeps its tile schedule in shared memory, a byte
+per tile in range: on an H100 at D = 128 a row of more than about 8.5 million keys
+(the forward) or 4 million queries (dK/dV) does not fit, and the launch
+raises.
+The source is compiled on first use (``kernels/nvcc.py``) and loaded with
+``ctypes``; nothing GPU-specific happens at import, so CPU-only hosts import
+this module too.
 """
 
 from __future__ import annotations
@@ -20,18 +30,22 @@ import ctypes
 import math
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..nvcc import build_library
 
 __all__ = ["build", "packed_flash_attention", "packed_flash_attention_bwd",
-           "SOURCE", "HEAD_DIMS"]
+           "tile_census", "SOURCE", "HEAD_DIMS", "CENSUS_KERNELS", "CENSUS_CLASSES"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "packed_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)   # the kernels' template instances
 _MAX_GRID_YZ = 65535
+# the tile census's kernels and classes, in the library's order
+# (``ref.KERNEL_TILES`` gives each kernel's tiles)
+CENSUS_KERNELS = ("forward", "dk/dv", "dq")
+CENSUS_CLASSES = ("skipped", "masked", "full")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -52,6 +66,8 @@ def _library() -> ctypes.CDLL:
             lib.packed_attn_fwd.restype = i32
             lib.packed_attn_bwd.argtypes = [ptr] * 12 + [i32] * 8 + [ctypes.c_float, ptr]
             lib.packed_attn_bwd.restype = i32
+            lib.packed_attn_tile_census.argtypes = [i32, ptr]
+            lib.packed_attn_tile_census.restype = i32
             lib.packed_attn_error_string.argtypes = [i32]
             lib.packed_attn_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -104,6 +120,20 @@ def _raise_on(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"packed-attention {what} launch failed: "
                            f"{_library().packed_attn_error_string(code).decode()}")
+
+
+def tile_census(on: bool) -> Dict[str, Dict[str, int]]:
+    """The tiles the D = 64 and 128 kernels of the current CUDA device have
+    classed since the last call, per kernel (``CENSUS_KERNELS``) and class
+    (``CENSUS_CLASSES``), summed over blocks: a head's (query tile, key
+    tile) pair counts once per head in the forward and dQ and once per KV
+    head in dK/dV.  Zeroes the counts, then turns counting on or off (off
+    by default).  Synchronises with the device."""
+    counts = (ctypes.c_ulonglong * (len(CENSUS_KERNELS) * len(CENSUS_CLASSES)))()
+    _raise_on(_library().packed_attn_tile_census(int(on), counts), "tile census")
+    n = len(CENSUS_CLASSES)
+    return {kern: dict(zip(CENSUS_CLASSES, counts[i * n:(i + 1) * n]))
+            for i, kern in enumerate(CENSUS_KERNELS)}
 
 
 def packed_flash_attention(

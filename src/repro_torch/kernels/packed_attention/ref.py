@@ -3,7 +3,10 @@
 Dense masked attention in fp32: the CPU path of ``ops.packed_attention``
 and the oracle the Hopper kernels are held to on the card.  Its autograd is
 the plain version of the backward kernel.  ``rel_l2`` is the error measure
-the kernels are held to by it.
+the kernels are held to by it.  ``tile_schedule`` is the kernels' rule for
+which (query tile, key tile) pairs they compute and which of those need a
+mask, in plain PyTorch; ``census_rule`` is what the kernels' own count of
+their tiles (``kernel.tile_census``) must equal under that rule.
 """
 
 from __future__ import annotations
@@ -12,7 +15,28 @@ import math
 
 import torch
 
-__all__ = ["packed_attention_ref", "rel_l2"]
+__all__ = ["KERNEL_TILES", "census_rule", "packed_attention_ref", "rel_l2", "tile_counts",
+           "tile_schedule", "tile_shares", "visible_mask"]
+
+FULL, MASKED = "full", "masked"
+# each D = 64/128 kernel's (query, key) tiles, by its name in the tile census
+KERNEL_TILES = {"forward": (128, 128), "dk/dv": (64, 128), "dq": (128, 128)}
+
+
+def visible_mask(segment_ids_q: torch.Tensor, segment_ids_kv: torch.Tensor, *,
+                 causal: bool = True, window: int = 0) -> torch.Tensor:
+    """(B, Sq, Skv) bool: query i sees key j (same nonzero segment, j <= i
+    if causal, i - j < window if window > 0)."""
+    Sq, Skv = segment_ids_q.shape[1], segment_ids_kv.shape[1]
+    q_ids = torch.arange(Sq, device=segment_ids_q.device)[:, None]
+    kv_ids = torch.arange(Skv, device=segment_ids_q.device)[None, :]
+    mask = (segment_ids_q[:, :, None] == segment_ids_kv[:, None, :]) & (
+        segment_ids_kv[:, None, :] != 0)
+    if causal:
+        mask &= (q_ids >= kv_ids)[None]
+    if window > 0:
+        mask &= (q_ids - kv_ids < window)[None]
+    return mask
 
 
 def packed_attention_ref(
@@ -25,18 +49,9 @@ def packed_attention_ref(
     causal: bool = True,
     window: int = 0,
 ) -> torch.Tensor:
-    B, H, Sq, D = q.shape
-    Skv = k.shape[2]
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(q.shape[3])
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    q_ids = torch.arange(Sq, device=q.device)[:, None]
-    kv_ids = torch.arange(Skv, device=q.device)[None, :]
-    mask = (segment_ids_q[:, :, None] == segment_ids_kv[:, None, :]) & (
-        segment_ids_kv[:, None, :] != 0)
-    if causal:
-        mask &= (q_ids >= kv_ids)[None]
-    if window > 0:
-        mask &= (q_ids - kv_ids < window)[None]
+    mask = visible_mask(segment_ids_q, segment_ids_kv, causal=causal, window=window)
     s = s.masked_fill(~mask[:, None], -torch.inf)
     p = torch.softmax(s, dim=-1)
     p = torch.where(torch.isnan(p), 0.0, p)  # fully-masked rows -> zero output
@@ -74,3 +89,109 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor, block: int = 64):
     blocks = ratio(err.reshape(shape).square().sum((2, 4)),
                    ref.reshape(shape).square().sum((2, 4)))
     return whole, blocks.max().item()
+
+
+def _summaries(seg: torch.Tensor, tile: int):
+    """Per tile of ``tile`` rows of a (S,) row of ids (rows past S read as
+    0): (lo, hi) of its nonzero ids (hi = 0 if none) and whether all its
+    ids are one nonzero id."""
+    S = seg.shape[0]
+    n = -(-S // tile)
+    ids = torch.zeros(n * tile, dtype=torch.int64)
+    ids[:S] = seg.to(torch.int64).cpu()
+    ids = ids.reshape(n, tile)
+    nz = ids != 0
+    big = torch.iinfo(torch.int64).max
+    lo = torch.where(nz, ids, big).min(dim=1).values
+    hi = ids.max(dim=1).values
+    uniform = nz.all(dim=1) & (lo == hi)
+    return lo.tolist(), hi.tolist(), uniform.tolist()
+
+
+def _key_range(q0: int, bq: int, bk: int, Skv: int, causal: bool, window: int):
+    """The key tiles a query tile [q0, q0 + bq) can see: from the window's
+    first to the causal diagonal."""
+    end = -(-Skv // bk)
+    if causal:
+        end = min(end, (q0 + bq - 1) // bk + 1)
+    lo = q0 - window + 1  # the first key the tile's first query sees
+    begin = lo // bk if window > 0 and lo > 0 else 0
+    return begin, max(end, begin)
+
+
+def tile_schedule(seg_q: torch.Tensor, seg_kv: torch.Tensor, bq: int, bk: int, *,
+                  causal: bool = True, window: int = 0):
+    """The pairs of (bq-query tile, bk-key tile) the packed kernels compute.
+
+    For each row of the batch and each query tile, the kept key tiles in the
+    causal/window range as ``(key tile, class)``: a tile is skipped when the
+    nonzero segment ids of the two tiles do not overlap (no pair of it can
+    be visible); it is ``FULL`` when both tiles hold one nonzero segment id,
+    the same, and the pair lies wholly inside the causal and window limits
+    (every pair is visible: the kernel applies no mask); ``MASKED``
+    otherwise.  Rows past the end read as segment 0.  The kernels
+    (``csrc/packed_attention.cu``: ``pair_class``, ``key_range``,
+    ``query_range``) apply the same rule: the forward and dQ with 128 x 128
+    tiles, dK/dV with 64 queries by 128 keys.
+    """
+    B, Sq = seg_q.shape
+    Skv = seg_kv.shape[1]
+    out = []
+    for b in range(B):
+        qlo, qhi, quni = _summaries(seg_q[b], bq)
+        klo, khi, kuni = _summaries(seg_kv[b], bk)
+        row = []
+        for qt in range(len(qlo)):
+            q0 = qt * bq
+            begin, end = _key_range(q0, bq, bk, Skv, causal, window)
+            kept = []
+            for kt in range(begin, end):
+                k0 = kt * bk
+                if qhi[qt] == 0 or khi[kt] == 0 or qhi[qt] < klo[kt] or khi[kt] < qlo[qt]:
+                    continue
+                inside = ((not causal or k0 + bk - 1 <= q0)
+                          and (window <= 0 or q0 + bq - 1 - k0 < window))
+                full = quni[qt] and kuni[kt] and qlo[qt] == klo[kt] and inside
+                kept.append((kt, FULL if full else MASKED))
+            row.append(kept)
+        out.append(row)
+    return out
+
+
+def tile_counts(seg_q: torch.Tensor, seg_kv: torch.Tensor, bq: int, bk: int, *,
+                causal: bool = True, window: int = 0):
+    """The counts of the tile pairs in the kernels' causal/window range that
+    ``tile_schedule`` skips, computes masked and computes unmasked: per
+    head, what the kernels' tile census (``kernel.tile_census``) counts."""
+    Sq, Skv = seg_q.shape[1], seg_kv.shape[1]
+    total = seg_q.shape[0] * sum(
+        end - begin for begin, end in (_key_range(qt * bq, bq, bk, Skv, causal, window)
+                                       for qt in range(-(-Sq // bq))))
+    counts = {FULL: 0, MASKED: 0}
+    for row in tile_schedule(seg_q, seg_kv, bq, bk, causal=causal, window=window):
+        for kept in row:
+            for _, c in kept:
+                counts[c] += 1
+    return {"skipped": total - counts[FULL] - counts[MASKED], "masked": counts[MASKED],
+            "full": counts[FULL]}
+
+
+def census_rule(seg_q: torch.Tensor, seg_kv: torch.Tensor, H: int, KVH: int, *,
+                causal: bool = True, window: int = 0):
+    """What the kernels' tile census (``kernel.tile_census``) counts over one
+    forward and one backward: ``tile_counts`` at each kernel's tiles, once
+    per head (per KV head in dK/dV, whose blocks serve a KV head's G query
+    heads)."""
+    return {kern: {c: n * (KVH if kern == "dk/dv" else H)
+                   for c, n in tile_counts(seg_q, seg_kv, bq, bk, causal=causal,
+                                           window=window).items()}
+            for kern, (bq, bk) in KERNEL_TILES.items()}
+
+
+def tile_shares(counts):
+    """Tile counts (``tile_counts``, or a kernel's census) as the shares of
+    their total skipped, full and masked, with the total."""
+    total = sum(counts.values())
+    share = (lambda x: x / total) if total else (lambda x: 0.0)
+    return {"skipped": share(counts["skipped"]), "full": share(counts["full"]),
+            "masked": share(counts["masked"]), "tiles": total}

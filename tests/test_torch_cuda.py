@@ -192,9 +192,16 @@ def test_paged_decode_on_card_launches_once_per_layer_and_step():
 # the planted faults these limits catch).
 PACKED_TOLS = dict(rtol=2e-2, atol=2e-2)
 REL_L2 = (1e-2, 2e-2)  # (whole tensor, worst 64-row tile of a head)
-# (S, H, KVH, D, window): test_kernels' grid, GQA, a window, ragged lengths
+# (S, H, KVH, D, window[, layout]): test_kernels' grid, GQA, a window, ragged
+# lengths; then one document filling each row (almost every tile is full:
+# the unmasked path), S = 1000 and 300 (TMA's zero fill past the end, a
+# ragged last tile), GQA with G = 4 and 8 at D = 128 and G = 7 at D = 64
+# (internvl2-1b's 14 over 2), and a window of 192, not a multiple of a tile
 PACKED_CASES = [(256, 4, 4, 64, 0), (512, 4, 2, 64, 0), (384, 4, 1, 32, 0),
-                (200, 4, 2, 16, 0), (256, 2, 2, 32, 64), (300, 8, 2, 128, 0)]
+                (200, 4, 2, 16, 0), (256, 2, 2, 32, 64), (300, 8, 2, 128, 0),
+                (1024, 4, 4, 128, 0, "one-document"), (1000, 8, 2, 128, 0),
+                (300, 4, 4, 64, 0), (512, 16, 4, 128, 0), (512, 16, 2, 128, 0),
+                (256, 14, 2, 64, 0), (640, 4, 2, 128, 192), (640, 4, 4, 64, 192)]
 
 
 def _packed_segments(rng, B, S, max_segs=4, pad_frac=0.2):
@@ -223,15 +230,17 @@ def test_packed_kernels_match_plain_on_card(case):
     from repro_torch.kernels.packed_attention import ops as packed_ops
     from repro_torch.kernels.packed_attention.ref import rel_l2
 
-    S, H, KVH, D, window = case
+    S, H, KVH, D, window = case[:5]
     B = 2
-    rng = np.random.default_rng(sum(case))
+    rng = np.random.default_rng(sum(case[:5]))
 
     def t(shape):
         return torch.tensor(rng.normal(size=shape), device="cuda").to(torch.bfloat16)
 
     q, k, v, g = t((B, S, H, D)), t((B, S, KVH, D)), t((B, S, KVH, D)), t((B, S, H, D))
-    seg = torch.tensor(_packed_segments(rng, B, S), device="cuda")
+    seg = (np.ones((B, S), np.int32) if case[5:] == ("one-document",)
+           else _packed_segments(rng, B, S))
+    seg = torch.tensor(seg, device="cuda")
     before = (packed_ops.launches_fwd, packed_ops.launches_bwd)
     out, grads = _packed_run(
         lambda *a: packed_ops.packed_attention(*a, seg, seg, window=window), q, k, v, g)
@@ -248,6 +257,31 @@ def test_packed_kernels_match_plain_on_card(case):
         assert a.dtype == torch.bfloat16 and a.shape == b.shape
         whole, tile = rel_l2(a, b)
         assert whole <= REL_L2[0] and tile <= REL_L2[1], (name, whole, tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_packed_kernels_are_bitwise_repeatable_on_card(D):
+    """Two launches of the forward and of the backward on the same inputs
+    give the same bits: no atomics, a fixed order of every sum."""
+    _need_card()
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+
+    rng = np.random.default_rng(D)
+    B, S, H, KVH = 2, 640, 8, 2
+
+    def t(shape):
+        return torch.tensor(rng.normal(size=shape), device="cuda").to(torch.bfloat16)
+
+    q, k, v, g = t((B, S, H, D)), t((B, S, KVH, D)), t((B, S, KVH, D)), t((B, S, H, D))
+    seg = torch.tensor(_packed_segments(rng, B, S), device="cuda")
+    runs = [_packed_run(lambda *a: packed_ops.packed_attention(*a, seg, seg), q, k, v, g)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    (out0, grads0), (out1, grads1) = runs
+    assert torch.equal(out0, out1)
+    for a, b in zip(grads0, grads1, strict=True):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -284,6 +318,96 @@ def test_packed_padded_row_gives_zero_output_and_gradient():
     assert (out[1] == 0).all() and torch.isfinite(out).all()
     for grad in (dq, dk, dv):
         assert (grad[pad] == 0).all()
+
+
+# (S, H, KVH, D, window, causal): skipped, full and masked tiles, GQA, a
+# window, a ragged last tile, and no causal limit
+CENSUS_CASES = [(1000, 8, 2, 128, 0, True), (640, 4, 4, 64, 192, True),
+                (512, 4, 2, 128, 0, False), (4096, 2, 1, 128, 0, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CENSUS_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_packed_tile_census_matches_tile_schedule(case):
+    """The tiles each kernel skipped, masked and left unmasked, counted by
+    the kernels, are ``ref.tile_schedule``'s count of the same rule, once
+    per head (per KV head in dK/dV); with the census off nothing is
+    counted."""
+    _need_card()
+    from repro_torch.kernels.packed_attention import kernel as pk
+    from repro_torch.kernels.packed_attention.ref import census_rule
+
+    S, H, KVH, D, window, causal = case
+    B = 3
+    rng = np.random.default_rng(S + D + window)
+
+    def t(shape):
+        return torch.tensor(rng.normal(size=shape), device="cuda").to(torch.bfloat16)
+
+    q, k, v, g = t((B, S, H, D)), t((B, S, KVH, D)), t((B, S, KVH, D)), t((B, S, H, D))
+    seg_np = _packed_segments(rng, B, S)
+    seg_np[0] = 1  # one document filling a row: full tiles
+    seg = torch.tensor(seg_np, device="cuda")
+    kw = dict(causal=causal, window=window)
+    pk.tile_census(on=True)
+    out, lse = pk.packed_flash_attention(q, k, v, seg, seg, **kw)
+    pk.packed_flash_attention_bwd(q, k, v, seg, seg, out, g, lse, **kw)
+    census = pk.tile_census(on=False)
+    assert census == census_rule(torch.tensor(seg_np), torch.tensor(seg_np), H, KVH, **kw)
+    assert census["forward"]["masked"] > 0
+    if window == 0:  # a window narrower than two tiles leaves no tile full
+        assert census["forward"]["full"] > 0
+    pk.packed_flash_attention(q, k, v, seg, seg, **kw)
+    assert all(n == 0 for counts in pk.tile_census(on=False).values()
+               for n in counts.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_packed_kernels_take_a_row_of_140000_tokens(D):
+    """A row longer than 131072 tokens, in documents of 1000: the first and
+    the last document's output and gradients are the plain version's on
+    that document alone."""
+    _need_card()
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+    from repro_torch.kernels.packed_attention.ref import rel_l2
+
+    S, doc, H, KVH = 140_000, 1000, 2, 1
+    rng = np.random.default_rng(D)
+
+    def t(shape):
+        return torch.tensor(rng.normal(size=shape), device="cuda").to(torch.bfloat16)
+
+    q, k, v, g = t((1, S, H, D)), t((1, S, KVH, D)), t((1, S, KVH, D)), t((1, S, H, D))
+    seg = (torch.arange(S, device="cuda", dtype=torch.int32) // doc + 1)[None]
+    out, grads = _packed_run(
+        lambda *a: packed_ops.packed_attention(*a, seg, seg), q, k, v, g)
+    one = torch.ones((1, doc), dtype=torch.int32, device="cuda")
+    for first in (0, S - doc):
+        rows = slice(first, first + doc)
+        ref, ref_grads = _packed_run(
+            lambda *a: packed_ops.packed_attention_plain(*a, one, one),
+            q[:, rows], k[:, rows], v[:, rows], g[:, rows])
+        for name, a, b in zip(("out", "dq", "dk", "dv"),
+                              (out[:, rows], *(x[:, rows] for x in grads)),
+                              (ref, *ref_grads), strict=True):
+            whole, tile = rel_l2(a, b)
+            assert whole <= REL_L2[0] and tile <= REL_L2[1], (first, name, whole, tile)
+
+
+@pytest.mark.cuda
+def test_packed_kernels_raise_on_a_row_past_the_tile_schedule():
+    """At D = 128 a block's tile schedule (a byte per key tile in range)
+    fits beside the forward's stages up to about 8.5 million keys a row
+    (an H100's 227 KB of shared memory): past that the forward raises."""
+    _need_card()
+    from repro_torch.kernels.packed_attention import kernel as pk
+
+    S = 9_000_000
+    x = torch.zeros((1, S, 1, 128), dtype=torch.bfloat16, device="cuda")
+    seg = torch.ones((1, S), dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="tile schedule"):
+        pk.packed_flash_attention(x, x, x, seg, seg)
 
 
 @pytest.mark.cuda

@@ -9,8 +9,17 @@ to on the card, is held to ``jax.grad`` of the JAX package's chunked flash
 path, the gradient the JAX train step takes.  Inputs are made with numpy
 from a seed and handed to both packages.
 
-The Hopper kernels themselves run only on a card (``tests/test_torch_cuda.py``).
+The Hopper kernels themselves run only on a card (``tests/test_torch_cuda.py``);
+their rule for which tiles they skip and which they compute unmasked,
+``ref.tile_schedule``, is held here to the dense mask (the card test holds
+the kernels' own count of their tiles to it).  ``tools/packed_attention_ab.py``,
+which times the kernels of two checkouts on a card, is checked here to
+resolve the ``chip_smoke`` helpers it borrows.
 """
+
+import ast
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +32,14 @@ from repro.kernels.packed_attention.ops import packed_attention as jax_packed
 from repro.kernels.packed_attention.ref import packed_attention_ref as jax_ref
 from repro.models.layers import flash_attention as jax_flash
 from repro_torch.kernels.packed_attention import kernel, ops
-from repro_torch.kernels.packed_attention.ref import packed_attention_ref
+from repro_torch.kernels.packed_attention.ref import (
+    FULL,
+    packed_attention_ref,
+    tile_counts,
+    tile_schedule,
+    tile_shares,
+    visible_mask,
+)
 from repro_torch.models.layers import flash_attention
 
 TOLS = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -253,5 +269,94 @@ def test_kernel_source_is_built_for_sm90a():
 
     assert "arch=compute_90a,code=sm_90a" in NVCC_FLAGS
     src = kernel.SOURCE.read_text()
-    for entry in ("packed_attn_fwd", "packed_attn_bwd", "packed_attn_error_string"):
+    for entry in ("packed_attn_fwd", "packed_attn_bwd", "packed_attn_error_string",
+                  "packed_attn_tile_census"):
         assert f'extern "C"' in src and entry in src
+
+
+# ---------------------------------------------------------------------------
+# The kernels' tile schedule
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bq,bk", [(128, 128), (64, 128), (128, 64)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 192), (False, 0),
+                                           (False, 100)])
+def test_tile_schedule_covers_the_mask(bq, bk, causal, window):
+    """``tile_schedule`` (the rule the kernels apply) against the dense mask
+    of ``packed_attention_ref``: every visible pair lies in a kept tile, and
+    every pair of a full tile is visible (the kernels apply no mask there)."""
+    rng = np.random.default_rng(bq + bk + window + int(causal))
+    n_full = 0
+    for S, max_segs in ((1000, 5), (512, 3), (300, 4), (700, 1)):
+        seg = random_packed_segments(rng, 3, S, max_segs=max_segs)
+        seg[0, :] = 1  # one document filling a row: mostly full tiles
+        seg = torch.tensor(seg)
+        mask = visible_mask(seg, seg, causal=causal, window=window)
+        covered = torch.zeros_like(mask)
+        schedule = tile_schedule(seg, seg, bq, bk, causal=causal, window=window)
+        for b, row in enumerate(schedule):
+            assert len(row) == -(-S // bq)
+            for qt, kept in enumerate(row):
+                qs = slice(qt * bq, (qt + 1) * bq)
+                for kt, cls in kept:
+                    ks = slice(kt * bk, (kt + 1) * bk)
+                    covered[b, qs, ks] = True
+                    if cls == FULL:
+                        n_full += 1
+                        tile = mask[b, qs, ks]
+                        assert tile.shape == (bq, bk) and tile.all(), (b, qt, kt)
+        assert not (mask & ~covered).any()
+    if window == 0:  # a window narrower than two tiles leaves no tile full
+        assert n_full > 0
+
+
+@pytest.mark.parametrize("bq,bk", [(128, 128), (64, 128), (128, 64)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 192), (False, 0),
+                                           (False, 100)])
+def test_tile_counts_split_the_tiles_in_range(bq, bk, causal, window):
+    """``tile_counts`` (what the kernels' tile census is held to on the
+    card): skipped, masked and full add up to the tile pairs in the causal
+    and window range, which are those holding a visible pair when the row
+    is one document; and one document skips nothing."""
+    rng = np.random.default_rng(7 * bq + bk + window + int(causal))
+    for S in (1000, 300, 640):
+        seg = torch.tensor(random_packed_segments(rng, 3, S))
+        one = torch.ones_like(seg)
+        in_range = visible_mask(one, one, causal=causal, window=window)
+        pad = (-S % bq, -S % bk)
+        tiles = torch.nn.functional.pad(in_range, (0, pad[1], 0, pad[0])).reshape(
+            3, -(-S // bq), bq, -(-S // bk), bk).any(dim=(2, 4))
+        counts = tile_counts(seg, seg, bq, bk, causal=causal, window=window)
+        assert sum(counts.values()) == int(tiles.sum())
+        assert tile_counts(one, one, bq, bk, causal=causal, window=window)["skipped"] == 0
+        kept = sum(len(k) for row in tile_schedule(seg, seg, bq, bk, causal=causal,
+                                                   window=window) for k in row)
+        assert counts["full"] + counts["masked"] == kept
+        shares = tile_shares(counts)
+        assert shares["tiles"] == int(tiles.sum())
+        assert abs(shares["skipped"] + shares["full"] + shares["masked"] - 1.0) < 1e-12
+
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _load(path: Path):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_ab_tool_resolves_the_chip_smoke_names_it_uses():
+    """``tools/packed_attention_ab.py`` borrows ``chip_smoke``'s phase-7
+    shapes and helpers as ``cs.<name>``: each must exist there."""
+    tool_path = ROOT / "tools" / "packed_attention_ab.py"
+    tool = _load(tool_path)
+    assert callable(tool.main) and callable(tool.child) and callable(tool.train_child)
+    names = {node.attr for node in ast.walk(ast.parse(tool_path.read_text()))
+             if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name)
+             and node.value.id == "cs"}
+    assert {"_time_ms", "_packed_bound", "train_phase", "TRAIN"} <= names
+    chip_smoke = _load(ROOT / "chip_smoke.py")
+    assert not [n for n in sorted(names) if not hasattr(chip_smoke, n)]
