@@ -28,15 +28,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    767-image microscopy stream, one grouped matmul of
    ``qwen3-moe-30b-a3b`` width per message (128 experts, 128-row bins,
    d = f = 2048, f32), with the kernel's launch count reset before the run
-   and read after it.  Its final worker target is held to that of a witness
-   run of the ``sleep`` payload on the same stream and scale, made just
-   before it;
+   and read after it.  Its worker target at the last dispatch is held to
+   that of a witness run of the ``sleep`` payload on the same stream and
+   scale, made just before it;
 6. the paged-decode-attention kernel against its plain version on the
    card at the serving run's decode shape (8 sequences of ragged lengths in
    64-1056 and one of 0, 32 query over 8 KV heads of 128, 16-token pages in
    a 1024-page pool, one -1 table entry inside a live range, NaN in every
-   unreferenced page), f32 and bf16, with the kernel's, the plain
-   version's and ``scaled_dot_product_attention``'s times beside the bound;
+   unreferenced page), f32 and bf16, a second launch right after the first
+   bitwise equal to it (the split counters reset), with the kernel's, the
+   plain version's and ``scaled_dot_product_attention``'s times beside the
+   bound;
 7. the packed-attention kernels, forward and backward, against the
    autograd of their plain version in bf16 (float32 on the card must raise
    and launch nothing), at the train shape (the segment ids of the first
@@ -69,7 +71,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    packed-forward launches) and 32 paged decode steps (launches held to
    36 x 32), the First-Fit watermark, and the first decode step's logits
    held to the port's own prefill of prompt + token, then two more decode
-   steps under ``torch.profiler``;
+   steps under ``torch.profiler`` (one paged launch per layer and step);
 11. training: ``launch.train.run`` on ``olmo-1b`` at full width and depth,
    ``train_4k`` rows of 4096 tokens, batch 4, 8 steps, remat ``"nothing"``,
    bf16 compute over fp32 masters, checkpointing into a temporary directory
@@ -202,17 +204,31 @@ def _fail(msg: str) -> None:
     raise SystemExit(1)
 
 
-def _assert_parity(sim, live, live_targets, final_ref, what):
+def _target_at_last_dispatch(res) -> int:
+    """The worker target at the first control tick at or after the last
+    message's dispatch (its start on a PE): the IRM's ask while the last of
+    the stream was being placed, before the drain.  After it only the
+    stream's last PEs finish and idle out, and where their idle-outs fall
+    against the packing runs sets the final target (2, 4 or 5 on the sound
+    runs of ``tools/final_target_witness.py``)."""
+    import numpy as np
+
+    last = max(m.start_t for m in res.messages)
+    i = min(int(np.searchsorted(res.times, last)), len(res.times) - 1)
+    return int(res.target_workers[i])
+
+
+def _assert_parity(sim, live, target, ref, what):
     """The bands of ``tests/test_backend_parity.py::_assert_parity``.
 
-    The final worker target is held to ``final_ref = (who, targets)``: the
-    simulator's on the smoke stream; on the full stream, a live run of the
-    ``sleep`` payload on the same stream and scale.  There the final target
-    is a drain transient of the live runtime, whatever its payload: in its
-    last ticks the target drops below where the simulator's ends.
+    ``target`` is the live run's worker target at one instant and ``ref =
+    (who, which, value)`` the reference's at the same instant: on the smoke
+    stream the simulator's final target; on the full stream a live run of
+    the ``sleep`` payload on the same stream and scale, both read at their
+    last dispatch (``_target_at_last_dispatch``), where the final target
+    is a drain transient of the live runtime, whatever its payload.
     """
-    ref_who, ref_targets = final_ref
-    ref_final, live_final = int(ref_targets[-1]), int(live_targets[-1])
+    ref_who, which, ref_target = ref
     checks = {
         "live completes >= 90%": live["completed"] >= 0.9 * live["total"],
         "sim completes >= 90%": sim["completed"] >= 0.9 * sim["total"],
@@ -222,8 +238,7 @@ def _assert_parity(sim, live, live_targets, final_ref, what):
         "max target within 2": abs(
             live["max_target_workers"] - sim["max_target_workers"]
         ) <= TARGET_TOL,
-        f"final target within 2 of the {ref_who}'s":
-            abs(live_final - ref_final) <= TARGET_TOL,
+        f"{which} within 2 of the {ref_who}'s": abs(target - ref_target) <= TARGET_TOL,
         "makespan within 1.6x": (
             sim["makespan_s"] / MAKESPAN_RATIO
             <= live["makespan_s"]
@@ -233,7 +248,7 @@ def _assert_parity(sim, live, live_targets, final_ref, what):
             "mean_scheduled_utilization_active", "max_target_workers")
     for who, summary in (("sim ", sim), ("live", live)):
         print(f"[{what}] {who} {json.dumps({k: summary[k] for k in keys})}")
-    print(f"[{what}] final target: live {live_final}, {ref_who} {ref_final}")
+    print(f"[{what}] {which}: live {target}, {ref_who} {ref_target}")
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"{what}: outside the parity bands: {bad}")
@@ -270,7 +285,7 @@ def _simulate(stream, sim_config, irm_config):
 
     cfg = sim_config()
     res = simulate(stream(), cfg, irm=IRM(irm_config()))
-    return summarize_result(res, cfg.dt), res.target_workers
+    return summarize_result(res, cfg.dt), res
 
 
 def multiproc_phase() -> None:
@@ -283,7 +298,7 @@ def multiproc_phase() -> None:
     from repro_torch.scenarios.engine import summarize_result
 
     stream, sim_config, irm_config = _microscopy(smoke=True)
-    sim, sim_targets = _simulate(stream, sim_config, irm_config)
+    sim, sim_res = _simulate(stream, sim_config, irm_config)
     for size, kwargs, scale in MP_RUNS:
         what = f"multiproc {size}"
         cfg = sim_config()
@@ -307,7 +322,8 @@ def multiproc_phase() -> None:
         if len(dev_ms) != res.completed or not (dev_ms > 0).all():
             raise AssertionError(
                 f"{what}: {len(dev_ms)} device times for {res.completed} messages")
-        _assert_parity(sim, live, res.target_workers, ("sim", sim_targets), what)
+        _assert_parity(sim, live, int(res.target_workers[-1]),
+                       ("sim", "final target", int(sim_res.target_workers[-1])), what)
         print(json.dumps({"multiproc": {
             "payload": size, "completed": int(res.completed),
             "total": int(res.total), "launches": int(launches),
@@ -350,6 +366,24 @@ def _bound(x, w, gs):
     dtype = str(x.dtype).replace("torch.", "")
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _payload_inputs(torch):
+    """The full payload shape's (x, w, group_sizes), made on the card from
+    seed 0: every row of every bin live."""
+    dev = torch.device("cuda")
+    E, C, d = PAYLOAD_FULL["experts"], PAYLOAD_FULL["rows"], PAYLOAD_FULL["dim"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((E, C, d), generator=gen, device=dev)
+    w = torch.randn((E, d, d), generator=gen, device=dev)
+    return x, w, torch.full((E,), C, dtype=torch.int32, device=dev)
+
+
+def _bmm_yardstick(torch, x, w, gs):
+    """One library call for the same function: ``torch.bmm`` and the row
+    mask (timed beside the kernel, used nowhere in the port)."""
+    valid = (torch.arange(x.shape[1], device=x.device)[None, :] < gs[:, None])[..., None]
+    return lambda: torch.bmm(x, w).masked_fill_(~valid, 0.0)
 
 
 def kernel_phase(torch, np):
@@ -399,11 +433,8 @@ def kernel_phase(torch, np):
             raise AssertionError(f"kernel disagrees with its plain version: {name}")
 
     # the full payload shape, data made on the card from a seed
-    E, C, d = PAYLOAD_FULL["experts"], PAYLOAD_FULL["rows"], PAYLOAD_FULL["dim"]
-    gen = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn((E, C, d), generator=gen, device=dev)
-    w = torch.randn((E, d, d), generator=gen, device=dev)
-    gs = torch.full((E,), C, dtype=torch.int32, device=dev)
+    x, w, gs = _payload_inputs(torch)
+    E, C, d = x.shape
     out = grouped_matmul(x, w, gs)
     ref = grouped_matmul_ref(x, w, gs)
     torch.cuda.synchronize()
@@ -413,11 +444,7 @@ def kernel_phase(torch, np):
     if not err <= 1e-2:
         raise AssertionError(f"kernel disagrees at the payload shape: {err}")
     del out, ref
-    valid = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
-
-    def library():
-        return torch.bmm(x, w).masked_fill_(~valid, 0.0)
-
+    library = _bmm_yardstick(torch, x, w, gs)
     reps = 20
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     ms = _time_ms(torch, lambda: grouped_matmul(x, w, gs), reps, flush)
@@ -446,14 +473,16 @@ def full_phase(torch, np):
     from repro_torch.scenarios.engine import summarize_result
 
     stream, sim_config, irm_config = _microscopy(smoke=False)
-    sim, sim_targets = _simulate(stream, sim_config, irm_config)
+    sim, sim_res = _simulate(stream, sim_config, irm_config)
     witness = run_live(
         stream(), sim_config(), irm=IRM(irm_config()),
         runtime=RuntimeConfig(time_scale=FULL_TIME_SCALE, payload="sleep"),
     )
     print(f"[full] time_scale={FULL_TIME_SCALE}; sleep witness: "
-          f"{witness.completed}/{witness.total} completed, final target "
-          f"{int(witness.target_workers[-1])}")
+          f"{witness.completed}/{witness.total} completed, target at the last "
+          f"dispatch {_target_at_last_dispatch(witness)}, final target "
+          f"{int(witness.target_workers[-1])}; sim: target at the last dispatch "
+          f"{_target_at_last_dispatch(sim_res)}, final {int(sim_res.target_workers[-1])}")
 
     cfg = sim_config()
     torch.cuda.reset_peak_memory_stats()
@@ -473,8 +502,11 @@ def full_phase(torch, np):
     if launches < res.completed:
         raise AssertionError(
             f"full: {launches} kernel launches for {res.completed} messages")
-    _assert_parity(sim, live, res.target_workers,
-                   ("sleep witness", witness.target_workers), "full")
+    print(f"[full] final target: live {int(res.target_workers[-1])}, sleep witness "
+          f"{int(witness.target_workers[-1])} (a drain transient, not held)")
+    _assert_parity(sim, live, _target_at_last_dispatch(res),
+                   ("sleep witness", "target at the last dispatch",
+                    _target_at_last_dispatch(witness)), "full")
     lat = np.array([m.done_t - m.arrival for m in res.messages])
     dev_ms = np.array(stats["payload_device_ms"])
     busy = float(dev_ms.sum() / 1e3 / stats["wall_s"])
@@ -528,16 +560,46 @@ def _decode_inputs(torch, np, dtype):
             torch.tensor(lens, dtype=torch.int32, device=dev)), lens
 
 
+def _sdpa_yardstick(torch, args, lens):
+    """One library call for the same function: ``scaled_dot_product_attention``
+    on K/V gathered beforehand to the longest live length (the gather is
+    left out of its time)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention.ref import gather_pages
+
+    q, k_pool, v_pool, table, lens_t = args
+    n_live = -(-int(lens.max()) // k_pool.shape[1])
+    k_d = gather_pages(k_pool, table[:, :n_live]).transpose(1, 2).contiguous()
+    v_d = gather_pages(v_pool, table[:, :n_live]).transpose(1, 2).contiguous()
+    mask = (torch.arange(k_d.shape[2], device=q.device)[None, :]
+            < lens_t[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(q4, k_d, v_d, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def _paged_bound(args, lens):
+    """(bound ms, what bounds it, bytes, flops) of a call: the live tokens'
+    K and V, q, out, the table and the lengths, each moved once."""
+    q, k_pool, _, table, _ = args
+    B, H, D = q.shape
+    KVH = k_pool.shape[2]
+    item, tokens = q.element_size(), int(lens.sum())
+    nbytes = (2 * tokens * KVH * D + 2 * B * H * D) * item + table.numel() * 4 + B * 4
+    flops = 4.0 * tokens * H * D
+    dtype = str(q.dtype).replace("torch.", "")
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
 def paged_kernel_phase(torch, np):
     """Phase 6: the paged kernel against its plain version at the decode
     shape; returns its record for the kernels line."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels.paged_attention.kernel import paged_decode_attention
-    from repro_torch.kernels.paged_attention.ref import (
-        gather_pages,
-        paged_attention_ref,
-    )
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
     dev = torch.device("cuda")
     record = None
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
@@ -550,10 +612,12 @@ def paged_kernel_phase(torch, np):
         rtol, atol = PAGED_TOLS[name]
         err = (out.float() - ref.float()).abs().max().item()
         zero_row = int(np.flatnonzero(lens == 0)[0])
+        again = paged_decode_attention(*args)  # back to back: the counters reset
         checks = {
             "within TOLS": torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol),
             "finite": bool(torch.isfinite(out).all()),
             "length-0 row is 0": bool((out[zero_row] == 0).all()),
+            "a second launch gives the same bits": torch.equal(again, out),
         }
         print(f"[paged] {name}: lens={lens.tolist()} max_abs_err={err:.3e} "
               f"(rtol={rtol}, atol={atol}) {checks}")
@@ -563,40 +627,23 @@ def paged_kernel_phase(torch, np):
         if name != "bfloat16":
             continue
         # the serving dtype: times, bound and library yardstick
-        q, k_pool, v_pool, table, lens_t = args
-        B, H, D = q.shape
-        KVH = k_pool.shape[2]
-        n_live = -(-int(lens.max()) // DECODE["page_size"])
-        k_d = gather_pages(k_pool, table[:, :n_live]).transpose(1, 2).contiguous()
-        v_d = gather_pages(v_pool, table[:, :n_live]).transpose(1, 2).contiguous()
-        mask = (torch.arange(k_d.shape[2], device=dev)[None, :]
-                < lens_t[:, None])[:, None, None, :]
-        q4 = q[:, :, None, :]
-
-        def library():
-            return F.scaled_dot_product_attention(q4, k_d, v_d, attn_mask=mask,
-                                                  enable_gqa=True)
-
+        library = _sdpa_yardstick(torch, args, lens)
         reps = 50
         ms = _time_ms(torch, lambda: paged_decode_attention(*args), reps, flush)
         plain_ms = _time_ms(torch, lambda: paged_attention_ref(*args), reps, flush)
         library_ms = _time_ms(torch, library, reps, flush)
         ms_again = _time_ms(torch, lambda: paged_decode_attention(*args), reps, flush)
-        item, tokens = q.element_size(), int(lens.sum())
-        nbytes = (2 * tokens * KVH * D + 2 * B * H * D) * item + table.numel() * 4 + B * 4
-        flops = 4.0 * tokens * H * D
-        t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[name]
-        bound_ms = max(t_bytes, t_ops) * 1e3
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        bound_ms, bound_by, nbytes, flops = _paged_bound(args, lens)
         print(f"[paged] bf16 at the decode shape: kernel {ms:.4f} ms (again "
               f"{ms_again:.4f}), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB of "
               f"live K/V, q, out, table; {flops / 1e9:.3f} GFLOP); kernel at "
-              f"{bound_ms / ms:.3f} of the bound, {nbytes / ms / 1e6:.1f} GB/s")
+              f"{bound_ms / ms:.3f} of the bound, {nbytes / ms / 1e6:.1f} GB/s, "
+              f"{ms / library_ms:.3f}x sdpa")
         record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                   "bound_ms": bound_ms, "bound_by": bound_by,
                   "library_ms": library_ms}
-        del k_d, v_d
+        del library
 
     del flush
     torch.cuda.empty_cache()
@@ -1217,6 +1264,8 @@ def ragged_phase(torch, np):
             prefill_packed == (cfg.n_layers, 0),
         "all logits finite": bool(finite),
         "First-Fit keeps the pool dense": watermark == used == need,
+        f"profiled step: {cfg.n_layers} paged launches, no combine launch":
+            profile["paged_kernel_launches_per_step"] == cfg.n_layers,
         f"first step within {FIRST_STEP_TOL} of max |logit|":
             delta <= FIRST_STEP_TOL * scale,
     }

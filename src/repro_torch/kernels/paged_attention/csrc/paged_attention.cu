@@ -11,43 +11,68 @@
 // and the result is rounded to the input type once, on store.
 //
 // Semantics the tests pin:
-//   - a sequence of length 0 gives exactly 0 (l stays 0, acc stays 0, and
-//     the final division is by max(l, 1e-30));
+//   - a sequence of length 0 gives exactly 0 (its one split has l = 0 and
+//     acc = 0, and the final division is by max(l, 1e-30));
 //   - pages at or past ceil(seq_len / page_size) are never read, so what
 //     unreferenced pages hold (stale values, NaN) cannot reach the output;
 //   - a table entry of -1 inside the live range reads page 0, as the JAX
 //     package does (entries are also clamped below num_pages, so no table
 //     can make the kernel read outside the pools);
-//   - tokens at or past seq_len in the last live page are masked.
+//   - tokens at or past seq_len in the last live page are masked (never
+//     copied, never read).
 //
-// Design.  One block per (KV head, sequence).  The block copies its own
-// page-table row and reads its length, in place of the TPU's scalar
-// prefetch, and a loop over the live pages takes the place of the TPU
-// kernel's sequential grid axis.  The loop takes a stage of whole pages at a
-// time (64 tokens: four 16-token pages), whose K and V rows for this KV head
-// (4 KB per page each in bf16 at D = 128) are copied into shared memory with
-// 16-byte cp.async copies, double-buffered so that the next stage is in
-// flight while this one is computed.  Rows are padded by 16 bytes so that
-// the 16-byte reads of eight neighbouring rows fall on distinct banks.  Per
-// stage: each thread scores one (head, token) pair over D with 16-byte
-// reads; the online-softmax state (m, l) is updated in fp32, one warp per
-// head with the stage's tokens across its lanes; and the G x D output
-// accumulator, in registers (at most 16 per thread, as column pairs), takes
-// p @ V.  p stays fp32 in the PV product: the TPU kernel rounds p to the
-// value type there, the reference does not, and this kernel follows the
-// reference.
+// Design: split-KV (flash-decoding) with the combine inside the kernel.
+// The grid is (KV head, sequence, slot).  The host picks the chunk (whole
+// pages whose K and V rows fit 36 KB) and the slots per (sequence, KV
+// head) from the shapes alone (kernel.py:split_plan; it never reads
+// seq_lens, so a decode step takes no host sync): four blocks planned per
+// SM over all B*KVH pairs, of which three fit at once.  Each block reads
+// its sequence's length itself, in place of the TPU's scalar prefetch,
+// and takes its split: the sequence's live chunks dealt to the slots in
+// contiguous runs of ceil(chunks / slots).
+//   - A slot past the sequence's splits returns at once and reads nothing;
+//     slot 0 always runs, so a sequence of length 0 still writes its
+//     (zero) output.
+//   - A split walks its chunks in a two-buffer cp.async pipeline: the K and
+//     V rows of a chunk's tokens under seq_len for this KV head, 16 bytes a
+//     copy, the next chunk in flight while this one is computed (the loop
+//     over chunks takes the place of the TPU kernel's sequential grid
+//     axis).  Rows are padded by 16 bytes so that the 16-byte reads of
+//     eight neighbouring rows fall on distinct banks.  Per chunk: each
+//     thread scores a (head, token) pair over D with 16-byte reads; one
+//     warp per head updates the online softmax (m, l) in fp32; each thread
+//     accumulates p @ V for (head, column pair)s in registers.  The G query
+//     heads that share the KV head read each K and V row from shared
+//     memory, never again from device memory.  p stays fp32 in the PV
+//     product: the TPU kernel rounds p to the value type there, the
+//     reference does not, and this kernel follows the reference.
+//   - A sequence with one split writes acc / l directly.  Otherwise each
+//     split writes its fp32 partials (m, l, acc[G][D]) to the workspace,
+//     then (after __threadfence) takes a ticket from an atomic counter of
+//     its (sequence, KV head); the block that draws the last ticket resets
+//     the counter to 0 and combines the partials in split order:
+//     M = max m_s, out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s.
+//     The order is fixed, so the result is the same bits whichever block
+//     finishes last, and a call is one launch (no combine kernel).
 //
 // Bound.  The work is 4*H*D flops per live token against 2*KVH*D elements
 // of K and V per live token: about 2 flops per byte in bf16, far below the
-// H100's ~295, so the kernel is bound by the bytes of K and V of the live
-// tokens.  At the serving run's decode shape (B = 8 sequences, KVH = 8)
-// there are only B*KVH = 64 blocks for 132 SMs, each walking its stages one
-// after another, so most of the card idles; splitting each sequence's pages
-// across blocks with a combine pass (flash-decoding) is later work.
+// H100's ~295, so the bound is the bytes of K and V of the live tokens.
+// At the serving run's decode shape (B = 8, KVH = 8, 128-slot tables of
+// 16-token pages, chip_smoke's lengths) the plan gives 4-page chunks and 8
+// slots: 512 blocks, 74 KB of shared memory each.  On an NVIDIA H100 80GB
+// HBM3 at 700 W the call takes about 0.031 ms (tools/kernel_ab.py) against
+// a 0.0062 ms bound.  The time follows the longest sequence more than the
+// bytes (tools/kernel_variants.py, device time: 27 us at phase 6's lengths,
+// 35 us with every length at 1024, 61% more bytes, 3.3 us with every length
+// at 0): a block walks up to three chunks, and loading and computing them
+// barely overlap (PERF.md), so the next step is a shorter chain per block,
+// not more bandwidth.
 //
 // Limits, checked by the Python wrapper: G <= 16, D <= 256, D % 8 == 0,
-// and the shared memory of two stages of K and V pages and the page-table
-// row within 227 KB.
+// and the shared memory of two chunks (their K and V rows, q, p, m, l)
+// within 227 KB; a chunk holds at least one page.  ptxas (-Xptxas -v,
+// CUDA 12.9): 78 registers in bf16, 64 in f32, no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -61,8 +86,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int MAX_G = 16;
 constexpr int MAX_D = 256;
 constexpr int ACC = MAX_G * MAX_D / THREADS;  // output elements per thread, at most
-constexpr int STAGE_TOKENS = 64;              // tokens per stage, at most
-constexpr size_t STAGE_BUDGET = 128 * 1024;   // shared bytes of both stages' K and V
 constexpr float NEG_INF = -0.7f * 3.402823466e38f;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -112,19 +135,12 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 // row stride in shared memory: D plus 16 bytes
 int row_stride(int elem_bytes, int D) { return D + 16 / elem_bytes; }
 
-// whole pages per stage: up to STAGE_TOKENS tokens, within STAGE_BUDGET
-int pages_per_stage(int elem_bytes, int D, int page_size) {
-    int tokens = (int)(STAGE_BUDGET / (4 * (size_t)row_stride(elem_bytes, D) * elem_bytes));
-    if (tokens > STAGE_TOKENS) tokens = STAGE_TOKENS;
-    const int pages = tokens / page_size;
-    return pages > 0 ? pages : 1;
-}
-
-size_t shared_bytes(int elem_bytes, int G, int D, int page_size, int max_pages) {
-    const size_t ts = (size_t)pages_per_stage(elem_bytes, D, page_size) * page_size;
-    // two stages of (K, V); q, p, m, l, alpha in fp32; the page-table row
+// kernel.py:shared_bytes computes the same
+size_t shared_bytes(int elem_bytes, int G, int D, int page_size, int chunk_pages) {
+    const size_t ts = (size_t)chunk_pages * page_size;
+    // two chunks of (K, V) rows; q, p, m, l, alpha in fp32; a flag
     return 4 * ts * row_stride(elem_bytes, D) * elem_bytes
-         + ((size_t)G * D + (size_t)G * ts + 3 * (size_t)G) * 4 + (size_t)max_pages * 4;
+         + ((size_t)G * D + (size_t)G * ts + 3 * (size_t)G) * 4 + 4;
 }
 
 template <typename T>
@@ -133,15 +149,30 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                   const T* __restrict__ v_pool,
                   const int32_t* __restrict__ page_table,
                   const int32_t* __restrict__ seq_lens, T* __restrict__ out,
+                  float* __restrict__ ws, int* __restrict__ counters,
                   int H, int KVH, int D, int num_pages, int page_size,
-                  int max_pages, int pps, float scale) {
+                  int max_pages, int chunk_pages, float scale) {
     constexpr int VEC = 16 / sizeof(T);  // elements per 16 bytes
     const int h = blockIdx.x;            // KV head
     const int b = blockIdx.y;            // sequence
+    const int slot = blockIdx.z;         // split slot
+    const int slots = gridDim.z;
     const int G = H / KVH;
-    const int TS = pps * page_size;      // tokens per stage
-    const int RS = D + VEC;              // padded row stride in shared memory
+    const int TS = chunk_pages * page_size;  // token slots of a chunk
+    const int RS = D + VEC;                  // padded row stride in shared memory
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+    // this sequence's split: its live chunks dealt to the slots in
+    // contiguous runs of `per`; split 0 always runs
+    const int len = max(seq_lens[b], 0);
+    const int n_live = min((len + page_size - 1) / page_size, max_pages);
+    const int live = min(len, n_live * page_size);  // tokens of the live pages
+    const int n_chunks = (n_live + chunk_pages - 1) / chunk_pages;
+    const int per = (n_chunks + slots - 1) / slots;
+    const int n_splits = per > 0 ? (n_chunks + per - 1) / per : 1;
+    if (slot >= n_splits) return;  // past the live pages: nothing to read
+    const int c0 = slot * per;
+    const int n_stages = min(per, n_chunks - c0);  // this split's chunks
 
     extern __shared__ __align__(16) unsigned char smem[];
     const int stage_elems = TS * RS;
@@ -149,42 +180,28 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     float* q_s = reinterpret_cast<float*>(smem + 4 * (size_t)stage_elems * sizeof(T));
     float* p_s = q_s + G * D;           // [G][TS] scores, then weights
     float* m_s = p_s + G * TS;          // [G] running max
-    float* l_s = m_s + G;               // [G] running denominator
+    float* l_s = m_s + G;               // [G] running sum of weights
     float* a_s = l_s + G;               // [G] rescale of the accumulator
-    int* pages_s = reinterpret_cast<int*>(a_s + G);  // [n_live] page indices
+    int* last_s = reinterpret_cast<int*>(a_s + G);  // this block combines
 
-    const int len = max(seq_lens[b], 0);
-    const int n_live = min((len + page_size - 1) / page_size, max_pages);
-    const int n_stages = (n_live + pps - 1) / pps;
-    const int live = min(len, n_live * page_size);  // tokens of the live pages
-    const T* qb = q + ((size_t)b * H + (size_t)h * G) * D;
-    for (int e = tid; e < G * D; e += THREADS) q_s[e] = to_f32(qb[e]);
-    for (int g = tid; g < G; g += THREADS) {
-        m_s[g] = NEG_INF;
-        l_s[g] = 0.f;
-    }
     const int32_t* table = page_table + (size_t)b * max_pages;
-    for (int i = tid; i < n_live; i += THREADS) {
-        const int pg = table[i];
-        pages_s[i] = pg < 0 ? 0 : (pg >= num_pages ? num_pages - 1 : pg);
-    }
-    __syncthreads();
-
     const size_t tok_stride = (size_t)KVH * D;  // elements between a page's tokens
     const size_t page_stride = (size_t)page_size * tok_stride;
     const int row_chunks = D / VEC;
 
-    // start the copy of stage s (pages s*pps ...) into buffer `buf`; pages
-    // past the live range are never read
+    // start the copy of chunk c0 + s into buffer `buf`: the K and V rows of
+    // its tokens under seq_len, 16 bytes a copy
     auto issue = [&](int s, int buf) {
         T* ks = kv_s + (size_t)(2 * buf) * stage_elems;
         T* vs = ks + stage_elems;
-        const int t_end = min(TS, (n_live - s * pps) * page_size);
-        for (int c = tid; c < t_end * row_chunks; c += THREADS) {
+        const int tok0 = (c0 + s) * TS;
+        const int nt = min(TS, live - tok0);
+        for (int c = tid; c < nt * row_chunks; c += THREADS) {
             const int t = c / row_chunks, col = (c - t * row_chunks) * VEC;
-            const int i = s * pps + t / page_size;
-            const size_t src = (size_t)pages_s[i] * page_stride
-                             + (size_t)(t - (t / page_size) * page_size) * tok_stride
+            const int i = (tok0 + t) / page_size;
+            const int pg = min(max(__ldg(table + i), 0), num_pages - 1);
+            const size_t src = (size_t)pg * page_stride
+                             + (size_t)(tok0 + t - i * page_size) * tok_stride
                              + (size_t)h * D + col;
             __pipeline_memcpy_async(ks + t * RS + col, k_pool + src, 16);
             __pipeline_memcpy_async(vs + t * RS + col, v_pool + src, 16);
@@ -192,55 +209,54 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         __pipeline_commit();
     };
 
+    if (n_stages > 0) issue(0, 0);
+    if (n_stages > 1) issue(1, 1);
+    const T* qb = q + ((size_t)b * H + (size_t)h * G) * D;
+    for (int e = tid; e < G * D; e += THREADS) q_s[e] = to_f32(qb[e]);
+    for (int g = tid; g < G; g += THREADS) {
+        m_s[g] = NEG_INF;
+        l_s[g] = 0.f;
+    }
+
     float acc[ACC];
 #pragma unroll
     for (int j = 0; j < ACC; ++j) acc[j] = 0.f;
 
-    if (n_stages > 0) issue(0, 0);
     for (int s = 0; s < n_stages; ++s) {
         const int buf = s & 1;
-        if (s + 1 < n_stages) {
-            issue(s + 1, buf ^ 1);
-            __pipeline_wait_prior(1);
-        } else {
-            __pipeline_wait_prior(0);
-        }
+        if (s + 1 < n_stages) __pipeline_wait_prior(1);
+        else __pipeline_wait_prior(0);
         __syncthreads();
         const T* ks = kv_s + (size_t)(2 * buf) * stage_elems;
         const T* vs = ks + stage_elems;
-        const int valid = min(TS, live - s * TS);  // >= 1; the rest is masked
+        const int nt = min(TS, live - (c0 + s) * TS);  // >= 1
 
         // scores: one (head, token) pair per thread, 16-byte reads across D
-        for (int e = tid; e < G * TS; e += THREADS) {
-            const int g = e / TS, t = e - g * TS;
-            float sc = NEG_INF;
-            if (t < valid) {
-                const float* qg = q_s + g * D;
-                const T* kt = ks + t * RS;
-                float dot = 0.f;
-                for (int c = 0; c < D; c += VEC) {
-                    float kv[VEC];
-                    load16(kt + c, kv);
+        for (int e = tid; e < G * nt; e += THREADS) {
+            const int g = e / nt, t = e - g * nt;
+            const float* qg = q_s + g * D;
+            const T* kt = ks + t * RS;
+            float dot = 0.f;
+            for (int c = 0; c < D; c += VEC) {
+                float kv[VEC];
+                load16(kt + c, kv);
 #pragma unroll
-                    for (int i = 0; i < VEC; ++i) dot = fmaf(qg[c + i], kv[i], dot);
-                }
-                sc = dot * scale;
+                for (int i = 0; i < VEC; ++i) dot = fmaf(qg[c + i], kv[i], dot);
             }
-            p_s[e] = sc;
+            p_s[g * TS + t] = dot * scale;
         }
         __syncthreads();
 
-        // online softmax: one warp per head, tokens across lanes; masked
-        // tokens weigh exactly 0
+        // online softmax: one warp per head, tokens across lanes
         for (int g = warp; g < G; g += WARPS) {
             float* pg = p_s + g * TS;
             const float m_old = m_s[g];
             float mx = NEG_INF;
-            for (int t = lane; t < valid; t += 32) mx = fmaxf(mx, pg[t]);
+            for (int t = lane; t < nt; t += 32) mx = fmaxf(mx, pg[t]);
             const float m_new = fmaxf(m_old, warp_max(mx));
             float sum = 0.f;
-            for (int t = lane; t < TS; t += 32) {
-                const float p = t < valid ? expf(pg[t] - m_new) : 0.f;
+            for (int t = lane; t < nt; t += 32) {
+                const float p = expf(pg[t] - m_new);
                 pg[t] = p;
                 sum += p;
             }
@@ -254,8 +270,8 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         }
         __syncthreads();
 
-        // acc = alpha * acc + p @ V over the stage's valid tokens, each
-        // thread on (head, column pair)s
+        // acc = alpha * acc + p @ V over the chunk's tokens, each thread on
+        // (head, column pair)s
 #pragma unroll
         for (int j = 0; j < ACC / 2; ++j) {
             const int e = tid + j * THREADS;
@@ -266,7 +282,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                 float x0 = 0.f, y0 = 0.f, x1 = 0.f, y1 = 0.f;
                 float x2 = 0.f, y2 = 0.f, x3 = 0.f, y3 = 0.f;
                 int t = 0;
-                for (; t + 4 <= valid; t += 4) {
+                for (; t + 4 <= nt; t += 4) {
                     const float2 v0 = load2(vd + t * RS), v1 = load2(vd + (t + 1) * RS);
                     const float2 v2 = load2(vd + (t + 2) * RS), v3 = load2(vd + (t + 3) * RS);
                     x0 = fmaf(pg[t], v0.x, x0);     y0 = fmaf(pg[t], v0.y, y0);
@@ -274,7 +290,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                     x2 = fmaf(pg[t + 2], v2.x, x2); y2 = fmaf(pg[t + 2], v2.y, y2);
                     x3 = fmaf(pg[t + 3], v3.x, x3); y3 = fmaf(pg[t + 3], v3.y, y3);
                 }
-                for (; t < valid; ++t) {
+                for (; t < nt; ++t) {
                     const float2 v = load2(vd + t * RS);
                     x0 = fmaf(pg[t], v.x, x0);
                     y0 = fmaf(pg[t], v.y, y0);
@@ -284,17 +300,69 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                 acc[2 * j + 1] = fmaf(acc[2 * j + 1], alpha, (y0 + y1) + (y2 + y3));
             }
         }
-        __syncthreads();  // the buffer is refilled on the next iteration
+        __syncthreads();  // the buffer is refilled next
+        if (s + 2 < n_stages) issue(s + 2, buf);
     }
 
     T* ob = out + ((size_t)b * H + (size_t)h * G) * D;
+    if (n_splits == 1) {  // the whole sequence in this block
+#pragma unroll
+        for (int j = 0; j < ACC / 2; ++j) {
+            const int e = tid + j * THREADS;
+            if (e < G * D / 2) {
+                const float inv_l = 1.f / fmaxf(l_s[e / (D / 2)], 1e-30f);
+                store2(ob + 2 * e, acc[2 * j] * inv_l, acc[2 * j + 1] * inv_l);
+            }
+        }
+        return;
+    }
+
+    // partials of (sequence, KV head, split): acc [G][D], then (m, l) [G]
+    const size_t bh = (size_t)b * KVH + h;
+    float* ws_acc = ws + bh * slots * G * D;
+    float* ws_ml = ws + (size_t)gridDim.y * KVH * slots * G * D + bh * slots * G * 2;
+#pragma unroll
+    for (int j = 0; j < ACC / 2; ++j) {
+        const int e = tid + j * THREADS;
+        if (e < G * D / 2)
+            *reinterpret_cast<float2*>(ws_acc + (size_t)slot * G * D + 2 * e) =
+                make_float2(acc[2 * j], acc[2 * j + 1]);
+    }
+    for (int g = tid; g < G; g += THREADS)
+        *reinterpret_cast<float2*>(ws_ml + ((size_t)slot * G + g) * 2) =
+            make_float2(m_s[g], l_s[g]);
+    __threadfence();  // the partials are visible before the ticket is
+    __syncthreads();
+    if (tid == 0) *last_s = atomicAdd(counters + bh, 1) == n_splits - 1;
+    __syncthreads();
+    if (!*last_s) return;
+    __threadfence();
+    if (tid == 0) counters[bh] = 0;  // ready for the next call on this stream
+
+    // the last block combines the splits' partials, in split order
 #pragma unroll
     for (int j = 0; j < ACC / 2; ++j) {
         const int e = tid + j * THREADS;
         if (e < G * D / 2) {
             const int g = e / (D / 2);
-            const float inv_l = 1.f / fmaxf(l_s[g], 1e-30f);
-            store2(ob + 2 * e, acc[2 * j] * inv_l, acc[2 * j + 1] * inv_l);
+            float M = NEG_INF;
+#pragma unroll 4
+            for (int s = 0; s < n_splits; ++s)
+                M = fmaxf(M, __ldcg(ws_ml + ((size_t)s * G + g) * 2));
+            float L = 0.f, x = 0.f, y = 0.f;
+#pragma unroll 4
+            for (int s = 0; s < n_splits; ++s) {
+                const float2 ml = __ldcg(reinterpret_cast<const float2*>(
+                    ws_ml + ((size_t)s * G + g) * 2));
+                const float2 a = __ldcg(reinterpret_cast<const float2*>(
+                    ws_acc + (size_t)s * G * D + 2 * e));
+                const float wgt = expf(ml.x - M);
+                L = fmaf(wgt, ml.y, L);
+                x = fmaf(wgt, a.x, x);
+                y = fmaf(wgt, a.y, y);
+            }
+            const float inv_l = 1.f / fmaxf(L, 1e-30f);
+            store2(ob + 2 * e, x * inv_l, y * inv_l);
         }
     }
 }
@@ -303,21 +371,22 @@ template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* page_table, const void* seq_lens, void* out, int B,
            int H, int KVH, int D, int num_pages, int page_size, int max_pages,
-           float scale, void* stream) {
-    const int pps = pages_per_stage(sizeof(T), D, page_size);
-    const size_t smem = shared_bytes(sizeof(T), H / KVH, D, page_size, max_pages);
+           float scale, int chunk_pages, int slots, void* workspace,
+           void* counters, void* stream) {
+    const size_t smem = shared_bytes(sizeof(T), H / KVH, D, page_size, chunk_pages);
     auto kernel = paged_attn_kernel<T>;
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    const dim3 grid(KVH, B);
+    const dim3 grid(KVH, B, slots);
     kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(q), static_cast<const T*>(k_pool),
         static_cast<const T*>(v_pool), static_cast<const int32_t*>(page_table),
-        static_cast<const int32_t*>(seq_lens), static_cast<T*>(out), H, KVH, D,
-        num_pages, page_size, max_pages, pps, scale);
+        static_cast<const int32_t*>(seq_lens), static_cast<T*>(out),
+        static_cast<float*>(workspace), static_cast<int*>(counters), H, KVH, D,
+        num_pages, page_size, max_pages, chunk_pages, scale);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -325,25 +394,34 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 
 // Plain C entry points (bound with ctypes).  Each launches on `stream`,
 // does not synchronise, and returns cudaGetLastError() after the launch.
+// `workspace` holds B*KVH*slots*G*(D + 2) floats of partials and
+// `counters` B*KVH ints that are 0 on entry and 0 again when the kernel
+// ends; both may be null when slots == 1.
 extern "C" int paged_attn_f32(const void* q, const void* k_pool, const void* v_pool,
                               const void* page_table, const void* seq_lens, void* out,
                               int B, int H, int KVH, int D, int num_pages,
-                              int page_size, int max_pages, float scale, void* stream) {
+                              int page_size, int max_pages, float scale,
+                              int chunk_pages, int slots, void* workspace,
+                              void* counters, void* stream) {
     return launch<float>(q, k_pool, v_pool, page_table, seq_lens, out, B, H, KVH, D,
-                         num_pages, page_size, max_pages, scale, stream);
+                         num_pages, page_size, max_pages, scale, chunk_pages,
+                         slots, workspace, counters, stream);
 }
 
 extern "C" int paged_attn_bf16(const void* q, const void* k_pool, const void* v_pool,
                                const void* page_table, const void* seq_lens, void* out,
                                int B, int H, int KVH, int D, int num_pages,
-                               int page_size, int max_pages, float scale, void* stream) {
+                               int page_size, int max_pages, float scale,
+                               int chunk_pages, int slots, void* workspace,
+                               void* counters, void* stream) {
     return launch<__nv_bfloat16>(q, k_pool, v_pool, page_table, seq_lens, out, B, H,
-                                 KVH, D, num_pages, page_size, max_pages, scale, stream);
+                                 KVH, D, num_pages, page_size, max_pages, scale,
+                                 chunk_pages, slots, workspace, counters, stream);
 }
 
 extern "C" size_t paged_attn_shared_bytes(int elem_bytes, int G, int D, int page_size,
-                                          int max_pages) {
-    return shared_bytes(elem_bytes, G, D, page_size, max_pages);
+                                          int chunk_pages) {
+    return shared_bytes(elem_bytes, G, D, page_size, chunk_pages);
 }
 
 extern "C" const char* paged_attn_error_string(int code) {

@@ -4,6 +4,11 @@
 The source is compiled on first use (``kernels/nvcc.py``) and loaded with
 ``ctypes``: pointers and the stream cross as ``ctypes.c_void_p``.  Nothing
 GPU-specific happens at import, so CPU-only hosts import this module too.
+
+The kernel splits each sequence's pages across blocks and combines the
+splits inside the same launch (see the source's header).  ``split_plan``
+picks the split from the shapes alone, so a call never reads ``seq_lens``
+on the host.
 """
 
 from __future__ import annotations
@@ -12,21 +17,61 @@ import ctypes
 import math
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..nvcc import build_library
 
-__all__ = ["build", "paged_decode_attention", "SOURCE", "MAX_G", "MAX_D"]
+__all__ = ["build", "paged_decode_attention", "split_plan", "launch_plan",
+           "shared_bytes", "SOURCE", "MAX_G", "MAX_D"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
-MAX_G, MAX_D = 16, 256           # the kernel's register and shared-memory plan
+MAX_G, MAX_D = 16, 256           # the kernel's register plan
 MAX_SHARED = 227 * 1024          # a block's shared memory on an H100
+CHUNK_BYTES = 36 * 1024          # a chunk's K and V rows; two chunks in flight
+SLOTS_PER_SM = 4                 # blocks planned per SM (3 fit at once)
+SMS = 132                        # an H100 SXM's SMs
 _MAX_GRID_Y = 65535
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# (device index, stream) -> (counters, workspace); see paged_decode_attention
+_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _row_bytes(elem_bytes: int, D: int) -> int:
+    """One token's row in shared memory: D elements padded by 16 bytes."""
+    return D * elem_bytes + 16
+
+
+def shared_bytes(elem_bytes: int, G: int, D: int, page_size: int,
+                 chunk_pages: int) -> int:
+    """A block's shared memory, as the kernel lays it out
+    (``paged_attention.cu``: ``shared_bytes``)."""
+    ts = chunk_pages * page_size
+    return 4 * ts * _row_bytes(elem_bytes, D) + (G * D + G * ts + 3 * G) * 4 + 4
+
+
+def split_plan(elem_bytes: int, D: int, page_size: int, max_pages: int,
+               B: int, KVH: int) -> Tuple[int, int]:
+    """``(chunk_pages, slots)`` for a call, from its shapes alone.
+
+    A chunk is the whole pages whose K and V rows fit ``CHUNK_BYTES`` (at
+    least one page); a block holds two chunks in flight.  Each (sequence,
+    KV head) gets ``slots`` blocks, ``SLOTS_PER_SM`` per SM over all
+    ``B * KVH`` pairs, and no more than the table has chunks.  Three
+    blocks fit an SM at once at ``CHUNK_BYTES``; planning four lets the
+    blocks of short sequences, which finish early, hand their place to
+    waiting ones (both constants from a sweep at the serving decode shape
+    on an H100, PERF.md).  The kernel deals a sequence's live chunks to its
+    slots in contiguous runs, from its length, which only the card reads:
+    a decode step must not wait for ``seq_lens`` on the host.
+    """
+    chunk = max(1, CHUNK_BYTES // (2 * page_size * _row_bytes(elem_bytes, D)))
+    chunks = max(1, -(-max_pages // chunk))
+    slots = max(1, min(chunks, SLOTS_PER_SM * SMS // max(B * KVH, 1)))
+    return chunk, slots
 
 
 def build() -> Path:
@@ -41,7 +86,8 @@ def _library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             for fn in (lib.paged_attn_f32, lib.paged_attn_bf16):
-                fn.argtypes = [ptr] * 6 + [i32] * 7 + [ctypes.c_float, ptr]
+                fn.argtypes = ([ptr] * 6 + [i32] * 7 + [ctypes.c_float]
+                               + [i32] * 2 + [ptr] * 3)
                 fn.restype = i32
             lib.paged_attn_shared_bytes.argtypes = [i32] * 5
             lib.paged_attn_shared_bytes.restype = ctypes.c_size_t
@@ -65,6 +111,12 @@ def paged_decode_attention(
     ``q.dtype``.  Raises on any input it does not take and on a launch the
     driver refuses; it never falls back to the plain version.  An empty
     output launches nothing.
+
+    The splits of a sequence meet through a workspace of fp32 partials and
+    a counter per (sequence, KV head) that the kernel leaves at 0.  Both
+    are kept per (device, stream) and reused by the next call on that
+    stream, which runs after this one: calls on two streams at once get
+    two sets and never share a counter.
     """
     named = (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
              ("page_table", page_table), ("seq_lens", seq_lens))
@@ -110,23 +162,56 @@ def paged_decode_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _library()
-    max_pages = page_table.shape[1]
-    smem = lib.paged_attn_shared_bytes(q.element_size(), G, D, page_size, max_pages)
+    chunk, slots, smem = launch_plan(q, k_pool, page_table)
     if smem > MAX_SHARED:
         raise ValueError(
-            f"page_size {page_size} and {max_pages} table slots at D = {D}, "
-            f"G = {G} need {smem} bytes of shared memory, over {MAX_SHARED}")
+            f"one page of {page_size} tokens at D = {D}, G = {G} needs {smem} "
+            f"bytes of shared memory, over {MAX_SHARED}")
+    lib = _library()
     entry = getattr(lib, _ENTRY[q.dtype])
     with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream()
+        counters = workspace = None
+        if slots > 1:
+            counters, workspace = _scratch_for(
+                q.device, stream, B * KVH, B * KVH * slots * G * (D + 2))
         code = entry(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            B, H, KVH, D, num_pages, page_size, max_pages,
-            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream,
+            B, H, KVH, D, num_pages, page_size, page_table.shape[1], 1.0 / math.sqrt(D),
+            chunk, slots,
+            None if workspace is None else workspace.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            stream.cuda_stream,
         )
     if code != 0:
         raise RuntimeError(
             f"paged-attention launch failed: "
             f"{lib.paged_attn_error_string(code).decode()}")
     return out
+
+
+def launch_plan(q: torch.Tensor, k_pool: torch.Tensor,
+                page_table: torch.Tensor) -> Tuple[int, int, int]:
+    """``(chunk_pages, slots, shared bytes)`` of a call, from the shapes
+    and the element size of its inputs: no value is read."""
+    B, H, D = q.shape
+    page_size, KVH = k_pool.shape[1], k_pool.shape[2]
+    chunk, slots = split_plan(q.element_size(), D, page_size, page_table.shape[1],
+                              B, KVH)
+    return chunk, slots, shared_bytes(q.element_size(), H // KVH, D, page_size, chunk)
+
+
+def _scratch_for(device: torch.device, stream: torch.cuda.Stream, n_counters: int,
+                 n_floats: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This stream's (zeroed counters, workspace), grown to the sizes asked.
+    A new counter buffer is zeroed on the same stream, before the launch."""
+    key = (device.index, stream.cuda_stream)
+    with _lock:
+        counters, workspace = _scratch.get(key, (None, None))
+        if counters is None or counters.numel() < n_counters:
+            counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+        if workspace is None or workspace.numel() < n_floats:
+            workspace = torch.empty(n_floats, dtype=torch.float32, device=device)
+        _scratch[key] = counters, workspace
+    return counters, workspace

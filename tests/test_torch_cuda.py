@@ -18,12 +18,19 @@ import torch
 from repro_torch.kernels.grouped_matmul import ops
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention import kernel as paged_kernel
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_ref,
+    paged_attention_split_ref,
+)
 from repro_torch.runtime import TorchPayload
 
-# tests/test_kernels.py's shapes and tolerances, plus a ragged shape
+# tests/test_kernels.py's shapes and tolerances, plus ragged shapes: d and f
+# not multiples of 4 (the scalar loads), f a multiple of 4 but not of 8 (f32
+# takes the 16-byte loads, bf16 the scalar ones), C not a multiple of the
+# 128-row tile, d not a multiple of the 16-deep k tile
 SHAPES = [(4, 256, 128, 256), (2, 128, 256, 128), (8, 128, 64, 64),
-          (3, 100, 70, 90)]
+          (3, 100, 70, 90), (3, 200, 64, 36), (2, 129, 35, 17), (2, 300, 520, 136)]
 TOLS = {
     torch.float32: dict(rtol=2e-4, atol=2e-4),
     torch.bfloat16: dict(rtol=5e-2, atol=5e-1),
@@ -55,6 +62,23 @@ def test_gmm_kernel_matches_plain_on_card(dtype):
         torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
         pad = torch.arange(C, device="cuda")[None, :] >= gt[:, None]
         assert (out.float().abs()[pad] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernel_takes_unaligned_inputs(dtype):
+    """Inputs that are not 16-byte aligned go through the scalar loads."""
+    _need_card()
+    rng = np.random.default_rng(9)
+    E, C, d, f = 2, 64, 64, 64
+    x = torch.tensor(rng.normal(size=E * C * d + 1), device="cuda").to(dtype)[1:]
+    x = x.view(E, C, d)
+    w = torch.tensor(rng.normal(size=(E, d, f)), device="cuda").to(dtype)
+    gs = torch.tensor([64, 17], dtype=torch.int32, device="cuda")
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    out = ops.gmm(x, w, gs)
+    torch.testing.assert_close(out.float(), grouped_matmul_ref(x, w, gs).float(),
+                               **TOLS[dtype])
 
 
 @pytest.mark.cuda
@@ -161,6 +185,84 @@ def test_paged_kernel_never_reads_unreferenced_pages(page_size):
     out = paged_ops.paged_attention(q, *clean, table, lens)
     torch.cuda.synchronize()
     assert torch.equal(out_nan, out)
+
+
+def _split_inputs(G, D, page_size, dtype, seed=10):
+    """Sequences that start, end and cross the kernel's chunk and split
+    boundaries: length 0, exactly one chunk, one token past it, runs of
+    two chunks a split (one more chunk than slots), one token past that,
+    the table's whole capacity; a -1 inside a live range."""
+    KVH, B, max_pages = 8, 6, 60  # 48 (sequence, KV head) pairs
+    elem = torch.tensor([], dtype=dtype).element_size()
+    chunk, slots = paged_kernel.split_plan(elem, D, page_size, max_pages, B, KVH)
+    ts, cap = chunk * page_size, max_pages * page_size
+    lens = [0, ts, ts + 1, min((slots + 1) * ts, cap), min((slots + 1) * ts + 1, cap),
+            cap]
+    num_pages = sum(-(-n // page_size) for n in lens) + 8
+    args = list(_paged_inputs(np.random.default_rng(seed), G * KVH, KVH, D, lens,
+                              page_size, num_pages, dtype))
+    table = torch.full((B, max_pages), -1, dtype=torch.int32, device="cuda")
+    table[:, :args[3].shape[1]] = args[3][:, :max_pages]
+    table[3, 1] = -1  # inside row 3's live range: reads page 0
+    args[3] = table
+    return args, chunk, slots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size", [8, 16, 32])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_across_split_boundaries(G, D, page_size, dtype):
+    _need_card()
+    args, chunk, slots = _split_inputs(G, D, page_size, dtype)
+    assert slots >= 3
+    out = paged_ops.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and (out[0] == 0).all()
+    torch.testing.assert_close(out.float(), paged_attention_ref(*args).float(),
+                               **PAGED_TOLS[dtype])
+    torch.testing.assert_close(out.float(),
+                               paged_attention_split_ref(*args, chunk, slots).float(),
+                               **PAGED_TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_is_bitwise_repeatable(dtype):
+    """The splits are combined in split order, whichever finishes last."""
+    _need_card()
+    args, _, _ = _split_inputs(4, 128, 16, dtype)
+    first = paged_ops.paged_attention(*args)
+    for _ in range(3):
+        assert torch.equal(paged_ops.paged_attention(*args), first)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_back_to_back_calls_reset_the_counters():
+    """Two calls on one stream with no sync between: the second finds its
+    (sequence, KV head) counters at 0 again, so each is right."""
+    _need_card()
+    a, _, _ = _split_inputs(4, 128, 16, torch.bfloat16, seed=11)
+    b, _, _ = _split_inputs(4, 128, 16, torch.bfloat16, seed=12)
+    out_a = paged_ops.paged_attention(*a)
+    out_b = paged_ops.paged_attention(*b)
+    out_a2 = paged_ops.paged_attention(*a)
+    torch.cuda.synchronize()
+    for out, args in ((out_a, a), (out_b, b), (out_a2, a)):
+        torch.testing.assert_close(out.float(), paged_attention_ref(*args).float(),
+                                   **PAGED_TOLS[torch.bfloat16])
+    assert torch.equal(out_a, out_a2)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_shared_memory_plan_matches_the_source():
+    _need_card()
+    lib = paged_kernel._library()
+    for elem, G, D, ps, chunk in ((2, 4, 128, 16, 4), (4, 16, 256, 32, 1),
+                                  (4, 1, 64, 8, 17), (2, 8, 8, 16, 3)):
+        assert lib.paged_attn_shared_bytes(elem, G, D, ps, chunk) == \
+            paged_kernel.shared_bytes(elem, G, D, ps, chunk)
 
 
 @pytest.mark.cuda

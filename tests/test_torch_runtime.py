@@ -12,6 +12,7 @@ The multiproc run has a file of its own (``test_torch_multiproc.py``).
 """
 
 import ast
+import importlib.util
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -227,3 +228,44 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         if mod.split(".")[0] in FORBIDDEN
     ]
     assert not bad, bad
+
+
+def _load(path: Path):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_target_at_last_dispatch_reads_the_tick_after_the_last_start():
+    """``chip_smoke.py``'s full-stream check reads the worker target at the
+    first control tick at or after the last message's start on a PE."""
+    cs = _load(ROOT / "chip_smoke.py")
+
+    def result(starts):
+        return SimpleNamespace(
+            times=np.arange(0.0, 10.0, 0.5), target_workers=np.arange(20) + 100,
+            messages=[SimpleNamespace(start_t=s) for s in starts])
+
+    assert cs._target_at_last_dispatch(result([0.2, 3.1, 2.0, -1.0])) == 107
+    assert cs._target_at_last_dispatch(result([3.5, 1.0])) == 107  # on a tick
+    assert cs._target_at_last_dispatch(result([12.0])) == 119       # past the end
+
+
+def test_witness_tool_resolves_its_chip_smoke_names_and_planted_irms():
+    """``tools/final_target_witness.py`` borrows ``chip_smoke``'s stream
+    and check as ``cs.<name>``, and plants packers the port has."""
+    from repro_torch.core.binpack import make_packer
+
+    tool_path = ROOT / "tools" / "final_target_witness.py"
+    tool = _load(tool_path)
+    assert callable(tool.main) and callable(tool.one_run)
+    names = {node.attr for node in ast.walk(ast.parse(tool_path.read_text()))
+             if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name)
+             and node.value.id == "cs"}
+    assert {"_microscopy", "_target_at_last_dispatch", "TARGET_TOL"} <= names
+    cs = _load(ROOT / "chip_smoke.py")
+    assert not [n for n in sorted(names) if not hasattr(cs, n)]
+    for kind in tool.PLANTED:
+        if kind != "no-scale-down":
+            make_packer(kind, capacity=1.0)
