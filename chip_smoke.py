@@ -22,8 +22,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    workers of such a process cannot use it;
 4. the grouped-matmul kernel against its plain PyTorch version on the
    card, on the kernel test shapes, empty and ragged bins and both payload
-   shapes, with the kernel's, the plain version's and ``torch.bmm``'s times
-   beside the card's bound;
+   shapes, and its bf16 entry at the MoE layer's shapes (``qwen3-moe-30b-a3b``
+   bins of a decode step and of a prefill, gate/up and down), with the
+   kernel's, the plain version's and ``torch.bmm``'s times beside the
+   card's bound;
 5. the streaming slice at full size: ``run_live`` in-process on the full
    767-image microscopy stream, one grouped matmul of
    ``qwen3-moe-30b-a3b`` width per message (128 experts, 128-row bins,
@@ -38,7 +40,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    unreferenced page), f32 and bf16, a second launch right after the first
    bitwise equal to it (the split counters reset), with the kernel's, the
    plain version's and ``scaled_dot_product_attention``'s times beside the
-   bound;
+   bound; then bf16 at ``qwen3-moe-30b-a3b``'s decode shape (32 query over
+   4 KV heads, G = 8);
 7. the packed-attention kernels, forward and backward, against the
    autograd of their plain version in bf16 (float32 on the card must raise
    and launch nothing), at the train shape (the segment ids of the first
@@ -56,7 +59,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    and their shares are printed per shape; the kernels', the plain version's and
    ``scaled_dot_product_attention``'s (causal, forward and backward) times
    stand beside the bounds, and each shape's record goes into the kernels
-   line under ``by_shape``;
+   line under ``by_shape``; then the forward alone at ``qwen3-moe-30b-a3b``'s
+   prefill shape (8 x 1024, 32 query over 4 KV heads);
 8. the attention block at full width: the first layer's
    ``layers.attention`` of ``olmo-1b`` and of ``qwen3-8b`` on that
    multi-document batch, output and gradients of its input and its four
@@ -76,7 +80,20 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``train_4k`` rows of 4096 tokens, batch 4, 8 steps, remat ``"nothing"``,
    bf16 compute over fp32 masters, checkpointing into a temporary directory
    it removes after; the packed kernels' launches held to 8 x 16 x 2
-   forward and 8 x 16 backward, then one more step under ``torch.profiler``.
+   forward and 8 x 16 backward, then one more step under ``torch.profiler``;
+12. MoE serving: ``qwen3-moe-30b-a3b`` at full width and depth in bf16
+   (weights drawn on the card from a seed, after every earlier phase's
+   tensors are freed), each MoE layer's experts through the grouped
+   matmul's bf16 entry (3 launches a layer, 144 a forward): first
+   ``launch.serve.run_local`` (8 prompts, 16 decode steps), then 8 prompts
+   of 64-1024 tokens through ``prefill`` (packed forward 48) and 32 paged
+   decode steps (paged 48 a step); the first decode step run again on a
+   copy of the post-prefill cache must give the same bits, and its logits
+   are read (not held) against the port's prefill of prompt + token;
+   ``moe_layer``'s kernel route is held to its plain route on the real
+   hidden states of the first and last layers, at the prefill and at a
+   decode step, beside two planted faults; two decode steps run under
+   ``torch.profiler`` after the timed ones.
 
 Each phase prints its wall time; a failing phase raises with its name.
 The serving phases run before training, so that no ``torch.profiler``
@@ -183,6 +200,38 @@ PROFILE_STEPS = 2  # decode steps under torch.profiler, after the timed ones
 # the logits by 23% of max |logit| at its smoke size.
 FIRST_STEP_TOL = 0.05
 L2_FLUSH_BYTES = 256 << 20  # over the 50 MB L2: each timed launch finds it cold
+# MoE serving (phase 12): qwen3-moe-30b-a3b at its published shape
+# (configs/qwen3_moe_30b_a3b.py, hf:Qwen/Qwen3-30B-A3B: 48 layers, d 2048,
+# 32 query over 4 KV heads of 128, 128 experts top-8 of expert d_ff 768;
+# 30.5 B parameters, 56.9 GiB in bf16), 8 prompts of 64-1024 tokens (the
+# longest 1024, so the prefill is 8 x 1024) and 32 decode steps
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_SERVE_ARGV = ["--backend", "local", "--arch", MOE_ARCH, "--requests", "8",
+                  "--gen-tokens", "16", "--pages", "1024"]
+MOE_STEPS = 32
+MOE_DECODE = dict(DECODE, KVH=4)    # the paged kernel at G = 8
+MOE_PREFILL = dict(PREFILL, KVH=4)  # the packed forward at G = 8
+# The grouped matmul's bf16 entry at the MoE layer's shapes: (name, E, C, d,
+# f, tokens), each token's top-8 experts drawn at random, so the bins hold
+# a decode step's 0-3 rows of 128 or a prefill's ~512 of 640.
+MOE_GMM = (("decode gate/up", 128, 128, 2048, 768, 8),
+           ("prefill gate/up", 128, 640, 2048, 768, 8 * 1024),
+           ("prefill down", 128, 640, 768, 2048, 8 * 1024))
+GMM_BF16_TOLS = (5e-2, 5e-1)  # test_kernels.py's bf16 (rtol, atol) for the grouped matmul
+# Relative l2, ||a - b|| / ||b||, of bf16 results that should differ by
+# rounding only.  Two fp32 sums of the same bf16 products, rounded once to
+# bf16, differ by one bf16 ulp where they straddle a rounding boundary; one
+# ulp is at most 2^-7 of a value, so even every entry one ulp off would read
+# under 7.8e-3.  (The kernel and its plain version both sum in k order and
+# read 0 at these shapes on an H100.)  ``moe_layer``'s two routes share the
+# router (fp32, the same tokens kept) and differ in the three products
+# (the plain route's are cuBLAS bf16 GEMMs), each rounded to bf16: the same
+# limit holds for each stage; they read 5e-4 to 7e-4.  Planted faults read
+# above it: each bin one row short (its last token loses that expert; about
+# 0.05 at a prefill, where a bin holds ~512 rows, and near 0.9 at a decode
+# step, where it holds 1-3) and the router's gates replaced by 1/K (0.36 to
+# 0.54).
+MOE_REL_L2 = 1e-2
 
 
 @contextlib.contextmanager
@@ -459,10 +508,73 @@ def kernel_phase(torch, np):
           f"{flops / ms / 1e9:.2f} TFLOP/s, {bound_ms / ms:.3f} of bound")
     del x, w
     torch.cuda.empty_cache()
-    return {
+    record = {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
     }
+    by_shape = {"payload full f32": record}
+    for name, E, C, d, f, tokens in MOE_GMM:
+        by_shape[f"moe {name} bf16"] = _gmm_moe_case(
+            torch, grouped_matmul, grouped_matmul_ref, flush, name, E, C, d, f, tokens)
+    return record, by_shape
+
+
+def _moe_bins(torch, gen, E, C, tokens, top_k=8):
+    """Rows per bin when each of ``tokens`` tokens picks ``top_k`` distinct
+    experts of ``E`` at random; a bin keeps at most ``C``."""
+    dev = gen.device
+    picks = torch.rand((tokens, E), generator=gen, device=dev).argsort(dim=1)[:, :top_k]
+    counts = torch.zeros(E, dtype=torch.int32, device=dev).index_add_(
+        0, picks.reshape(-1), torch.ones(picks.numel(), dtype=torch.int32, device=dev))
+    return counts.clamp(max=C)
+
+
+def _gmm_moe_case(torch, grouped_matmul, grouped_matmul_ref, flush, name, E, C, d, f,
+                  tokens):
+    """The bf16 entry against its plain version at one MoE shape, held to
+    ``GMM_BF16_TOLS`` and ``MOE_REL_L2``; its times beside the bound."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    gs = _moe_bins(torch, gen, E, C, tokens)
+    live = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
+    x = (torch.randn((E, C, d), generator=gen, device=dev) * live).to(torch.bfloat16)
+    w = (torch.randn((E, d, f), generator=gen, device=dev) / d ** 0.5).to(torch.bfloat16)
+    out = grouped_matmul(x, w, gs)
+    ref = grouped_matmul_ref(x, w, gs)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    rl2 = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    pad = ~live[..., 0]
+    pad_max = out.float().abs()[pad].max().item() if pad.any() else 0.0
+    rtol, atol = GMM_BF16_TOLS
+    checks = {"within TOLS": torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol),
+              f"rel l2 <= {MOE_REL_L2}": rl2 <= MOE_REL_L2,
+              "rows past the bins 0": pad_max == 0.0}
+    rows, occupied = int(gs.sum()), int((gs > 0).sum())
+    print(f"[kernel] moe {name} {E}x{C}x{d}x{f} bf16 ({tokens} tokens' top-8: "
+          f"{rows} live rows in {occupied} bins, most {int(gs.max())}): "
+          f"max_abs_err={err:.3e} rel_l2={rl2:.3e} {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"the bf16 entry disagrees with its plain version at "
+                             f"the MoE {name} shape: {checks}")
+    del out, ref
+    library = _bmm_yardstick(torch, x, w, gs)
+    reps = 20
+    ms = _time_ms(torch, lambda: grouped_matmul(x, w, gs), reps, flush)
+    plain_ms = _time_ms(torch, lambda: grouped_matmul_ref(x, w, gs), reps, flush)
+    library_ms = _time_ms(torch, library, reps, flush)
+    ms_again = _time_ms(torch, lambda: grouped_matmul(x, w, gs), reps, flush)
+    bound_ms, bound_by = _bound(x, w, gs)
+    useful = 2.0 * rows * d * f
+    print(f"[kernel] moe {name}: kernel {ms:.4f} ms (again {ms_again:.4f}), plain "
+          f"{plain_ms:.4f} ms, torch.bmm+mask {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); kernel {useful / ms / 1e9:.2f} TFLOP/s "
+          f"of live rows, {bound_ms / ms:.3f} of bound, {ms / library_ms:.3f}x bmm")
+    del x, w, library
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "rel_l2": rl2, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "live_rows": rows, "occupied_bins": occupied}
 
 
 def full_phase(torch, np):
@@ -530,13 +642,13 @@ def full_phase(torch, np):
     return launches
 
 
-def _decode_inputs(torch, np, dtype):
+def _decode_inputs(torch, np, dtype, shape=DECODE):
     """The decode-shape inputs: ragged lengths in 64-1056 and one of 0,
     pages dealt from a permutation of pages 1..P-1, one -1 inside a live
     range (it reads page 0), and NaN in every page no entry refers to."""
     dev = torch.device("cuda")
-    B, H, KVH, D = DECODE["B"], DECODE["H"], DECODE["KVH"], DECODE["D"]
-    ps, P, maxp = DECODE["page_size"], DECODE["num_pages"], DECODE["max_pages"]
+    B, H, KVH, D = shape["B"], shape["H"], shape["KVH"], shape["D"]
+    ps, P, maxp = shape["page_size"], shape["num_pages"], shape["max_pages"]
     rng = np.random.default_rng(13)
     lens = rng.integers(64, 1057, size=B)
     lens[3] = 0
@@ -596,16 +708,20 @@ def _paged_bound(args, lens):
 
 def paged_kernel_phase(torch, np):
     """Phase 6: the paged kernel against its plain version at the decode
-    shape; returns its record for the kernels line."""
+    shapes of qwen3-8b (f32 and bf16) and qwen3-moe-30b-a3b (bf16); returns
+    each bf16 shape's record for the kernels line."""
     from repro_torch.kernels.paged_attention.kernel import paged_decode_attention
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
     dev = torch.device("cuda")
-    record = None
+    records = {}
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    for name in ("float32", "bfloat16"):
+    for arch, shape, name in (("qwen3-8b", DECODE, "float32"),
+                              ("qwen3-8b", DECODE, "bfloat16"),
+                              (MOE_ARCH, MOE_DECODE, "bfloat16")):
         dtype = getattr(torch, name)
-        args, lens = _decode_inputs(torch, np, dtype)
+        key = f"{arch} G={shape['H'] // shape['KVH']}"
+        args, lens = _decode_inputs(torch, np, dtype, shape)
         out = paged_decode_attention(*args)
         ref = paged_attention_ref(*args)
         torch.cuda.synchronize()
@@ -619,11 +735,11 @@ def paged_kernel_phase(torch, np):
             "length-0 row is 0": bool((out[zero_row] == 0).all()),
             "a second launch gives the same bits": torch.equal(again, out),
         }
-        print(f"[paged] {name}: lens={lens.tolist()} max_abs_err={err:.3e} "
+        print(f"[paged] {key} {name}: lens={lens.tolist()} max_abs_err={err:.3e} "
               f"(rtol={rtol}, atol={atol}) {checks}")
         if not all(checks.values()):
             raise AssertionError(f"paged kernel disagrees with its plain version "
-                                 f"in {name}: {checks}")
+                                 f"at {key} in {name}: {checks}")
         if name != "bfloat16":
             continue
         # the serving dtype: times, bound and library yardstick
@@ -634,20 +750,20 @@ def paged_kernel_phase(torch, np):
         library_ms = _time_ms(torch, library, reps, flush)
         ms_again = _time_ms(torch, lambda: paged_decode_attention(*args), reps, flush)
         bound_ms, bound_by, nbytes, flops = _paged_bound(args, lens)
-        print(f"[paged] bf16 at the decode shape: kernel {ms:.4f} ms (again "
+        print(f"[paged] {key} bf16 at the decode shape: kernel {ms:.4f} ms (again "
               f"{ms_again:.4f}), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB of "
               f"live K/V, q, out, table; {flops / 1e9:.3f} GFLOP); kernel at "
               f"{bound_ms / ms:.3f} of the bound, {nbytes / ms / 1e6:.1f} GB/s, "
               f"{ms / library_ms:.3f}x sdpa")
-        record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                  "bound_ms": bound_ms, "bound_by": bound_by,
-                  "library_ms": library_ms}
+        records[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms}
         del library
 
     del flush
     torch.cuda.empty_cache()
-    return record
+    return records
 
 
 def _train_batches():
@@ -909,9 +1025,60 @@ def packed_kernel_phase(torch, np):
         )
         del q, k, v, g
         torch.cuda.empty_cache()
+    moe_record = _packed_forward_case(torch, pk, packed_ops, rel_l2, flush, MOE_PREFILL)
     del flush
     torch.cuda.empty_cache()
-    return records
+    return records, moe_record
+
+
+def _packed_forward_case(torch, pk, packed_ops, rel_l2, flush, shp):
+    """The packed forward alone against its plain version, one document a
+    row (a serving prefill); returns its record for the kernels line."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    B, S, H, KVH, D = (shp[k] for k in ("B", "S", "H", "KVH", "D"))
+    seg = torch.ones((B, S), dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               for shape in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D)))
+    with torch.no_grad():
+        out = packed_ops.packed_attention(q, k, v, seg, seg)
+        ref = torch.cat([packed_ops.packed_attention_plain(
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], seg[b:b + 1], seg[b:b + 1])
+            for b in range(B)])
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    reading = rel_l2(out, ref)
+    rtol, atol = PACKED_TOLS
+    checks = {"out within TOLS": torch.allclose(out.float(), ref.float(),
+                                                rtol=rtol, atol=atol),
+              f"rel l2 within {PACKED_REL_L2}": _within({"out": reading}, PACKED_REL_L2),
+              "finite": bool(torch.isfinite(out).all())}
+    print(f"[packed] {MOE_ARCH} prefill forward B={B} S={S} H={H} KVH={KVH} D={D}: "
+          f"max_abs_err {err:.3e}, rel l2 (tensor/worst tile) {_fmt({'out': reading})} "
+          f"{checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"the packed forward disagrees with its plain version at "
+                             f"{MOE_ARCH}'s prefill shape: {checks}")
+    del out, ref
+    reps = 5
+    ms = _time_ms(torch, lambda: pk.packed_flash_attention(q, k, v, seg, seg), reps, flush)
+    with torch.no_grad():
+        plain_ms = _time_ms(torch, lambda: packed_ops.packed_attention_plain(
+            q, k, v, seg, seg), 3, flush)
+        hs = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+        sdpa_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            *hs, is_causal=True, enable_gqa=True), reps, flush)
+    pairs = B * S * (S + 1) // 2
+    bound, bound_by = _packed_bound("fwd", pairs, B, S, H, KVH, D, "bfloat16")
+    print(f"[packed] {MOE_ARCH} prefill forward: {ms:.4f} ms ({4.0 * D * H * pairs / ms / 1e9:.1f} "
+          f"TFLOP/s), plain {plain_ms:.4f} ms, sdpa causal {sdpa_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({bound_by})")
+    del q, k, v, hs
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": sdpa_ms}
 
 
 def block_phase(torch, np):
@@ -1155,6 +1322,7 @@ def _profile_decode(torch, model, params, tok, cache, step_wall_ms):
     kernels.sort(reverse=True)
     device_ms = sum(ms for ms, _, _ in kernels)
     paged = [(ms, n) for ms, n, key in kernels if "paged_attn_kernel" in key]
+    gmm = [(ms, n) for ms, n, key in kernels if "gmm_kernel" in key]
     return {
         "device_ms_per_step": device_ms,
         "wall_ms_per_step": step_wall_ms,
@@ -1162,6 +1330,8 @@ def _profile_decode(torch, model, params, tok, cache, step_wall_ms):
         "kernel_launches_per_step": sum(n for _, n, _ in kernels),
         "paged_kernel_ms_per_step": paged[0][0] if paged else 0.0,
         "paged_kernel_launches_per_step": paged[0][1] if paged else 0,
+        "gmm_kernel_ms_per_step": sum(ms for ms, _ in gmm),
+        "gmm_kernel_launches_per_step": sum(n for _, n in gmm),
         "top_kernels_ms_per_step": [[key[:60], ms] for ms, _, key in kernels[:6]],
     }
 
@@ -1277,6 +1447,266 @@ def ragged_phase(torch, np):
     return launches, prefill_packed[0]
 
 
+@contextlib.contextmanager
+def _patched(module, name, value):
+    """``module.name`` set to ``value`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def _recording(transformer, drops, captured=None, tag="", layers=()):
+    """``transformer.moe_layer`` replaced by one that also appends each
+    call's drop fraction (a device scalar) to ``drops`` and keeps a copy of
+    its input at the given layers (counted from the first call) under
+    ``captured[(tag, layer)]``."""
+    real, calls = transformer.moe_layer, [0]
+
+    def moe_layer(p, cfg, x, **kw):
+        if calls[0] in layers:
+            captured[(tag, calls[0])] = x.clone()
+        calls[0] += 1
+        out, aux = real(p, cfg, x, **kw)
+        drops.append(aux["moe_drop_fraction"])
+        return out, aux
+
+    return _patched(transformer, "moe_layer", moe_layer)
+
+
+def _copy_cache(torch, cache):
+    """A copy of a paged cache that the copied-from cache cannot change."""
+    import copy
+
+    return {"k": cache["k"].clone(), "v": cache["v"].clone(),
+            "alloc": copy.deepcopy(cache["alloc"]), "seqs": list(cache["seqs"]),
+            "len": cache["len"].clone()}
+
+
+def _moe_routes(torch, cfg, params, captured):
+    """``moe_layer``'s kernel route against its plain route
+    (``use_gmm_kernel=False``) on each captured hidden state, beside two
+    planted faults through the kernel route: each bin's group size one short,
+    and the router's gates replaced by 1/K."""
+    from repro_torch.kernels.packed_attention.ref import rel_l2
+    from repro_torch.models import moe
+
+    def one_short(x, w_gate, w_up, w_down, group_sizes):
+        return real_ffn(x, w_gate, w_up, w_down, (group_sizes - 1).clamp(min=0))
+
+    def flat_gates(probs, k):
+        vals, idx = real_top_k(probs, k)
+        return torch.ones_like(vals), idx
+
+    real_ffn, real_top_k = moe.expert_ffn_swiglu, moe._top_k_iterative
+    E, K, factor = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.capacity_factor
+    readings = {}
+    for (tag, layer), h in sorted(captured.items()):
+        p = {k: t[layer] for k, t in params["blocks"]["0"]["ffn"].items()}
+        T = h.shape[0] * h.shape[1]
+        got, aux = moe.moe_layer(p, cfg, h)
+        want, aux_plain = moe.moe_layer(p, cfg, h, use_gmm_kernel=False)
+        with _patched(moe, "expert_ffn_swiglu", one_short):
+            short = moe.moe_layer(p, cfg, h)[0]
+        with _patched(moe, "_top_k_iterative", flat_gates):
+            flat = moe.moe_layer(p, cfg, h)[0]
+        readings[f"{tag} layer {layer}"] = {
+            "tokens": T,
+            "capacity_kernel_plain": [moe.expert_capacity(T, E, K, factor, 128),
+                                      moe.expert_capacity(T, E, K, factor, 8)],
+            "drop_fraction_kernel_plain": [aux["moe_drop_fraction"].item(),
+                                           aux_plain["moe_drop_fraction"].item()],
+            "rel_l2": rel_l2(got, want, block=0)[0],
+            "planted_one_row_short": rel_l2(short, want, block=0)[0],
+            "planted_flat_gates": rel_l2(flat, want, block=0)[0],
+        }
+        del got, want, short, flat
+    return readings
+
+
+def moe_phase(torch, np):
+    """Phase 12: qwen3-moe-30b-a3b served at full width, through the entry
+    point (``run_local``) and then through ragged prefill and paged decode;
+    returns each path's launches of the grouped matmul (``gmm``), the paged
+    kernel and the packed forward."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.grouped_matmul import ops as gmm_ops
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, transformer
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    cfg = get_config(MOE_ARCH)
+    model = build_model(cfg)
+    n = cfg.n_layers
+    launches = {}
+
+    # the serving entry point, as phase 9 drives it for qwen3-8b
+    gmm_ops.launches = paged_ops.launches = 0
+    packed_ops.launches_fwd = packed_ops.launches_bwd = 0
+    stats = serve.run_local(serve.parse_args(MOE_SERVE_ARGV))
+    gen = stats["gen_tokens"]
+    launches["moe serve run_local"] = {
+        "gmm": gmm_ops.launches, "paged": paged_ops.launches,
+        "packed": packed_ops.launches_fwd}
+    print("[moe] run_local " + json.dumps({
+        "launches": launches["moe serve run_local"],
+        "packed_backward": packed_ops.launches_bwd, "prefill_s": stats["prefill_s"],
+        "decode_ms_per_step": stats["decode_s"] / gen * 1e3,
+        "tokens_per_s": stats["sequences"] * gen / stats["seconds"],
+        "pages_used": stats["pages_used"]}))
+    want = {"gmm": 3 * n * (1 + gen), "paged": n * gen, "packed": n}
+    if launches["moe serve run_local"] != want or packed_ops.launches_bwd:
+        raise AssertionError(f"run_local launches {launches['moe serve run_local']}, "
+                             f"want {want}")
+    if not stats["logits_finite"] or stats["tokens"].shape != (8, 1 + gen):
+        raise AssertionError(f"run_local: bad output: finite={stats['logits_finite']}, "
+                             f"tokens {tuple(stats['tokens'].shape)}")
+    del stats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ragged prompts through prefill and paged decode
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = serve.make_params(model, 0, dev)
+    torch.cuda.synchronize()
+    print(f"[moe] {held:.2f} GiB held before the phase; weights drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s: {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    rng = np.random.default_rng(21)
+    B = 8
+    lens = rng.integers(64, 1025, size=B)
+    lens[0] = 1024  # the prefill is 8 x 1024
+    S = int(lens.max())
+    tokens = np.zeros((B, S + 1), np.int32)
+    seg = np.zeros((B, S + 1), np.int32)
+    for b, m in enumerate(lens):
+        tokens[b, :m] = rng.integers(1, cfg.vocab_size, size=m)
+        seg[b, :m] = 1
+    positions = torch.arange(S + 1, dtype=torch.int32, device=dev).expand(B, S + 1)
+
+    def batch(width):
+        return {"tokens": torch.tensor(tokens[:, :width], device=dev),
+                "segment_ids": torch.tensor(seg[:, :width], device=dev),
+                "positions": positions[:, :width]}
+
+    def new_cache():
+        return model.init_paged_cache(serve.paged_layout(cfg, 1024), serve.DTYPE, dev)
+
+    cache = new_cache()
+    captured: dict = {}
+    torch.cuda.synchronize()
+    gmm_ops.launches = paged_ops.launches = 0
+    packed_ops.launches_fwd = packed_ops.launches_bwd = 0
+    prefill_drops, decode_drops = [], []
+    with _recording(transformer, prefill_drops, captured, "prefill", (0, n - 1)):
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch(S), cache)
+        tok = serve.greedy(logits)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill = {"gmm": gmm_ops.launches, "paged": paged_ops.launches,
+               "packed": (packed_ops.launches_fwd, packed_ops.launches_bwd)}
+    finite = torch.isfinite(logits).all()
+    snapshot = _copy_cache(torch, cache)
+
+    gmm_ops.launches = paged_ops.launches = 0
+    step_ms = []
+    with _recording(transformer, decode_drops):
+        for i in range(MOE_STEPS):
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, {"tokens": tok}, cache)
+            if i == 0:
+                first, tok0 = logits.clone(), tok.clone()
+            finite &= torch.isfinite(logits).all()
+            tok = serve.greedy(logits)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    decode = {"gmm": gmm_ops.launches, "paged": paged_ops.launches}
+    alloc = cache["alloc"]
+    watermark, used = alloc.highest_used_page(), alloc.used_pages
+    need = sum(alloc.layout.pages_for(int(m) + MOE_STEPS) for m in lens)
+    p50 = sorted(step_ms)[MOE_STEPS // 2]
+    profile = _profile_decode(torch, model, params, tok, cache, p50)
+    del cache
+
+    # the first decode step again, on the copy of the post-prefill cache
+    with _recording(transformer, [], captured, "decode", (0, n - 1)):
+        again, snapshot = model.decode_step(params, {"tokens": tok0}, snapshot)
+    bitwise = torch.equal(again, first)
+    del snapshot, again
+    # read, not held: the port's own prefill of prompt + first token routes
+    # 8 more tokens through bins of another capacity, so its drops differ
+    for b, m in enumerate(lens):
+        tokens[b, m] = int(tok0[b, 0])
+        seg[b, m] = 1
+    ref_drops = []
+    with _recording(transformer, ref_drops):
+        ref, _ = model.prefill(params, batch(S + 1), new_cache())
+    vs_prefill = {"max_abs_dlogit_over_max_logit":
+                  ((first - ref).abs().max() / ref.abs().max()).item(),
+                  "rel_l2": ((first - ref).norm() / ref.norm()).item(),
+                  "prefill_drop_fraction": torch.stack(ref_drops).mean().item()}
+    del ref
+    routes = _moe_routes(torch, cfg, params, captured)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print("[moe] " + json.dumps({
+        "arch": MOE_ARCH, "prompt_lens": lens.tolist(), "prefill_ms": prefill_ms,
+        "decode_ms_per_step": sum(step_ms) / MOE_STEPS, "decode_ms_p50": p50,
+        "tokens_per_s": B * MOE_STEPS / (sum(step_ms) / 1e3),
+        "prefill_launches": prefill, "decode_launches": decode,
+        "drop_fraction_prefill": torch.stack(prefill_drops).mean().item(),
+        "drop_fraction_decode_max": torch.stack(decode_drops).max().item(),
+        "watermark": watermark, "pages_used": used, "pages_needed": need,
+        "peak_device_mem_gib": peak,
+        "first_step_again_bitwise_equal": bitwise,
+        "first_step_vs_prefill_of_prompt_and_token": vs_prefill,
+    }))
+    print("[moe] routes (kernel vs plain, relative l2): " + json.dumps(routes))
+    print("[moe] decode profile: " + json.dumps(profile))
+    checks = {
+        f"prefill: {3 * n} grouped-matmul, {n} packed forward launches":
+            prefill["gmm"] == 3 * n and prefill["packed"] == (n, 0),
+        f"decode: {3 * n} x {MOE_STEPS} grouped-matmul launches":
+            decode["gmm"] == 3 * n * MOE_STEPS,
+        f"decode: {n} x {MOE_STEPS} paged launches": decode["paged"] == n * MOE_STEPS,
+        f"profiled step: {3 * n} grouped-matmul and {n} paged launches":
+            profile["gmm_kernel_launches_per_step"] == 3 * n
+            and profile["paged_kernel_launches_per_step"] == n,
+        "all logits finite": bool(finite),
+        "the first step again gives the same bits": bitwise,
+        "First-Fit keeps the pool dense": watermark == used == need,
+        "routes: equal drops": all(r["drop_fraction_kernel_plain"][0]
+                                   == r["drop_fraction_kernel_plain"][1]
+                                   for r in routes.values()),
+        f"routes: rel l2 <= {MOE_REL_L2}": all(r["rel_l2"] <= MOE_REL_L2
+                                               for r in routes.values()),
+        "routes: each planted fault reads above the limit": all(
+            r["planted_one_row_short"] > MOE_REL_L2 and r["planted_flat_gates"] > MOE_REL_L2
+            for r in routes.values()),
+        "routes: prefill and decode of the first and last layer":
+            len(routes) == 4,
+    }
+    print(f"[moe] checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"MoE serving: {checks}")
+    del params, captured
+    torch.cuda.empty_cache()
+    launches["moe serve prefill"] = {"gmm": prefill["gmm"], "packed": prefill["packed"][0]}
+    launches["moe serve decode"] = {"gmm": decode["gmm"], "paged": decode["paged"]}
+    return launches
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         _fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -1337,7 +1767,7 @@ def main() -> None:
 
     # 4. the grouped matmul against its plain version
     with _phase("kernel grouped_matmul"):
-        gmm_record = kernel_phase(torch, np)
+        gmm_record, gmm_by_shape = kernel_phase(torch, np)
 
     # 5. the streaming slice at full size
     with _phase("full stream"):
@@ -1345,11 +1775,12 @@ def main() -> None:
 
     # 6. the paged kernel against its plain version
     with _phase("kernel paged_attention"):
-        paged_record = paged_kernel_phase(torch, np)
+        paged_records = paged_kernel_phase(torch, np)
+        paged_record = paged_records["qwen3-8b G=4"]
 
     # 7. the packed-attention kernels against their plain version
     with _phase("kernel packed_attention"):
-        packed_records = packed_kernel_phase(torch, np)
+        packed_records, packed_moe_record = packed_kernel_phase(torch, np)
         packed_fwd_record, packed_bwd_record = packed_records["train"]
 
     # 8. the attention block at full width, kernels against the plain path
@@ -1368,6 +1799,10 @@ def main() -> None:
     with _phase("train"):
         train_fwd, train_bwd = train_phase(torch, np)
 
+    # 12. MoE serving at full width and depth
+    with _phase("moe serve"):
+        moe_launches = moe_phase(torch, np)
+
     print(json.dumps({"kernels": [{
         "name": "grouped_matmul",
         "route": "cuda",
@@ -1377,8 +1812,10 @@ def main() -> None:
         "launches_by_path": {
             **{f"multiproc {r['payload']}": r["launches"] for r in mp_runs},
             "inproc full": gmm_launches,
+            **{path: c["gmm"] for path, c in moe_launches.items()},
         },
         **gmm_record,
+        "by_shape": gmm_by_shape,
     }, {
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -1386,8 +1823,11 @@ def main() -> None:
         "replaces": "src/repro/kernels/paged_attention/kernel.py:39",
         "launches": serve_launches,
         "launches_by_path": {"serve run_local": serve_launches,
-                             "ragged serve": ragged_launches},
+                             "ragged serve": ragged_launches,
+                             **{path: c["paged"] for path, c in moe_launches.items()
+                                if "paged" in c}},
         **paged_record,
+        "by_shape": paged_records,
     }, {
         "name": "packed_flash_attention",
         "route": "cuda",
@@ -1395,9 +1835,12 @@ def main() -> None:
         "replaces": "src/repro/kernels/packed_attention/kernel.py:39",
         "launches": train_fwd,
         "launches_by_path": {"train": train_fwd, "serve run_local": serve_packed,
-                             "ragged serve": ragged_packed},
+                             "ragged serve": ragged_packed,
+                             **{path: c["packed"] for path, c in moe_launches.items()
+                                if "packed" in c}},
         **packed_fwd_record,
-        "by_shape": {n: fwd for n, (fwd, _) in packed_records.items()},
+        "by_shape": {**{n: fwd for n, (fwd, _) in packed_records.items()},
+                     f"{MOE_ARCH} prefill": packed_moe_record},
     }, {
         "name": "packed_flash_attention_bwd",
         "route": "cuda",
@@ -1405,7 +1848,9 @@ def main() -> None:
         "replaces": "src/repro/models/layers.py:147",
         "launches": train_bwd,
         "launches_by_path": {"train": train_bwd, "serve run_local": 0,
-                             "ragged serve": 0},
+                             "ragged serve": 0,
+                             **{path: 0 for path, c in moe_launches.items()
+                                if "packed" in c}},
         **packed_bwd_record,
         "by_shape": {n: bwd for n, (_, bwd) in packed_records.items()},
     }]}))

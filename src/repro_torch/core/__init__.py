@@ -39,7 +39,12 @@ from .load_predictor import LoadPredictor, LoadPredictorConfig, ScaleDecision
 from .profiler import MasterProfiler, ProfilerConfig, WorkerProbe
 from .queues import AllocationQueue, ContainerQueue, HostRequest
 from .sim import SimCluster, SimConfig, SimResult, simulate
+from .view_conformance import verify_cluster_view
 
+# NOTE: core.sim_reference (the frozen pre-refactor simulator) is NOT
+# re-exported here.  Rule R3 (`python -m repro.analysis`) restricts its
+# import to the equivalence/parity suites; everyone else uses `simulate`.
+from .spark_baseline import SparkConfig, SparkResult, simulate_spark
 from .workloads import Message, Stream, synthetic_workload, usecase_workload
 
 __all__ = [
@@ -89,9 +94,13 @@ __all__ = [
     "ContainerQueue",
     "HostRequest",
     "SimCluster",
+    "verify_cluster_view",
     "SimConfig",
     "SimResult",
     "simulate",
+    "SparkConfig",
+    "SparkResult",
+    "simulate_spark",
     "Message",
     "Stream",
     "synthetic_workload",

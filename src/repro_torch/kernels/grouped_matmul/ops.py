@@ -1,9 +1,10 @@
-"""Public wrapper for the grouped matmul: the Hopper kernel for CUDA tensors,
-the plain PyTorch version for CPU tensors.
+"""Public wrappers for the grouped matmul: the Hopper kernel for CUDA
+tensors, the plain PyTorch version for CPU tensors; and the SwiGLU expert
+FFN built from three of them.
 
-``launches`` counts the kernel launches this process made through ``gmm``;
-a run resets it to 0 and reads it back to show that its main path went
-through the kernel.
+``launches`` counts the kernel launches this process made through ``gmm``
+(``expert_ffn_swiglu`` adds 3 a call); a run resets it to 0 and reads it
+back to show that its main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -12,11 +13,12 @@ import threading
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .kernel import grouped_matmul
 from .ref import grouped_matmul_ref
 
-__all__ = ["gmm", "launches"]
+__all__ = ["gmm", "expert_ffn_swiglu", "launches"]
 
 launches = 0
 _count_lock = threading.Lock()
@@ -42,3 +44,26 @@ def gmm(
         with _count_lock:
             launches += 1
     return out
+
+
+def expert_ffn_swiglu(
+    x: torch.Tensor,            # (E, C, d) capacity-packed tokens
+    w_gate: torch.Tensor,       # (E, d, f)
+    w_up: torch.Tensor,         # (E, d, f)
+    w_down: torch.Tensor,       # (E, f, d)
+    group_sizes: torch.Tensor,  # (E,) int32
+) -> torch.Tensor:
+    """``silu(gmm(x, w_gate)) * gmm(x, w_up)``, then ``gmm(., w_down)``: the
+    experts' SwiGLU FFN over the occupied rows of each bin, ``(E, C, d)``.
+
+    On the card the three products are kernel launches, whose outputs carry
+    no gradient: there, with autograd recording and an input that requires
+    grad, this raises rather than train through them silently.
+    """
+    if x.device.type != "cpu" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w_gate, w_up, w_down)):
+        raise NotImplementedError(
+            "the grouped-matmul kernel has no backward: MoE training on the "
+            "card is ROADMAP queue 1 item 12")
+    h = F.silu(gmm(x, w_gate, group_sizes)) * gmm(x, w_up, group_sizes)
+    return gmm(h, w_down, group_sizes)

@@ -5,7 +5,8 @@ discrete-time simulated backend (capacity planning / control-plane soak,
 ``--backend sim``), or a real model executing prefill and paged decode
 (``--backend local``): the bf16 weights are drawn from a seeded generator
 on the device, the KV cache is a bf16 First-Fit paged pool, and every
-decode step's attention is the Hopper paged-attention kernel on the card.
+decode step's attention is the Hopper paged-attention kernel on the card;
+an MoE model's experts run through the grouped-matmul kernel there.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --backend sim --requests 500
@@ -13,6 +14,8 @@ Usage:
       --arch qwen3-8b --requests 8                        # full width, the card
   PYTHONPATH=src python -m repro_torch.launch.serve --backend local \
       --arch qwen3-8b --smoke --device cpu                # plain version, CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --backend local \
+      --arch qwen3-moe-30b-a3b                            # 56.9 GiB of weights
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""The dense decoder's serving path in PyTorch: parameters, layers, the
-model and its registry, with decode over the First-Fit paged KV cache."""
+"""The decoders (dense and MoE) in PyTorch: parameters, layers, the MoE
+layer, the model and its registry, with decode over the First-Fit paged KV
+cache."""
 
 from .params import Spec, init_params, params_from_numpy
 from .registry import build_model

@@ -1,0 +1,152 @@
+"""Mixture-of-Experts layer with capacity-binned dispatch.
+
+The dispatch is the paper's technique applied at the token level: experts
+are *bins* with a fixed capacity (``capacity_factor * tokens * top_k / E``
+slots, rounded up to an aligned multiple), and routed tokens are *items*
+packed into them.  Tokens that overflow an expert's bin are dropped
+(GShard-style), exactly like a worker that cannot fit another PE.
+
+The dispatch is sort-based, as in the JAX package: flatten the (token,
+expert) assignments, sort them by expert (a stable sort, so a bin keeps its
+tokens in token order and the same tokens overflow), give each its position
+in its expert's bin by a count per expert, scatter into an ``(E, C, d)``
+buffer, run the expert FFNs, and combine back with the router's gates.
+
+The port has one device and no mesh, so the JAX package's dispatch groups
+are one group (G = 1).  On the card a SwiGLU layer runs its experts through
+the grouped-matmul kernel (``kernels.grouped_matmul.ops.expert_ffn_swiglu``),
+whose tiles take 128-row bins; elsewhere the experts are a batched product
+over 8-aligned bins, as the JAX package computes them off the TPU.  The
+capacity, and with it which tokens overflow, follows the route.
+
+Nothing in the dispatch reads a tensor back to the host.  The combine
+gathers each token's K expert outputs back into ``(T, K, d)`` and sums them
+in fp32 by a reduction over K, which uses no atomics: a second run on the
+same inputs gives the same bits.  (The JAX package scatter-adds the
+contributions in the working type; in fp32 the two agree to rounding.)
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.grouped_matmul.ops import expert_ffn_swiglu
+from .params import Spec
+
+__all__ = ["moe_specs", "moe_layer", "expert_capacity"]
+
+
+def expert_capacity(
+    num_tokens: int, num_experts: int, top_k: int, factor: float,
+    align: int = 128,
+) -> int:
+    """Capacity per expert bin, rounded up to an ``align`` multiple: 128 for
+    the grouped-matmul kernel's row tiles, 8 for the batched product."""
+    raw = int(math.ceil(num_tokens * top_k * factor / num_experts))
+    return max(align, ((raw + align - 1) // align) * align)
+
+
+def _top_k_iterative(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over the last dim as the JAX package takes it: k passes of
+    argmax, each masking its pick to -inf.  ``argmax`` takes the first of
+    equal maxima, so ties go to the lower expert and the picks come in
+    descending order (``torch.topk`` orders ties otherwise).  Returns
+    (values, int32 indices), each ``(..., k)``."""
+    masked = probs
+    vals, idxs = [], []
+    for _ in range(k):
+        i = masked.argmax(dim=-1, keepdim=True)
+        vals.append(masked.gather(-1, i))
+        idxs.append(i.to(torch.int32))
+        masked = masked.scatter(-1, i, float("-inf"))
+    return torch.cat(vals, dim=-1), torch.cat(idxs, dim=-1)
+
+
+def moe_specs(cfg: Any) -> Dict[str, Spec]:
+    assert cfg.moe is not None
+    d, e, f = cfg.d_model, cfg.moe.num_experts, cfg.moe.expert_d_ff
+    specs = {
+        "router": Spec((d, e), ("embed", None), init="scaled"),
+        "w_up": Spec((e, d, f), ("experts", "embed", "mlp"), init="scaled"),
+        "w_down": Spec((e, f, d), ("experts", "mlp", "embed"), init="scaled"),
+    }
+    if cfg.act == "swiglu":
+        specs["w_gate"] = Spec((e, d, f), ("experts", "embed", "mlp"), init="scaled")
+    return specs
+
+
+def moe_layer(
+    p: Dict[str, torch.Tensor],
+    cfg: Any,
+    x: torch.Tensor,  # (B, S, d)
+    *,
+    use_gmm_kernel: bool = True,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Top-k routed MoE with capacity bins.  Returns (out (B, S, d), aux
+    losses).  Every token is routed, padding included, and takes capacity,
+    as in the JAX package."""
+    mcfg = cfg.moe
+    B, S, d = x.shape
+    E, K = mcfg.num_experts, mcfg.top_k
+    T = B * S
+    kernel_path = use_gmm_kernel and cfg.act == "swiglu" and x.is_cuda
+    C = expert_capacity(T, E, K, mcfg.capacity_factor, align=128 if kernel_path else 8)
+    xt = x.reshape(T, d)
+
+    # ---- routing and capacity-bin packing -----------------------------------
+    logits = xt.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = _top_k_iterative(probs, K)  # (T, K)
+    # renormalize the selected gates (Mixtral/Qwen convention)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+
+    flat_expert = expert_idx.reshape(-1).long()          # (T*K,)
+    order = torch.argsort(flat_expert, stable=True)      # sort by destination
+    sorted_expert = flat_expert[order]
+    sorted_token = order // K
+    counts = torch.zeros(E, dtype=torch.int32, device=x.device).index_add_(
+        0, flat_expert, torch.ones_like(flat_expert, dtype=torch.int32))
+    starts = torch.cumsum(counts, 0) - counts            # exclusive prefix sum
+    pos_in_expert = torch.arange(T * K, device=x.device) - starts[sorted_expert]
+    keep = pos_in_expert < C                              # bin overflow -> drop
+    dest = torch.where(keep, sorted_expert * C + pos_in_expert, E * C)
+    buf = x.new_zeros((E * C + 1, d))
+    buf[dest] = xt[sorted_token]                          # row E*C takes the drops
+    buf = buf[:E * C].view(E, C, d)
+
+    # ---- the expert FFN ------------------------------------------------------
+    if kernel_path:
+        out_buf = expert_ffn_swiglu(buf, p["w_gate"], p["w_up"], p["w_down"],
+                                    counts.clamp(max=C))
+    else:
+        if cfg.act == "swiglu":
+            h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w_gate"])) * torch.einsum(
+                "ecd,edf->ecf", buf, p["w_up"])
+        else:  # jax.nn.gelu's default is the tanh form
+            h = F.gelu(torch.einsum("ecd,edf->ecf", buf, p["w_up"]), approximate="tanh")
+        out_buf = torch.einsum("ecf,efd->ecd", h, p["w_down"])
+
+    # ---- combine: each token's K contributions, summed in fp32 --------------
+    gathered = out_buf.reshape(E * C, d)[torch.where(keep, dest, 0)].float()
+    gates_sorted = gate_vals.reshape(-1)[order]
+    contrib = torch.where(keep[:, None], gathered * gates_sorted[:, None], 0.0)
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(T * K, device=x.device)
+    out = contrib[inverse].view(T, K, d).sum(dim=1).to(x.dtype)
+
+    # ---- aux losses ----------------------------------------------------------
+    # Switch-style load balance: E * sum_e (fraction_e * prob_e)
+    frac = counts.float() / max(1, T * K)
+    lb_loss = E * torch.sum(frac * probs.mean(dim=0))
+    z_loss = torch.logsumexp(logits, dim=-1).square().mean()
+    dropped = (~keep).sum() / max(1, T * K)
+    aux = {
+        "moe_load_balance": lb_loss * mcfg.load_balance_loss,
+        "moe_z_loss": z_loss * mcfg.router_z_loss,
+        "moe_drop_fraction": dropped,
+    }
+    return out.reshape(B, S, d), aux

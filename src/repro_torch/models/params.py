@@ -92,17 +92,32 @@ def _std(spec: Spec) -> float:
     return spec.scale / math.sqrt(max(1, fan_in))
 
 
+# the fp32 draw of a leaf is made in slices of at most this many bytes, each
+# written into the leaf's preallocated tensor, so drawing a leaf costs its
+# own memory plus one bounded temporary (a stacked expert leaf of
+# qwen3-moe-30b-a3b is 38.7 GB in fp32)
+DRAW_SLICE_BYTES = 256 << 20
+
+
 def _init_one(spec: Spec, generator: torch.Generator, dtype: torch.dtype,
               device: torch.device) -> torch.Tensor:
+    """One leaf: fp32 normals drawn slice by slice over the flattened leaf,
+    scaled, and cast into a tensor of ``dtype``.  The slices are cut by fp32
+    bytes whatever ``dtype`` is, so a bf16 leaf is the fp32 leaf cast."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
     if spec.init not in ("normal", "scaled"):
         raise ValueError(f"unknown init {spec.init!r}")
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return x.mul_(_std(spec)).to(dtype)
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    flat, std = out.view(-1), _std(spec)
+    step = max(1, DRAW_SLICE_BYTES // 4)
+    for i in range(0, flat.numel(), step):
+        n = min(step, flat.numel() - i)
+        flat[i:i + n] = torch.randn(n, generator=generator, dtype=torch.float32,
+                                    device=device).mul_(std)
+    return out
 
 
 def init_params(
@@ -114,7 +129,8 @@ def init_params(
     """Materialize a spec tree, leaf by leaf in sorted path order.
 
     Draws are fp32 normals from ``generator`` (which must live on
-    ``device``), scaled, then cast to ``dtype`` (default: each spec's own).
+    ``device``), scaled, then cast to ``dtype`` (default: each spec's own),
+    in slices of at most ``DRAW_SLICE_BYTES`` of fp32 (``_init_one``).
     The rules are the JAX package's; the numbers are not, since the two
     frameworks' generators differ: to compare the two packages on the same
     weights, use ``params_from_numpy``.

@@ -1,5 +1,5 @@
-"""Decoder-only LM assembled from an ``ArchConfig``: the dense training and
-serving paths.
+"""Decoder-only LM assembled from an ``ArchConfig``: the training and
+serving paths of the attention-only decoders, dense or MoE.
 
 Parameters keep the JAX package's layout: each position of the layer
 pattern is a dict of tensors stacked over periods, so the JAX package's
@@ -16,7 +16,9 @@ Entry points, with the JAX package's argument order and returns:
   - ``decode_step`` : one new token per sequence, attending over its pages
                       through the paged-attention kernel.
 On the card, ``loss`` and ``prefill`` attend through the packed-attention
-kernels (``layers.attention``).  The cache is the paged one
+kernels (``layers.attention``), and an MoE layer's experts run through the
+grouped-matmul kernel (``moe.moe_layer``; serving only: the kernel has no
+backward).  The cache is the paged one
 (``init_paged_cache``): a K pool and a V pool ``(n_layers, num_pages,
 page_size, KVH, D)``, the port's ``PageAllocator``, the active sequence ids
 and their lengths.  Both serving entry points update it in place and return
@@ -47,6 +49,7 @@ from .layers import (
     norm,
     norm_specs,
 )
+from .moe import moe_layer, moe_specs
 from .params import Spec, tree_map
 
 __all__ = ["DecoderLM", "chunked_cross_entropy", "pad_vocab"]
@@ -110,16 +113,20 @@ def chunked_cross_entropy(
 
 
 def _block_specs(cfg: Any, pos: int) -> Dict[str, Any]:
-    """Parameter specs for the attention block at ``pos`` within the period."""
+    """Parameter specs for the attention block at ``pos`` within the period:
+    its feed-forward is the MoE layer where the config makes ``pos`` one."""
     if cfg.pattern[pos] != "A":
-        raise ValueError(f"dense blocks only, got pattern char {cfg.pattern[pos]!r}")
+        raise ValueError(f"attention blocks only, got pattern char {cfg.pattern[pos]!r}")
     specs: Dict[str, Any] = {
         "ln1": norm_specs(cfg.norm_type, cfg.d_model),
         "mixer": attention_specs(cfg),
     }
-    if cfg.d_ff:
+    if cfg.d_ff or cfg.moe:
         specs["ln2"] = norm_specs(cfg.norm_type, cfg.d_model)
-        specs["ffn"] = mlp_specs(cfg)
+        if cfg.moe is not None and cfg.moe.is_moe_layer(pos):
+            specs["ffn"] = moe_specs(cfg)
+        elif cfg.d_ff:
+            specs["ffn"] = mlp_specs(cfg)
     return specs
 
 
@@ -136,6 +143,11 @@ def _stack_period(cfg: Any, spec_tree: Any) -> Any:
 def _zero_aux(device: torch.device) -> Dict[str, torch.Tensor]:
     z = torch.zeros((), dtype=torch.float32, device=device)
     return {"moe_load_balance": z, "moe_z_loss": z, "moe_drop_fraction": z}
+
+
+def _add_aux(a: Dict[str, torch.Tensor], b: Optional[Dict[str, torch.Tensor]]
+             ) -> Dict[str, torch.Tensor]:
+    return a if b is None else {k: a[k] + b[k] for k in a}
 
 
 # the products JAX's dots_with_no_batch_dims_saveable keeps: matrix products
@@ -215,10 +227,18 @@ class DecoderLM:
             for pos in range(n):
                 yield period * n + pos, blocks[str(pos)]
 
-    def _ffn(self, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, p: Dict[str, Any], x: torch.Tensor
+             ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+        """``x`` plus the block's feed-forward (the MLP, or the MoE layer
+        where ``p["ffn"]`` has a router) of its normed input, and the MoE
+        layer's aux losses (None for an MLP)."""
         if "ffn" not in p:
-            return x
-        return x + mlp(p["ffn"], self.cfg, norm(p["ln2"], self.cfg.norm_type, x))
+            return x, None
+        h = norm(p["ln2"], self.cfg.norm_type, x)
+        if "router" in p["ffn"]:
+            out, aux = moe_layer(p["ffn"], self.cfg, h)
+            return x + out, aux
+        return x + mlp(p["ffn"], self.cfg, h), None
 
     # ---- training forward -----------------------------------------------------
     def _apply_block_train(
@@ -239,12 +259,8 @@ class DecoderLM:
             raise ValueError(f"unknown pattern char {char!r}")
         h = norm(p["ln1"], cfg.norm_type, x)
         out, _ = attention(p["mixer"], cfg, h, seg, pos_ids)
-        x = x + out
-        if "ffn" in p:
-            if "router" in p["ffn"]:
-                raise NotImplementedError("the MoE layer is ROADMAP queue 1 item 4")
-            x = x + mlp(p["ffn"], cfg, norm(p["ln2"], cfg.norm_type, x))
-        return x, aux
+        x, moe_aux = self._ffn(p, x + out)
+        return x, _add_aux(aux, moe_aux)
 
     def hidden_states(
         self,
@@ -351,7 +367,7 @@ class DecoderLM:
             out, (k, v) = attention(p["mixer"], cfg, h, seg, pos_ids)
             for pool, new in ((cache["k"], k), (cache["v"], v)):
                 pool[layer].flatten(0, 1)[dest] = new[b_idx, t_idx].to(pool.dtype)
-            x = self._ffn(p, x + out)
+            x, _ = self._ffn(p, x + out)
         x = norm(params["final_norm"], cfg.norm_type, x)
         last = (lens.long() - 1).clamp(min=0)  # last valid position per row
         logits = self._logits(params, x[torch.arange(B, device=x.device), last])
@@ -385,7 +401,7 @@ class DecoderLM:
             h = norm(p["ln1"], cfg.norm_type, x)
             out = attention_decode(p["mixer"], cfg, h, position, cache["k"][layer],
                                    cache["v"][layer], table, new_len)
-            x = self._ffn(p, x + out)
+            x, _ = self._ffn(p, x + out)
         x = norm(params["final_norm"], cfg.norm_type, x)
         cache["len"] = new_len
         return self._logits(params, x[:, 0]), cache

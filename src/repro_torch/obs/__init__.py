@@ -10,7 +10,7 @@ One schema across all three backends (sim, live in-process, multiproc):
   data queue and the master folds them into one view.
 - Exporters — JSONL event log, Prometheus text exposition, run-summary
   JSON (``finalize_run`` writes all three).
-- Analyzer — ``obs.analyze``: latency decomposition, per-message
+- Analyzer — ``python -m repro_torch.obs``: latency decomposition, per-message
   critical paths, the "why did first-fit skip bin 3" audit render, and
   event-log drift reports.
 

@@ -12,6 +12,7 @@ Public surface:
     ``list_scenarios``, ``scenario_names`` (``registry``),
   - ``run_scenario``, ``sweep_policies``, ``ScenarioResult``,
     ``summarize_result``, ``POLICIES`` (``engine``),
+  - ``run_serving_scenario``, ``stream_to_requests`` (``serving``),
   - the built-in catalogue registers on first registry access (``library``).
 
 CLI: ``PYTHONPATH=src python -m repro_torch.scenarios.run --list``.
@@ -45,6 +46,9 @@ _LAZY = {
     "policies_for": "engine",
     "POLICIES": "engine",
     "VECTOR_POLICIES": "engine",
+    "run_serving_scenario": "serving",
+    "stream_to_requests": "serving",
+    "default_engine_config": "serving",
 }
 
 __all__ = [

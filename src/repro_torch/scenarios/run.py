@@ -21,6 +21,9 @@ One entry point for every registered workload:
   # workers as OS processes behind pickled command/data queues
   python -m repro_torch.scenarios.run microscopy --smoke --backend multiproc
 
+  # the same stream through the continuous-batching serving backend
+  python -m repro_torch.scenarios.run bursty --backend serving --smoke
+
   # one Hopper grouped-matmul launch per message (needs a CUDA card)
   python -m repro_torch.scenarios.run microscopy --backend live --payload torch
 
@@ -141,11 +144,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         "default: the scenario's configured policy",
     )
     ap.add_argument("--backend",
-                    choices=("sim", "live", "multiproc"),
+                    choices=("sim", "live", "multiproc", "serving"),
                     default="sim",
                     help="cluster sim (paper testbed), live asyncio "
-                    "master/worker runtime, or the same runtime with "
-                    "workers as OS processes (multiproc)")
+                    "master/worker runtime, the same runtime with workers "
+                    "as OS processes (multiproc), or serving engine")
     ap.add_argument("--time-scale", type=float, default=0.02,
                     help="live backends: wall seconds per scenario second "
                     "(smaller = faster run, more concurrency jitter)")
@@ -214,6 +217,44 @@ def main(argv: Optional[List[str]] = None) -> int:
         if n_runs is None:
             n_runs = 1
         _smoke_note(scn)
+
+    if args.backend == "serving":
+        from .serving import run_serving_scenario
+
+        for flag, value in (("--policy", args.policy), ("--runs", args.runs),
+                            ("--fail-worker", args.fail_worker),
+                            ("--engine", args.engine),
+                            ("--obs-out", args.obs_out),
+                            ("--check", args.check or None)):
+            if value is not None:
+                print(f"note: {flag} does not apply to the serving backend "
+                      "(admission is vector First-Fit; no sim expectations)",
+                      file=sys.stderr)
+        serving_kwargs = {}
+        if t_max is not None:
+            serving_kwargs["t_max"] = float(t_max)
+        summary = run_serving_scenario(
+            scn, seed=args.seed, stream_overrides=stream_overrides,
+            **serving_kwargs,
+        )
+        eng = summary.pop("engine")
+        print(f"\n=== scenario {scn.name!r} · backend serving ===")
+        for k, v in summary.items():
+            print(f"  {k}: {v:.4g}" if isinstance(v, float) else f"  {k}: {v}")
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            cols = ["t", "queue", "replicas", "target", "mean_slot_load",
+                    "mean_page_load", "completed"]
+            with open(os.path.join(args.out, f"{scn.name}_serving.csv"),
+                      "w", newline="") as f:
+                w = csv.writer(f)
+                w.writerow(cols)
+                for m in eng.metrics:
+                    w.writerow([m[c] for c in cols])
+            with open(os.path.join(args.out, f"{scn.name}_serving.json"), "w") as f:
+                json.dump(summary, f, indent=2)
+            print(f"\nartifacts written to {args.out}")
+        return 0
 
     if args.policy in (None, ""):
         policies = [None]

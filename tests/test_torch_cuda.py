@@ -546,3 +546,130 @@ def test_packed_launches_per_train_step(remat, fwd_per_layer):
     assert packed_ops.launches_fwd == 2 * fwd_per_layer
     assert packed_ops.launches_bwd == 2
     assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+
+
+# ---------------------------------------------------------------------------
+# the MoE layer: the grouped matmul's bf16 entry at qwen3-moe-30b-a3b's shapes
+# ---------------------------------------------------------------------------
+
+# (E, C, d, f, live rows an expert): a decode step of 8 sequences (0-2 rows
+# in 128-row bins) and a prefill of 8 x 1024 tokens (about 512 rows in
+# 640-row bins), through the gate/up products and the down product
+MOE_SHAPES = [(128, 128, 2048, 768, (0, 2)), (128, 640, 2048, 768, (448, 576)),
+              (128, 640, 768, 2048, (448, 576))]
+# bf16 outputs one ulp apart everywhere would read at most 2^-7 in relative
+# l2; the kernel and the plain version differ only where their fp32 sums
+# round to neighbouring bf16 values
+MOE_REL_L2 = 1e-2
+
+
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MOE_SHAPES, ids=lambda c: "x".join(map(str, c[:4])))
+def test_gmm_bf16_at_the_moe_shapes(case):
+    _need_card()
+    E, C, d, f, (lo, hi) = case
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    gs = torch.randint(lo, hi + 1, (E,), generator=gen, device=dev, dtype=torch.int32)
+    live = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
+    x = (torch.randn((E, C, d), generator=gen, device=dev) * live).to(torch.bfloat16)
+    w = (torch.randn((E, d, f), generator=gen, device=dev) / d ** 0.5).to(torch.bfloat16)
+    before = ops.launches
+    out = ops.gmm(x, w, gs)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    ref = grouped_matmul_ref(x, w, gs)
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[torch.bfloat16])
+    assert _rel_l2(out, ref) <= MOE_REL_L2
+    assert (out.float().abs()[~live[..., 0]] == 0).all()
+
+
+def _moe_layer_inputs(T, seed=37):
+    """qwen3-moe-30b-a3b's MoE layer at full width, bf16 weights drawn on the
+    card, and ``T`` tokens of unit-variance input."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_specs
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = init_params(moe_specs(cfg), gen, torch.bfloat16, dev)
+    x = torch.randn((1, T, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    return cfg, p, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8, 8 * 1024], ids=["decode", "prefill"])
+def test_moe_layer_kernel_route_matches_plain_route_on_card(T):
+    """The same routing through the kernel (128-row bins) and the batched
+    product (8-row bins): at these token counts both bins hold every
+    assignment an expert can get (decode) or the same 640 rows (prefill), so
+    the drops are equal and the outputs differ by bf16 rounding only."""
+    _need_card()
+    from repro_torch.models.moe import expert_capacity, moe_layer
+
+    cfg, p, x = _moe_layer_inputs(T)
+    E, K, factor = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.capacity_factor
+    assert min(expert_capacity(T, E, K, factor, 128),
+               expert_capacity(T, E, K, factor, 8)) >= min(T, 640)
+    before = ops.launches
+    got, aux = moe_layer(p, cfg, x)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 3
+    want, aux_plain = moe_layer(p, cfg, x, use_gmm_kernel=False)
+    assert ops.launches == before + 3
+    assert torch.equal(aux["moe_drop_fraction"], aux_plain["moe_drop_fraction"])
+    assert _rel_l2(got, want) <= MOE_REL_L2
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+def test_moe_layer_repeats_bitwise_on_card():
+    _need_card()
+    from repro_torch.models.moe import moe_layer
+
+    cfg, p, x = _moe_layer_inputs(1024)
+    a, aux_a = moe_layer(p, cfg, x)
+    b, aux_b = moe_layer(p, cfg, x)
+    assert torch.equal(a, b)
+    assert all(torch.equal(aux_a[k], aux_b[k]) for k in aux_a)
+
+
+@pytest.mark.cuda
+def test_expert_ffn_swiglu_refuses_autograd_on_card():
+    """The kernel's output carries no gradient: training through it raises,
+    naming the ROADMAP item, and launches nothing."""
+    _need_card()
+    dev = torch.device("cuda")
+    x = torch.randn((4, 128, 64), device=dev, dtype=torch.bfloat16)
+    w = torch.randn((4, 64, 64), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    gs = torch.full((4,), 5, dtype=torch.int32, device=dev)
+    before = ops.launches
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        ops.expert_ffn_swiglu(x, w, w, w, gs)
+    assert ops.launches == before
+    with torch.no_grad():
+        out = ops.expert_ffn_swiglu(x, w, w, w, gs)
+    assert ops.launches == before + 3 and out.shape == x.shape
+
+
+@pytest.mark.cuda
+def test_moe_serving_on_card_launches_three_products_per_layer():
+    """qwen3-moe-30b-a3b at smoke size through ``run_local`` on the card:
+    3 grouped-matmul launches per layer in the prefill and in every decode
+    step, one paged launch per layer and step."""
+    _need_card()
+    from repro_torch.launch import serve
+
+    argv = ["--backend", "local", "--arch", "qwen3-moe-30b-a3b", "--smoke",
+            "--requests", "4", "--gen-tokens", "3"]
+    before, paged_before = ops.launches, paged_ops.launches
+    stats = serve.run_local(serve.parse_args(argv))
+    assert ops.launches == before + 3 * 2 * (1 + 3)  # 2 layers, prefill + 3 steps
+    assert paged_ops.launches == paged_before + 2 * 3
+    assert stats["logits_finite"] and stats["tokens"].shape == (4, 4)

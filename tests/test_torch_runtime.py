@@ -184,8 +184,13 @@ def test_port_sim_is_identical_to_reference(name):
 def test_cli_runs_a_smoke_scenario(capsys):
     assert cli.main(["microscopy", "--smoke"]) == 0
     assert "microscopy" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        cli.main(["microscopy", "--backend", "serving"])
+    # the serving backend drains the scenario's stream
+    assert cli.main(["microscopy", "--backend", "serving", "--smoke"]) == 0
+    out = capsys.readouterr().out
+    assert "backend serving" in out
+    lines = dict(line.strip().split(": ", 1) for line in out.splitlines()
+                 if line.strip().startswith(("completed:", "submitted:")))
+    assert lines["completed"] == lines["submitted"] != "0"
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +226,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert {"configs", "core", "kernels", "launch", "models", "obs", "runtime",
             "scenarios", "serving"} <= scanned
     assert port / "kernels" / "paged_attention" / "ops.py" in files
+    for rel_path in ("models/moe.py", "core/spark_baseline.py",
+                     "core/view_conformance.py", "scenarios/serving.py", "obs/__main__.py"):
+        assert port / rel_path in files, rel_path
     bad = [
         f"{p.relative_to(ROOT)}:{line} imports {mod}"
         for p in files

@@ -143,12 +143,25 @@ def test_init_params_follows_the_jax_rules():
     torch.testing.assert_close(again["s"], p["s"].to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-v0.1-52b",
-                                  "xlstm-125m", "seamless-m4t-medium",
-                                  "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-125m",
+                                  "seamless-m4t-medium", "internvl2-1b"])
 def test_other_families_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         build_model(get_config(arch))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "grok-1-314b"])
+def test_moe_models_build_with_the_jax_specs(arch):
+    """The MoE decoders build, every layer's feed-forward an MoE layer whose
+    specs are the JAX package's at full width."""
+    model = build_model(get_config(arch))
+    specs = model.param_specs()
+    jspecs = jax_build_model(jax_get_config(arch)).param_specs()
+    ffn = specs["blocks"]["0"]["ffn"]
+    assert "router" in ffn and ffn["w_up"].shape[:2] == (
+        model.cfg.n_layers, model.cfg.moe.num_experts)
+    assert {k: (s.shape, s.axes, s.init) for k, s in ffn.items()} == {
+        k: (s.shape, s.axes, s.init) for k, s in jspecs["blocks"]["0"]["ffn"].items()}
 
 
 # ---------------------------------------------------------------------------

@@ -204,17 +204,33 @@ def test_packed_vs_separate_loss_equivalence(built):
 
 
 def test_non_dense_blocks_raise(built):
-    cfg, _, jp, tm = built("olmo-1b")
-    params = port_params(jp)
+    _, _, _, tm = built("olmo-1b")
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         tm._apply_block_train("M", {}, None, None, None, None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        mixer = tree_map(lambda t: t[0], params["blocks"]["0"]["mixer"])
-        tm._apply_block_train("A", {"ln1": {}, "mixer": mixer,
-                                    "ln2": {}, "ffn": {"router": None}},
-                              torch.zeros((1, 4, cfg.d_model)),
-                              torch.ones((1, 4), dtype=torch.int32),
-                              torch.zeros((1, 4), dtype=torch.int32), {})
+
+
+def test_moe_block_through_apply_block_train_matches_jax(built):
+    """A qwen3-moe block (attention, then the MoE layer) through
+    ``_apply_block_train``: its output and the aux losses it adds to the
+    ones carried in, against the JAX package's."""
+    cfg, jm, jp, tm = built("qwen3-moe-30b-a3b")
+    batch = packed_batches(cfg.vocab_size, 32, 2, 1, seed=5)[0]
+    x = np.random.default_rng(8).normal(size=(2, 32, cfg.d_model)).astype(np.float32)
+    carried = {"moe_load_balance": 0.5, "moe_z_loss": 0.25, "moe_drop_fraction": 0.125}
+    jblock = jax.tree.map(lambda t: t[0], jp["blocks"]["0"])
+    want, jaux = jm._apply_block_train(
+        "A", jblock, jm.cfg, jnp.asarray(x), jnp.asarray(batch["segment_ids"]),
+        jnp.asarray(batch["positions"]),
+        {k: jnp.float32(v) for k, v in carried.items()})
+    with torch.no_grad():
+        got, aux = tm._apply_block_train(
+            "A", port_params(to_np(jblock)), torch.from_numpy(x),
+            torch.from_numpy(batch["segment_ids"]), torch.from_numpy(batch["positions"]),
+            {k: torch.tensor(v) for k, v in carried.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+    for k in carried:
+        assert rel(aux[k], jaux[k]) <= LOSS_RTOL, k
+    assert float(aux["moe_load_balance"]) > carried["moe_load_balance"]
 
 
 # ---------------------------------------------------------------------------
