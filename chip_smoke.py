@@ -22,8 +22,13 @@ Phases, in order; any failure raises and the script exits nonzero:
    workers of such a process cannot use it;
 4. the grouped-matmul kernel against its plain PyTorch version on the
    card, on the kernel test shapes, empty and ragged bins and both payload
-   shapes, and its bf16 entry at the MoE layer's shapes (``qwen3-moe-30b-a3b``
-   bins of a decode step and of a prefill, gate/up and down), with the
+   shapes, each case naming the path it took (``tma``: bf16 on the tensor
+   cores; ``simt``: f32 and the bf16 shapes TMA cannot take) and held to
+   it by the kernel's tile census; then its bf16 entry at the MoE layer's
+   shapes (``qwen3-moe-30b-a3b`` bins of a decode step and of a prefill,
+   gate/up and down) on the tensor-core path, with rows past the bins 0, a
+   second launch bitwise equal to the first, the tile census equal to
+   ``ref.tile_census`` and two planted faults above the limit, and the
    kernel's, the plain version's and ``torch.bmm``'s times beside the
    card's bound;
 5. the streaming slice at full size: ``run_live`` in-process on the full
@@ -92,8 +97,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    are read (not held) against the port's prefill of prompt + token;
    ``moe_layer``'s kernel route is held to its plain route on the real
    hidden states of the first and last layers, at the prefill and at a
-   decode step, beside two planted faults; two decode steps run under
-   ``torch.profiler`` after the timed ones.
+   decode step, beside two planted faults; two decode steps and then one
+   prefill run under ``torch.profiler`` after the timed ones, each profile
+   giving the device time, the busy share and the grouped matmul's share.
 
 Each phase prints its wall time; a failing phase raises with its name.
 The serving phases run before training, so that no ``torch.profiler``
@@ -222,8 +228,13 @@ GMM_BF16_TOLS = (5e-2, 5e-1)  # test_kernels.py's bf16 (rtol, atol) for the grou
 # rounding only.  Two fp32 sums of the same bf16 products, rounded once to
 # bf16, differ by one bf16 ulp where they straddle a rounding boundary; one
 # ulp is at most 2^-7 of a value, so even every entry one ulp off would read
-# under 7.8e-3.  (The kernel and its plain version both sum in k order and
-# read 0 at these shapes on an H100.)  ``moe_layer``'s two routes share the
+# under 7.8e-3.  (The bf16 entry's tensor-core path sums each k16 step in
+# the hardware's own order and the plain version sums in k order, so the
+# two read above 0 here, about 1e-4 to 1e-3 expected.)  Two planted faults
+# built from the plain version must read above the limit at each MoE bin:
+# the last live row of each bin dropped (as below) and one 64-deep k box
+# left out (about sqrt(64 / d): 0.18 at d = 2048, 0.29 at 768).
+# ``moe_layer``'s two routes share the
 # router (fp32, the same tokens kept) and differ in the three products
 # (the plain route's are cuBLAS bf16 GEMMs), each rounded to bf16: the same
 # limit holds for each stage; they read 5e-4 to 7e-4.  Planted faults read
@@ -458,9 +469,11 @@ def kernel_phase(torch, np):
         ("empty bins gs=[0,0,64,0]", 4, 128, 64, 64, f32, [0, 0, 64, 0], 2e-4, 2e-4),
         ("ragged 3x100x70x90 f32", 3, 100, 70, 90, f32, [0, 37, 100], 2e-4, 2e-4),
         ("ragged 3x100x70x90 bf16", 3, 100, 70, 90, bf16, [0, 37, 100], 5e-2, 5e-1),
+        ("ragged 2x300x520x136 bf16", 2, 300, 520, 136, bf16, [300, 77], 5e-2, 5e-1),
         ("payload default 4x64x64x64", 4, 64, 64, 64, f32, [64] * 4, 2e-4, 2e-4),
     ]
     rng = np.random.default_rng(0)
+    paths = set()
     for name, E, C, d, f, dtype, sizes, rtol, atol in cases:
         gs_np = (rng.integers(0, C + 1, size=E) if sizes is None
                  else np.asarray(sizes))
@@ -469,17 +482,25 @@ def kernel_phase(torch, np):
         x = torch.tensor(x_np, device=dev).to(dtype)
         w = torch.tensor(rng.normal(size=(E, d, f)), device=dev).to(dtype)
         gs = torch.tensor(gs_np, dtype=torch.int32, device=dev)
-        out = grouped_matmul(x, w, gs)
+        which = _gmm_path(x, w)
+        out, census = _with_census(lambda: grouped_matmul(x, w, gs))
         ref = grouped_matmul_ref(x, w, gs)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         pad = torch.arange(C, device=dev)[None, :] >= gs[:, None]
         pad_max = out.float().abs()[pad].max().item() if pad.any() else 0.0
         ok = torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol)
-        print(f"[kernel] {name}: max_abs_err={err:.3e} (rtol={rtol}, "
-              f"atol={atol}) padding_max={pad_max} {'ok' if ok else 'MISMATCH'}")
-        if not ok or pad_max != 0.0:
-            raise AssertionError(f"kernel disagrees with its plain version: {name}")
+        took = census == _expected_census(which, dtype, gs, C, f)
+        print(f"[kernel] {name} ({which} path): max_abs_err={err:.3e} (rtol={rtol}, "
+              f"atol={atol}) padding_max={pad_max} census {census} "
+              f"{'ok' if ok and took else 'MISMATCH'}")
+        if not ok or pad_max != 0.0 or not took:
+            raise AssertionError(f"kernel disagrees with its plain version or took "
+                                 f"another path: {name}")
+        paths.add((which, str(dtype)))
+    if paths != {("simt", "torch.float32"), ("simt", "torch.bfloat16"),
+                 ("tma", "torch.bfloat16")}:
+        raise AssertionError(f"phase 4 did not hold every path: {sorted(paths)}")
 
     # the full payload shape, data made on the card from a seed
     x, w, gs = _payload_inputs(torch)
@@ -529,35 +550,98 @@ def _moe_bins(torch, gen, E, C, tokens, top_k=8):
     return counts.clamp(max=C)
 
 
-def _gmm_moe_case(torch, grouped_matmul, grouped_matmul_ref, flush, name, E, C, d, f,
-                  tokens):
-    """The bf16 entry against its plain version at one MoE shape, held to
-    ``GMM_BF16_TOLS`` and ``MOE_REL_L2``; its times beside the bound."""
+def _moe_gmm_inputs(torch, E, C, d, f, tokens):
+    """One MoE bin shape's bf16 (x, w, group_sizes, live rows), made on the
+    card from seed 41: x zero past each bin's size, as the dispatch leaves
+    it, and w scaled for outputs of unit variance."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(41)
     gs = _moe_bins(torch, gen, E, C, tokens)
-    live = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
-    x = (torch.randn((E, C, d), generator=gen, device=dev) * live).to(torch.bfloat16)
+    live = torch.arange(C, device=dev)[None, :] < gs[:, None]
+    x = torch.randn((E, C, d), generator=gen, device=dev) * live[..., None]
+    x = x.to(torch.bfloat16)
     w = (torch.randn((E, d, f), generator=gen, device=dev) / d ** 0.5).to(torch.bfloat16)
-    out = grouped_matmul(x, w, gs)
+    return x, w, gs, live
+
+
+def _gmm_path(x, w) -> str:
+    """The path ``kernel.grouped_matmul`` takes for these inputs (its output
+    is a fresh allocation, always aligned)."""
+    from repro_torch.kernels.grouped_matmul import kernel
+
+    return kernel.path(x.dtype, x.shape[2], w.shape[2], x.data_ptr(), w.data_ptr())
+
+
+def _with_census(fn):
+    """``fn()``'s result and the grouped matmul's tile census of it: the
+    counting instances run only inside, never in a timed launch."""
+    from repro_torch.kernels.grouped_matmul import kernel
+
+    kernel.tile_census(True)
+    try:
+        out = fn()
+    finally:
+        counts = kernel.tile_census(False)
+    return out, counts
+
+
+def _expected_census(which, dtype, gs, C, f):
+    """What the census must read for one launch: ``ref.tile_census`` on the
+    tensor-core path, one SIMT call for bf16 on the SIMT path, else nothing."""
+    import torch
+    from repro_torch.kernels.grouped_matmul.ref import tile_census
+
+    none = {"zero_tiles": 0, "halves_computed": 0, "halves_skipped": 0}
+    if which == "tma":
+        return {**tile_census(gs.cpu(), C, f), "simt_calls": 0}
+    return {**none, "simt_calls": int(dtype == torch.bfloat16)}
+
+
+def _gmm_moe_case(torch, grouped_matmul, grouped_matmul_ref, flush, name, E, C, d, f,
+                  tokens):
+    """The bf16 entry against its plain version at one MoE shape, held to
+    ``GMM_BF16_TOLS`` and ``MOE_REL_L2`` beside two planted faults, with its
+    rows past the bins 0, a second launch bitwise equal to the first and its
+    tile census equal to ``ref.tile_census``; its times beside the bound."""
+    x, w, gs, live = _moe_gmm_inputs(torch, E, C, d, f, tokens)
+    which = _gmm_path(x, w)
+    out, census = _with_census(lambda: grouped_matmul(x, w, gs))
+    again = grouped_matmul(x, w, gs)
     ref = grouped_matmul_ref(x, w, gs)
     torch.cuda.synchronize()
+    want_census = _expected_census(which, torch.bfloat16, gs, C, f)
+
+    def rel_l2(a):
+        return ((a.float() - ref.float()).norm() / ref.float().norm()).item()
+
     err = (out.float() - ref.float()).abs().max().item()
-    rl2 = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
-    pad = ~live[..., 0]
+    rl2 = rel_l2(out)
+    # planted faults, read against the plain version as the kernel is
+    short = grouped_matmul_ref(x, w, (gs - 1).clamp(min=0))
+    hole = x.clone()
+    hole[..., d // 2:d // 2 + 64] = 0
+    planted = {"last live row dropped": rel_l2(short),
+               "a 64-deep k box left out": rel_l2(grouped_matmul_ref(hole, w, gs))}
+    del short, hole
+    pad = ~live
     pad_max = out.float().abs()[pad].max().item() if pad.any() else 0.0
     rtol, atol = GMM_BF16_TOLS
-    checks = {"within TOLS": torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol),
+    checks = {"tensor-core path": which == "tma",
+              "within TOLS": torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol),
               f"rel l2 <= {MOE_REL_L2}": rl2 <= MOE_REL_L2,
-              "rows past the bins 0": pad_max == 0.0}
+              "rows past the bins 0": pad_max == 0.0,
+              "a second launch bitwise equal": torch.equal(again, out),
+              "census equal to ref.tile_census": census == want_census,
+              "planted faults above the limit": all(v > MOE_REL_L2 for v in planted.values())}
     rows, occupied = int(gs.sum()), int((gs > 0).sum())
-    print(f"[kernel] moe {name} {E}x{C}x{d}x{f} bf16 ({tokens} tokens' top-8: "
-          f"{rows} live rows in {occupied} bins, most {int(gs.max())}): "
-          f"max_abs_err={err:.3e} rel_l2={rl2:.3e} {checks}")
+    print(f"[kernel] moe {name} {E}x{C}x{d}x{f} bf16 ({which} path; {tokens} tokens' "
+          f"top-8: {rows} live rows in {occupied} bins, most {int(gs.max())}): "
+          f"max_abs_err={err:.3e} rel_l2={rl2:.3e} planted {json.dumps(planted)} "
+          f"census {json.dumps(census)} {checks}")
     if not all(checks.values()):
         raise AssertionError(f"the bf16 entry disagrees with its plain version at "
                              f"the MoE {name} shape: {checks}")
-    del out, ref
+    del out, again, ref
     library = _bmm_yardstick(torch, x, w, gs)
     reps = 20
     ms = _time_ms(torch, lambda: grouped_matmul(x, w, gs), reps, flush)
@@ -574,7 +658,8 @@ def _gmm_moe_case(torch, grouped_matmul, grouped_matmul_ref, flush, name, E, C, 
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "rel_l2": rl2, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "live_rows": rows, "occupied_bins": occupied}
+            "live_rows": rows, "occupied_bins": occupied, "path": which,
+            "census": census, "planted": planted}
 
 
 def full_phase(torch, np):
@@ -1302,14 +1387,27 @@ def _profile_decode(torch, model, params, tok, cache, step_wall_ms):
     """Device time of PROFILE_STEPS more decode steps by kernel, from
     ``torch.profiler``, against the unprofiled wall time of a step."""
     from repro_torch.launch import serve
+
+    state = {"tok": tok, "cache": cache}
+
+    def step():
+        logits, state["cache"] = model.decode_step(params, {"tokens": state["tok"]},
+                                                   state["cache"])
+        state["tok"] = serve.greedy(logits)
+
+    return _device_profile(torch, step, PROFILE_STEPS, step_wall_ms)
+
+
+def _device_profile(torch, step, n, step_wall_ms):
+    """Device time per call of ``step`` by kernel, from ``torch.profiler``
+    over ``n`` calls, against the unprofiled wall time of one call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_STEPS):
-            logits, cache = model.decode_step(params, {"tokens": tok}, cache)
-            tok = serve.greedy(logits)
+        for _ in range(n):
+            step()
         torch.cuda.synchronize()
     kernels = []
     for e in prof.key_averages():
@@ -1318,20 +1416,22 @@ def _profile_decode(torch, model, params, tok, cache, step_wall_ms):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        kernels.append((us / 1e3 / PROFILE_STEPS, e.count / PROFILE_STEPS, e.key))
+        kernels.append((us / 1e3 / n, e.count / n, e.key))
     kernels.sort(reverse=True)
     device_ms = sum(ms for ms, _, _ in kernels)
-    paged = [(ms, n) for ms, n, key in kernels if "paged_attn_kernel" in key]
-    gmm = [(ms, n) for ms, n, key in kernels if "gmm_kernel" in key]
+    paged = [(ms, k) for ms, k, key in kernels if "paged_attn_kernel" in key]
+    gmm = [(ms, k) for ms, k, key in kernels
+           if "gmm_kernel" in key or "gmm_tc_kernel" in key]
     return {
         "device_ms_per_step": device_ms,
         "wall_ms_per_step": step_wall_ms,
         "device_busy_share": device_ms / step_wall_ms,
-        "kernel_launches_per_step": sum(n for _, n, _ in kernels),
+        "kernel_launches_per_step": sum(k for _, k, _ in kernels),
         "paged_kernel_ms_per_step": paged[0][0] if paged else 0.0,
         "paged_kernel_launches_per_step": paged[0][1] if paged else 0,
         "gmm_kernel_ms_per_step": sum(ms for ms, _ in gmm),
-        "gmm_kernel_launches_per_step": sum(n for _, n in gmm),
+        "gmm_kernel_launches_per_step": sum(k for _, k in gmm),
+        "gmm_share_of_device_time": sum(ms for ms, _ in gmm) / device_ms,
         "top_kernels_ms_per_step": [[key[:60], ms] for ms, _, key in kernels[:6]],
     }
 
@@ -1639,6 +1739,8 @@ def moe_phase(torch, np):
     p50 = sorted(step_ms)[MOE_STEPS // 2]
     profile = _profile_decode(torch, model, params, tok, cache, p50)
     del cache
+    prefill_profile = _device_profile(
+        torch, lambda: model.prefill(params, batch(S), new_cache()), 1, prefill_ms)
 
     # the first decode step again, on the copy of the post-prefill cache
     with _recording(transformer, [], captured, "decode", (0, n - 1)):
@@ -1674,6 +1776,7 @@ def moe_phase(torch, np):
     }))
     print("[moe] routes (kernel vs plain, relative l2): " + json.dumps(routes))
     print("[moe] decode profile: " + json.dumps(profile))
+    print("[moe] prefill profile: " + json.dumps(prefill_profile))
     checks = {
         f"prefill: {3 * n} grouped-matmul, {n} packed forward launches":
             prefill["gmm"] == 3 * n and prefill["packed"] == (n, 0),
@@ -1683,6 +1786,8 @@ def moe_phase(torch, np):
         f"profiled step: {3 * n} grouped-matmul and {n} paged launches":
             profile["gmm_kernel_launches_per_step"] == 3 * n
             and profile["paged_kernel_launches_per_step"] == n,
+        f"profiled prefill: {3 * n} grouped-matmul launches":
+            prefill_profile["gmm_kernel_launches_per_step"] == 3 * n,
         "all logits finite": bool(finite),
         "the first step again gives the same bits": bitwise,
         "First-Fit keeps the pool dense": watermark == used == need,

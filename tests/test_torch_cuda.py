@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.grouped_matmul import kernel as gmm_kernel
 from repro_torch.kernels.grouped_matmul import ops
-from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref, tile_census
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import kernel as paged_kernel
 from repro_torch.kernels.paged_attention.ref import (
@@ -558,8 +559,9 @@ def test_packed_launches_per_train_step(remat, fwd_per_layer):
 MOE_SHAPES = [(128, 128, 2048, 768, (0, 2)), (128, 640, 2048, 768, (448, 576)),
               (128, 640, 768, 2048, (448, 576))]
 # bf16 outputs one ulp apart everywhere would read at most 2^-7 in relative
-# l2; the kernel and the plain version differ only where their fp32 sums
-# round to neighbouring bf16 values
+# l2; the kernel (fp32 sums on the tensor cores, each k16 step summed in the
+# hardware's own order) and the plain version (fp32 sums in k order) differ
+# by fp32 rounding in the sums and by where those round to bf16
 MOE_REL_L2 = 1e-2
 
 
@@ -586,6 +588,133 @@ def test_gmm_bf16_at_the_moe_shapes(case):
     torch.testing.assert_close(out.float(), ref.float(), **TOLS[torch.bfloat16])
     assert _rel_l2(out, ref) <= MOE_REL_L2
     assert (out.float().abs()[~live[..., 0]] == 0).all()
+
+
+def _bf16_bins(E, C, d, f, gs, seed):
+    """bf16 x (zeros past each bin's size, as the dispatch leaves them) and
+    w of unit-variance outputs, made on the card from a seed."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gs = torch.as_tensor(gs, dtype=torch.int32, device=dev)
+    live = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
+    x = (torch.randn((E, C, d), generator=gen, device=dev) * live).to(torch.bfloat16)
+    w = (torch.randn((E, d, f), generator=gen, device=dev) / d ** 0.5).to(torch.bfloat16)
+    return x, w, gs, live[..., 0]
+
+
+def _path(x, w):
+    """The path the wrapper takes (its output is a fresh, aligned allocation)."""
+    return gmm_kernel.path(x.dtype, x.shape[2], w.shape[2], x.data_ptr(), w.data_ptr())
+
+
+def _census_of(fn):
+    """``fn()``'s result and the tile census of the launches it made."""
+    gmm_kernel.tile_census(True)
+    try:
+        out = fn()
+    finally:
+        counts = gmm_kernel.tile_census(False)
+    return out, counts
+
+
+def _ref_census(gs, C, f):
+    return {**tile_census(gs.cpu(), C, f), "simt_calls": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [63, 64, 65, 127, 128, 129])
+def test_gmm_tma_path_across_half_and_tile_edges(g):
+    """Bins whose size ends just before, at and after a 64-row half and a
+    128-row tile, beside an empty and a full bin: within TOLS and the MoE
+    limit, rows past each bin exactly 0, the census equal to the rule's."""
+    _need_card()
+    E, C, d, f = 4, 640, 256, 768
+    x, w, gs, live = _bf16_bins(E, C, d, f, [g, 0, C, C - g], seed=g)
+    assert _path(x, w) == "tma"
+    out, counts = _census_of(lambda: ops.gmm(x, w, gs))
+    ref = grouped_matmul_ref(x, w, gs)
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[torch.bfloat16])
+    assert _rel_l2(out, ref) <= MOE_REL_L2
+    assert (out[~live] == 0).all()
+    assert counts == _ref_census(gs, C, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,f", [(3, 16, 8, 8), (2, 40, 24, 40), (2, 64, 56, 72),
+                                     (1, 1, 8, 8)])
+def test_gmm_tma_path_under_one_box(E, C, d, f):
+    """Shapes smaller than one 64 x 64 box in C, d or f: TMA fills what lies
+    past the ends with zeros and leaves it out of the stores."""
+    _need_card()
+    x, w, gs, live = _bf16_bins(E, C, d, f, [C] + [C // 2] * (E - 1), seed=d + f)
+    assert _path(x, w) == "tma"
+    out, counts = _census_of(lambda: ops.gmm(x, w, gs))
+    ref = grouped_matmul_ref(x, w, gs)
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[torch.bfloat16])
+    assert (out[~live] == 0).all()
+    assert counts == _ref_census(gs, C, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_paths_on_card(dtype):
+    """Each of SHAPES takes the path ``kernel.path`` names: f32 and the bf16
+    shapes TMA cannot take count as SIMT calls, the others as tiles."""
+    _need_card()
+    rng = np.random.default_rng(13)
+    for E, C, d, f in SHAPES:
+        gs = torch.tensor(rng.integers(0, C + 1, size=E), dtype=torch.int32, device="cuda")
+        x = torch.tensor(rng.normal(size=(E, C, d)), device="cuda").to(dtype)
+        w = torch.tensor(rng.normal(size=(E, d, f)), device="cuda").to(dtype)
+        which = _path(x, w)
+        out, counts = _census_of(lambda: ops.gmm(x, w, gs))
+        torch.testing.assert_close(out.float(), grouped_matmul_ref(x, w, gs).float(),
+                                   **TOLS[dtype])
+        if which == "tma":
+            assert counts == _ref_census(gs, C, f), (E, C, d, f)
+        else:
+            tiles = {"zero_tiles": 0, "halves_computed": 0, "halves_skipped": 0}
+            assert counts == {**tiles, "simt_calls": int(dtype == torch.bfloat16)}
+    assert [s for s in SHAPES if gmm_kernel.path(torch.bfloat16, s[2], s[3], 0) == "tma"] \
+        == [(4, 256, 128, 256), (2, 128, 256, 128), (8, 128, 64, 64), (2, 300, 520, 136)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MOE_SHAPES, ids=lambda c: "x".join(map(str, c[:4])))
+def test_gmm_bf16_repeats_bitwise_at_the_moe_shapes(case):
+    """No split over k and no atomics: a launch gives the bits of the last."""
+    _need_card()
+    E, C, d, f, (lo, hi) = case
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    gs = torch.randint(lo, hi + 1, (E,), generator=gen, device="cuda", dtype=torch.int32)
+    x, w, gs, _ = _bf16_bins(E, C, d, f, gs, seed=44)
+    first = ops.gmm(x, w, gs)
+    for _ in range(2):
+        assert torch.equal(ops.gmm(x, w, gs), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MOE_SHAPES, ids=lambda c: "x".join(map(str, c[:4])))
+def test_gmm_bf16_census_and_planted_faults_at_the_moe_shapes(case):
+    """The kernel's census equals ``ref.tile_census``; two faults built from
+    the plain version read above the limit the kernel is held to: the last
+    live row of each bin dropped, and one 64-deep k box left out."""
+    _need_card()
+    E, C, d, f, (lo, hi) = case
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    gs = torch.randint(max(lo, 1), hi + 1, (E,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    x, w, gs, _ = _bf16_bins(E, C, d, f, gs, seed=48)
+    assert _path(x, w) == "tma"
+    out, counts = _census_of(lambda: ops.gmm(x, w, gs))
+    assert counts == _ref_census(gs, C, f)
+    short = grouped_matmul_ref(x, w, (gs - 1).clamp(min=0))
+    hole = x.clone()
+    hole[..., d // 2:d // 2 + 64] = 0
+    no_box = grouped_matmul_ref(hole, w, gs)
+    ref = grouped_matmul_ref(x, w, gs)
+    assert _rel_l2(out, ref) <= MOE_REL_L2
+    assert _rel_l2(short, out) > MOE_REL_L2 and _rel_l2(no_box, out) > MOE_REL_L2
 
 
 def _moe_layer_inputs(T, seed=37):

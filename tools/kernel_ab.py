@@ -12,12 +12,15 @@ parent commit unpacked by ``git archive`` into a directory that
 ``src/`` first on the path and builds its kernels there; the inputs, the
 timing and the yardsticks are this checkout's ``chip_smoke.py``'s, so both
 sides get the same ones: the paged kernel in bf16 at phase 6's decode shape
-(beside ``scaled_dot_product_attention`` on the gathered K/V) and the
-grouped matmul at phase 4's payload shape, f32 128 x 128 x 2048 x 2048
-(beside ``torch.bmm`` and the row mask), each with ``chip_smoke._time_ms``
-(median of CUDA events, L2 flushed).  The sides run other, this, this, other
-for each round.  Each run prints one JSON line (with each kernel's largest
-difference from its plain version); then a line of the medians per side.
+(beside ``scaled_dot_product_attention`` on the gathered K/V), the
+grouped matmul at phase 4's payload shape, f32 128 x 128 x 2048 x 2048,
+and its bf16 entry at phase 4's three MoE bins (``chip_smoke.MOE_GMM``:
+the decode bins and the prefill's gate/up and down), each grouped matmul
+beside ``torch.bmm`` and the row mask, each time by
+``chip_smoke._time_ms`` (median of CUDA events, L2 flushed).  The sides run
+other, this, this, other for each round.  Each run prints one JSON line (with each kernel's largest
+difference from its plain version, and the bf16 bins' relative l2); then a
+line of the medians per side.
 """
 
 from __future__ import annotations
@@ -76,6 +79,22 @@ def child(src: Path) -> None:
     result["gmm"] = {"ms": ms, "bmm_ms": bmm_ms, "bound_ms": bound_ms,
                      "of_bound": bound_ms / ms, "tflops": flops / ms / 1e9,
                      "max_abs_err": err}
+    del x, w, gs
+    torch.cuda.empty_cache()
+
+    for name, E, C, d, f, tokens in cs.MOE_GMM:
+        x, w, gs, _ = cs._moe_gmm_inputs(torch, E, C, d, f, tokens)
+        ref = grouped_matmul_ref(x, w, gs).float()
+        out = gk.grouped_matmul(x, w, gs).float()
+        rel_l2 = ((out - ref).norm() / ref.norm()).item()
+        ms = cs._time_ms(torch, lambda: gk.grouped_matmul(x, w, gs), REPS["gmm"], flush)
+        bmm_ms = cs._time_ms(torch, cs._bmm_yardstick(torch, x, w, gs), REPS["gmm"], flush)
+        bound_ms, _ = cs._bound(x, w, gs)
+        result[f"gmm bf16 moe {name}"] = {
+            "ms": ms, "bmm_ms": bmm_ms, "bound_ms": bound_ms, "of_bound": bound_ms / ms,
+            "max_abs_err": (out - ref).abs().max().item(), "rel_l2": rel_l2}
+        del x, w, gs, ref, out
+        torch.cuda.empty_cache()
     print(json.dumps({"src": str(src), "card": torch.cuda.get_device_name(0),
                       "kernels": result}))
 

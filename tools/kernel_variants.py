@@ -5,9 +5,10 @@ and input lengths, each timed at ``chip_smoke.py``'s shapes.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 tools/kernel_variants.py [gmm] [paged-plan] [paged-lengths] [paged-parts]
+    python3 tools/kernel_variants.py [gmm] [gmm-bf16] [paged-plan] [paged-lengths]
+        [paged-parts]
 
-With no argument it runs all four.  Each variant is the committed source
+With no argument it runs all five.  Each variant is the committed source
 with a few text edits (each edit must apply, or the tool stops), built
 with ``kernels/nvcc.py``'s flags under ``build/kernel_variants/`` and bound
 with ``ctypes``:
@@ -17,6 +18,11 @@ with ``ctypes``:
   each variant twice in turns, beside ``torch.bmm`` + row mask, with the SM
   clock and power ``nvidia-smi`` samples under the committed kernel.  A
   variant without loads computes garbage; its error is printed, not held.
+- ``gmm-bf16``: the bf16 entry's tensor-core path at phase 4's three MoE
+  bins (``chip_smoke.MOE_GMM``) under other tile widths, ring depths,
+  blocks an SM and wgmma waits, and with parts taken out (the x or w
+  copies, the wgmma, the stores), each twice in turns, with its relative
+  l2 from the plain version, beside ``torch.bmm`` + row mask.
 - ``paged-plan``: the paged kernel at phase 6's decode shape (bf16) under
   other split plans (``CHUNK_BYTES`` x ``SLOTS_PER_SM``), beside sdpa.
 - ``paged-lengths``: the committed paged kernel's device time from
@@ -57,6 +63,50 @@ GMM_VARIANTS = {
         ("constexpr int BN = 256;", "constexpr int BN = 128;"),
         ("constexpr int WARPS_N = 4;", "constexpr int WARPS_N = 2;"),
         ("__launch_bounds__(THREADS, 1)", "__launch_bounds__(THREADS, 2)")],
+}
+# the bf16 entry's tensor-core path (``gmm_tc_kernel``): tile width, ring
+# depth, blocks an SM holds, and one more wgmma group kept in flight
+_BF16_WAIT1 = [
+    ("""        wg_commit();
+        wg_wait<0>();
+        keep(acc);
+        if ((tid & 31) == 0) mbar_arrive(&empty[stage]);
+""", """        wg_commit();
+        wg_wait<1>();  // the previous stage's products are done: release it
+        if (t > 0 && (tid & 31) == 0) mbar_arrive(&empty[(stage + ST - 1) % ST]);
+"""),
+    ("    // The tile goes out through shared memory by TMA:",
+     "    wg_wait<0>();\n    keep(acc);\n    // The tile goes out through shared memory by TMA:")]
+GMM_BF16_VARIANTS = {
+    "committed": [],
+    # parts taken out (the result is then wrong; its error is printed, not held)
+    "no x copies": [
+        ("            for (int h = 0; h < halves; ++h)  // a half with no live row is not copied\n"
+         "                tma_load(a + h * BOX_BYTES, tx, &full[stage], k0, row0 + h * HALF, e);\n",
+         ""),
+        ("(uint32_t)((halves + boxes) * BOX_BYTES)", "(uint32_t)(boxes * BOX_BYTES)")],
+    "no w copies": [
+        ("            for (int j = 0; j < boxes; ++j)\n"
+         "                tma_load(b + j * BOX_BYTES, tw, &full[stage], col0 + 64 * j, k0, e);\n",
+         ""),
+        ("(uint32_t)((halves + boxes) * BOX_BYTES)", "(uint32_t)(halves * BOX_BYTES)")],
+    "no wgmma": [("            wgmma_tn<BN>(acc, sw128_desc(a + kk * 32, 0),\n"
+                  "                         sw128_desc(b + kk * 16 * 128, BOX_BYTES), 1);\n",
+                  "            ;\n")],
+    "no stores": [("            tma_store(sm + L::A + j * L::A_STAGE + c * BOX_BYTES, tout, "
+                   "col0 + 64 * j, r0, e);", "            ;")],
+    "256 wide, wait 1": _BF16_WAIT1,
+    "128 wide, 6 stages": [("constexpr int TMA_BN = 256;", "constexpr int TMA_BN = 128;"),
+                           ("constexpr int TMA_STAGES = 4;", "constexpr int TMA_STAGES = 6;")],
+    "128 wide, 3 stages, 2 blocks an SM": [
+        ("constexpr int TMA_BN = 256;", "constexpr int TMA_BN = 128;"),
+        ("constexpr int TMA_STAGES = 4;", "constexpr int TMA_STAGES = 3;"),
+        ("constexpr int TMA_MIN_BLOCKS = 1;", "constexpr int TMA_MIN_BLOCKS = 2;")],
+    "128 wide, 3 stages, 2 blocks an SM, wait 1": [
+        ("constexpr int TMA_BN = 256;", "constexpr int TMA_BN = 128;"),
+        ("constexpr int TMA_STAGES = 4;", "constexpr int TMA_STAGES = 3;"),
+        ("constexpr int TMA_MIN_BLOCKS = 1;", "constexpr int TMA_MIN_BLOCKS = 2;"),
+        *_BF16_WAIT1],
 }
 PAGED_PARTS = {
     "committed": [],
@@ -148,6 +198,49 @@ def gmm(torch, cs) -> None:
             "clocks.sm,power.draw", 3.0, lambda: loop(fn))}), flush=True)
 
 
+def gmm_bf16(torch, cs) -> None:
+    """The bf16 entry's tensor-core path under ``GMM_BF16_VARIANTS`` at the
+    three MoE bins of phase 4, each variant twice in turns."""
+    from repro_torch.kernels.grouped_matmul.kernel import SOURCE
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+
+    libs = build_all(SOURCE, GMM_BF16_VARIANTS)
+    flush = torch.empty(cs.L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for name, E, C, d, f, tokens in cs.MOE_GMM:
+        x, w, gs, _ = cs._moe_gmm_inputs(torch, E, C, d, f, tokens)
+        ref = grouped_matmul_ref(x, w, gs).float()
+        out = torch.empty((E, C, f), dtype=x.dtype, device="cuda")
+
+        def caller(path):
+            lib = ctypes.CDLL(str(path))
+            lib.gmm_bf16_tma.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
+            lib.gmm_bf16_tma.restype = ctypes.c_int
+
+            def call():
+                code = lib.gmm_bf16_tma(x.data_ptr(), w.data_ptr(), gs.data_ptr(),
+                                        out.data_ptr(), E, C, d, f,
+                                        torch.cuda.current_stream().cuda_stream)
+                if code != 0:
+                    raise RuntimeError(f"launch failed: {code}")
+            return call
+
+        calls = {v: caller(path) for v, path in libs.items()}
+        for v in list(calls) + list(calls)[::-1]:
+            out.fill_(float("nan"))
+            calls[v]()
+            torch.cuda.synchronize()
+            rel = ((out.float() - ref).norm() / ref.norm()).item()
+            ms = cs._time_ms(torch, calls[v], 20, flush)
+            print(json.dumps({"gmm bf16": name, "variant": v, "ms": ms, "rel_l2": rel}),
+                  flush=True)
+        print(json.dumps({"gmm bf16": name, "variant": "torch.bmm + row mask", "ms":
+                          cs._time_ms(torch, cs._bmm_yardstick(torch, x, w, gs), 20, flush)}),
+              flush=True)
+        del x, w, gs, ref, out
+        torch.cuda.empty_cache()
+
+
 def _paged_inputs(torch, np, cs):
     args, lens = cs._decode_inputs(torch, np, torch.bfloat16)
     return args, lens, torch.empty(cs.L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -228,8 +321,8 @@ def paged_parts(torch, np, cs) -> None:
 
 
 def main() -> None:
-    parts = {"gmm": gmm, "paged-plan": paged_plan, "paged-lengths": paged_lengths,
-             "paged-parts": paged_parts}
+    parts = {"gmm": gmm, "gmm-bf16": gmm_bf16, "paged-plan": paged_plan,
+             "paged-lengths": paged_lengths, "paged-parts": paged_parts}
     wanted = sys.argv[1:] or list(parts)
     if any(p not in parts for p in wanted):
         raise SystemExit(f"usage: kernel_variants.py [{' | '.join(parts)}] ...")
@@ -245,7 +338,7 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     for name in wanted:
-        if name == "gmm":
+        if name in ("gmm", "gmm-bf16"):
             parts[name](torch, cs)
         else:
             parts[name](torch, np, cs)
