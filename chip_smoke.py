@@ -99,7 +99,42 @@ Phases, in order; any failure raises and the script exits nonzero:
    hidden states of the first and last layers, at the prefill and at a
    decode step, beside two planted faults; two decode steps and then one
    prefill run under ``torch.profiler`` after the timed ones, each profile
-   giving the device time, the busy share and the grouped matmul's share.
+   giving the device time, the busy share and the grouped matmul's share;
+13. the other families at full width (``[family]`` lines), after every
+   earlier phase's tensors are freed: first each kernel at their new shapes
+   against its plain version (the packed forward and backward at
+   seamless-m4t-medium's encoder, 8 x 1024 over 16 heads of 64 not causal,
+   and its cross attention, 64 queries against 1024 keys not causal with
+   separate, padded segment ids, and at internvl2-1b's prefill, 8 x 320 over
+   14 query and 2 KV heads of 64; the paged kernel in bf16 at G = 1 and
+   G = 7, D = 64; the grouped matmul's bf16 entry at jamba-v0.1-52b's bins,
+   E = 16, top-2, C = 128 and 1280, d 4096 and 14336, gate/up and down),
+   each within phase 7's, 6's or 4's limits, a second launch bitwise equal,
+   the tile census equal to its rule, and its times beside the bound and
+   the library call; then four families served: xlstm-125m (12 layers;
+   ``run_local``, then 8 prompts of 1024 tokens and 32 decode steps; no
+   kernel launched), seamless-m4t-medium (12 + 12 layers; ``run_local``,
+   then 1024 encoder frames and 64-token prompts: 36 packed launches in the
+   prefill, 24 paged a step), internvl2-1b (24 layers; ``run_local`` must
+   raise the ValueError of 256 patch rows against 16-token prompts, as the
+   JAX package's does; then 256 patch rows + 64 tokens: 24 packed, 24 paged
+   a step) and jamba-v0.1-52b cut to 16 of its 32 layers (``run_local``,
+   then 8 x 1024 and 32 steps: 2 packed, 2 paged a step, 24 grouped-matmul
+   launches a forward; the first step repeated bitwise on a copy of the
+   cache; a profiled step and prefill with the Mamba blocks' and scan's
+   shares of device time and the MoE drop fractions).  Each family's first
+   decode step is read against the port's prefill of prompt + token beside
+   a witness (the embedding table moved by one bf16 ulp), and held within
+   ``FIRST_STEP_TOL`` in fp32 (xlstm) or with the attention projections
+   tempered to a fan-in init's scale (``_tempered``; jamba on 8 x 64
+   prompts within ``JAMBA_FIRST_STEP_TOL``), beside planted faults (the
+   recurrent states or the K/V pages lost) that must read above the
+   limit.  The kernels line's
+   ``by_shape`` gains ``seamless-m4t-medium encoder``, ``seamless-m4t-medium
+   cross``, ``internvl2-1b prefill`` (packed forward and backward),
+   ``seamless-m4t-medium G=1``, ``internvl2-1b G=7`` (paged) and ``jamba
+   decode gate/up bf16``, ``jamba decode down bf16``, ``jamba prefill
+   gate/up bf16``, ``jamba prefill down bf16`` (grouped matmul).
 
 Each phase prints its wall time; a failing phase raises with its name.
 The serving phases run before training, so that no ``torch.profiler``
@@ -550,13 +585,13 @@ def _moe_bins(torch, gen, E, C, tokens, top_k=8):
     return counts.clamp(max=C)
 
 
-def _moe_gmm_inputs(torch, E, C, d, f, tokens):
+def _moe_gmm_inputs(torch, E, C, d, f, tokens, top_k=8):
     """One MoE bin shape's bf16 (x, w, group_sizes, live rows), made on the
     card from seed 41: x zero past each bin's size, as the dispatch leaves
     it, and w scaled for outputs of unit variance."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(41)
-    gs = _moe_bins(torch, gen, E, C, tokens)
+    gs = _moe_bins(torch, gen, E, C, tokens, top_k)
     live = torch.arange(C, device=dev)[None, :] < gs[:, None]
     x = torch.randn((E, C, d), generator=gen, device=dev) * live[..., None]
     x = x.to(torch.bfloat16)
@@ -598,12 +633,12 @@ def _expected_census(which, dtype, gs, C, f):
 
 
 def _gmm_moe_case(torch, grouped_matmul, grouped_matmul_ref, flush, name, E, C, d, f,
-                  tokens):
+                  tokens, top_k=8):
     """The bf16 entry against its plain version at one MoE shape, held to
     ``GMM_BF16_TOLS`` and ``MOE_REL_L2`` beside two planted faults, with its
     rows past the bins 0, a second launch bitwise equal to the first and its
     tile census equal to ``ref.tile_census``; its times beside the bound."""
-    x, w, gs, live = _moe_gmm_inputs(torch, E, C, d, f, tokens)
+    x, w, gs, live = _moe_gmm_inputs(torch, E, C, d, f, tokens, top_k)
     which = _gmm_path(x, w)
     out, census = _with_census(lambda: grouped_matmul(x, w, gs))
     again = grouped_matmul(x, w, gs)
@@ -635,7 +670,7 @@ def _gmm_moe_case(torch, grouped_matmul, grouped_matmul_ref, flush, name, E, C, 
               "planted faults above the limit": all(v > MOE_REL_L2 for v in planted.values())}
     rows, occupied = int(gs.sum()), int((gs > 0).sum())
     print(f"[kernel] moe {name} {E}x{C}x{d}x{f} bf16 ({which} path; {tokens} tokens' "
-          f"top-8: {rows} live rows in {occupied} bins, most {int(gs.max())}): "
+          f"top-{top_k}: {rows} live rows in {occupied} bins, most {int(gs.max())}): "
           f"max_abs_err={err:.3e} rel_l2={rl2:.3e} planted {json.dumps(planted)} "
           f"census {json.dumps(census)} {checks}")
     if not all(checks.values()):
@@ -791,60 +826,67 @@ def _paged_bound(args, lens):
             nbytes, flops)
 
 
+def _paged_case(torch, np, key, shape, name, flush):
+    """The paged kernel against its plain version at one decode shape in
+    ``name``'s dtype; in bf16 (the serving dtype) its times beside the bound
+    and the library yardstick, returned as its record (else None)."""
+    from repro_torch.kernels.paged_attention.kernel import paged_decode_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    dtype = getattr(torch, name)
+    args, lens = _decode_inputs(torch, np, dtype, shape)
+    out = paged_decode_attention(*args)
+    ref = paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    rtol, atol = PAGED_TOLS[name]
+    err = (out.float() - ref.float()).abs().max().item()
+    zero_row = int(np.flatnonzero(lens == 0)[0])
+    again = paged_decode_attention(*args)  # back to back: the counters reset
+    checks = {
+        "within TOLS": torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol),
+        "finite": bool(torch.isfinite(out).all()),
+        "length-0 row is 0": bool((out[zero_row] == 0).all()),
+        "a second launch gives the same bits": torch.equal(again, out),
+    }
+    print(f"[paged] {key} {name}: lens={lens.tolist()} max_abs_err={err:.3e} "
+          f"(rtol={rtol}, atol={atol}) {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"paged kernel disagrees with its plain version "
+                             f"at {key} in {name}: {checks}")
+    if name != "bfloat16":
+        return None
+    # the serving dtype: times, bound and library yardstick
+    library = _sdpa_yardstick(torch, args, lens)
+    reps = 50
+    ms = _time_ms(torch, lambda: paged_decode_attention(*args), reps, flush)
+    plain_ms = _time_ms(torch, lambda: paged_attention_ref(*args), reps, flush)
+    library_ms = _time_ms(torch, library, reps, flush)
+    ms_again = _time_ms(torch, lambda: paged_decode_attention(*args), reps, flush)
+    bound_ms, bound_by, nbytes, flops = _paged_bound(args, lens)
+    print(f"[paged] {key} bf16 at the decode shape: kernel {ms:.4f} ms (again "
+          f"{ms_again:.4f}), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB of "
+          f"live K/V, q, out, table; {flops / 1e9:.3f} GFLOP); kernel at "
+          f"{bound_ms / ms:.3f} of the bound, {nbytes / ms / 1e6:.1f} GB/s, "
+          f"{ms / library_ms:.3f}x sdpa")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
 def paged_kernel_phase(torch, np):
     """Phase 6: the paged kernel against its plain version at the decode
     shapes of qwen3-8b (f32 and bf16) and qwen3-moe-30b-a3b (bf16); returns
     each bf16 shape's record for the kernels line."""
-    from repro_torch.kernels.paged_attention.kernel import paged_decode_attention
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-
     dev = torch.device("cuda")
     records = {}
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     for arch, shape, name in (("qwen3-8b", DECODE, "float32"),
                               ("qwen3-8b", DECODE, "bfloat16"),
                               (MOE_ARCH, MOE_DECODE, "bfloat16")):
-        dtype = getattr(torch, name)
         key = f"{arch} G={shape['H'] // shape['KVH']}"
-        args, lens = _decode_inputs(torch, np, dtype, shape)
-        out = paged_decode_attention(*args)
-        ref = paged_attention_ref(*args)
-        torch.cuda.synchronize()
-        rtol, atol = PAGED_TOLS[name]
-        err = (out.float() - ref.float()).abs().max().item()
-        zero_row = int(np.flatnonzero(lens == 0)[0])
-        again = paged_decode_attention(*args)  # back to back: the counters reset
-        checks = {
-            "within TOLS": torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol),
-            "finite": bool(torch.isfinite(out).all()),
-            "length-0 row is 0": bool((out[zero_row] == 0).all()),
-            "a second launch gives the same bits": torch.equal(again, out),
-        }
-        print(f"[paged] {key} {name}: lens={lens.tolist()} max_abs_err={err:.3e} "
-              f"(rtol={rtol}, atol={atol}) {checks}")
-        if not all(checks.values()):
-            raise AssertionError(f"paged kernel disagrees with its plain version "
-                                 f"at {key} in {name}: {checks}")
-        if name != "bfloat16":
-            continue
-        # the serving dtype: times, bound and library yardstick
-        library = _sdpa_yardstick(torch, args, lens)
-        reps = 50
-        ms = _time_ms(torch, lambda: paged_decode_attention(*args), reps, flush)
-        plain_ms = _time_ms(torch, lambda: paged_attention_ref(*args), reps, flush)
-        library_ms = _time_ms(torch, library, reps, flush)
-        ms_again = _time_ms(torch, lambda: paged_decode_attention(*args), reps, flush)
-        bound_ms, bound_by, nbytes, flops = _paged_bound(args, lens)
-        print(f"[paged] {key} bf16 at the decode shape: kernel {ms:.4f} ms (again "
-              f"{ms_again:.4f}), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB of "
-              f"live K/V, q, out, table; {flops / 1e9:.3f} GFLOP); kernel at "
-              f"{bound_ms / ms:.3f} of the bound, {nbytes / ms / 1e6:.1f} GB/s, "
-              f"{ms / library_ms:.3f}x sdpa")
-        records[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": library_ms}
-        del library
+        record = _paged_case(torch, np, key, shape, name, flush)
+        if record is not None:
+            records[key] = record
 
     del flush
     torch.cuda.empty_cache()
@@ -884,14 +926,15 @@ def _visible_pairs(np, seg):
     return pairs
 
 
-def _packed_bound(kind, pairs, B, S, H, KVH, D, dtype):
+def _packed_bound(kind, pairs, B, S, H, KVH, D, dtype, Skv=None):
     """(bound ms, what bounds it) for the forward (``fwd``: S = QK^T and
     P.V, 4 D flops per visible pair and head) or the backward (``bwd``: S
     recomputed, dP, dV, dK, dQ, 10 D), each input read once and each output
     written once."""
     item = 4 if dtype == "float32" else 2
-    q_el, kv_el = B * S * H * D, B * S * KVH * D
-    seg_b, lse_b = 2 * B * S * 4, B * H * S * 4
+    Skv = S if Skv is None else Skv  # S is the queries' length
+    q_el, kv_el = B * S * H * D, B * Skv * KVH * D
+    seg_b, lse_b = (B * S + B * Skv) * 4, B * H * S * 4
     if kind == "fwd":
         flops = 4.0 * D * H * pairs
         nbytes = (2 * q_el + 2 * kv_el) * item + seg_b + lse_b
@@ -911,13 +954,14 @@ def _fmt(readings) -> str:
     return "{" + ", ".join(f"{n} {w:.2e}/{t:.2e}" for n, (w, t) in readings.items()) + "}"
 
 
-def _plain_rows(torch, packed_ops, q, k, v, g, seg_q, seg_kv):
+def _plain_rows(torch, packed_ops, q, k, v, g, seg_q, seg_kv, causal=True):
     """The plain version's output and (dq, dk, dv), one row of the batch at
     a time (its scores are dense fp32)."""
     out, grads = torch.empty_like(q), [torch.empty_like(t) for t in (q, k, v)]
     for b in range(q.shape[0]):
         rs = [t[b:b + 1].clone().requires_grad_(True) for t in (q, k, v)]
-        ref = packed_ops.packed_attention_plain(*rs, seg_q[b:b + 1], seg_kv[b:b + 1])
+        ref = packed_ops.packed_attention_plain(*rs, seg_q[b:b + 1], seg_kv[b:b + 1],
+                                                causal=causal)
         ref.backward(g[b:b + 1])
         out[b:b + 1] = ref.detach()
         for i in range(3):
@@ -950,10 +994,11 @@ def _planted_faults(torch, packed_ops, rel_l2, q, k, v, g, seg, ref_out, ref_gra
     return {"key tile hidden": tile, "delta = 0": {"dq": rel_l2(dq0, ref_grads[0])}}
 
 
-def _kernel_run(packed_ops, q, k, v, g, seg):
+def _kernel_run(packed_ops, q, k, v, g, seg, seg_kv=None, causal=True):
     """The kernels' output and (dq, dk, dv) through ``ops.packed_attention``."""
     ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    out = packed_ops.packed_attention(*ts, seg, seg)
+    out = packed_ops.packed_attention(*ts, seg, seg if seg_kv is None else seg_kv,
+                                      causal=causal)
     out.backward(g)
     return out.detach(), [t.grad for t in ts]
 
@@ -1398,9 +1443,11 @@ def _profile_decode(torch, model, params, tok, cache, step_wall_ms):
     return _device_profile(torch, step, PROFILE_STEPS, step_wall_ms)
 
 
-def _device_profile(torch, step, n, step_wall_ms):
+def _device_profile(torch, step, n, step_wall_ms, ranges=()):
     """Device time per call of ``step`` by kernel, from ``torch.profiler``
-    over ``n`` calls, against the unprofiled wall time of one call."""
+    over ``n`` calls, against the unprofiled wall time of one call; and for
+    each name of ``ranges`` (a ``record_function`` range inside ``step``)
+    the device time of the kernels launched inside it, and its share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1409,8 +1456,13 @@ def _device_profile(torch, step, n, step_wall_ms):
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    kernels = []
+    kernels, inside = [], {}
     for e in prof.key_averages():
+        if e.key in ranges:
+            if e.device_type != DeviceType.CUDA:  # the range's kernels' time
+                us = getattr(e, "device_time_total", None)
+                inside[e.key] = (us if us is not None else e.cuda_time_total) / 1e3 / n
+            continue
         if e.device_type != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
@@ -1422,7 +1474,13 @@ def _device_profile(torch, step, n, step_wall_ms):
     paged = [(ms, k) for ms, k, key in kernels if "paged_attn_kernel" in key]
     gmm = [(ms, k) for ms, k, key in kernels
            if "gmm_kernel" in key or "gmm_tc_kernel" in key]
+    extra = {}
+    for name in ranges:
+        ms = inside.get(name, 0.0)
+        extra[f"{name} ms per step"] = ms
+        extra[f"{name} share of device time"] = ms / device_ms
     return {
+        **extra,
         "device_ms_per_step": device_ms,
         "wall_ms_per_step": step_wall_ms,
         "device_busy_share": device_ms / step_wall_ms,
@@ -1574,15 +1632,6 @@ def _recording(transformer, drops, captured=None, tag="", layers=()):
         return out, aux
 
     return _patched(transformer, "moe_layer", moe_layer)
-
-
-def _copy_cache(torch, cache):
-    """A copy of a paged cache that the copied-from cache cannot change."""
-    import copy
-
-    return {"k": cache["k"].clone(), "v": cache["v"].clone(),
-            "alloc": copy.deepcopy(cache["alloc"]), "seqs": list(cache["seqs"]),
-            "len": cache["len"].clone()}
 
 
 def _moe_routes(torch, cfg, params, captured):
@@ -1812,6 +1861,644 @@ def moe_phase(torch, np):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the hybrid, recurrent, encoder-decoder and vision families
+# ---------------------------------------------------------------------------
+
+# The packed kernels at the new families' shapes: (name, B, Sq, Skv, H, KVH,
+# D, causal).  seamless-m4t-medium's encoder (1024 frames, 16 heads of 64,
+# not causal) and its decoder's cross attention (64 queries against the
+# 1024 frames; the frame and prompt segment ids each pad some rows), and
+# internvl2-1b's prefill (256 patch rows + 64 tokens, 14 query over 2 KV
+# heads of 64: G = 7).  The limits are phase 7's.
+FAMILY_PACKED = (("seamless-m4t-medium encoder", 8, 1024, 1024, 16, 16, 64, False),
+                 ("seamless-m4t-medium cross", 8, 64, 1024, 16, 16, 64, False),
+                 ("internvl2-1b prefill", 8, 320, 320, 14, 2, 64, True))
+# the paged kernel at their decode shapes (phase 6's inputs and limits)
+FAMILY_PAGED = (("seamless-m4t-medium G=1", dict(DECODE, H=16, KVH=16, D=64)),
+                ("internvl2-1b G=7", dict(DECODE, H=14, KVH=2, D=64)))
+# jamba-v0.1-52b's MoE bins (16 experts, top-2, capacity factor 1.25): a
+# decode step of 8 tokens (C = 128) and an 8 x 1024 prefill (C = 1280), d
+# 4096 and expert d_ff 14336 (phase 4's inputs and limits)
+JAMBA_GMM = (("decode gate/up", 16, 128, 4096, 14336, 8),
+             ("decode down", 16, 128, 14336, 4096, 8),
+             ("prefill gate/up", 16, 1280, 4096, 14336, 8 * 1024),
+             ("prefill down", 16, 1280, 14336, 4096, 8 * 1024))
+FAMILY_STEPS = 32
+FAMILY_PROMPT = 1024   # the recurrent families' equal-length prompts
+SEAMLESS_FRAMES, SEAMLESS_PROMPT = 1024, 64
+INTERNVL_PROMPT = 64   # text tokens after the 256 patch rows
+# jamba-v0.1-52b (configs/jamba_v0_1_52b.py; arXiv:2403.19887, hf
+# ai21labs/Jamba-v0.1: 32 layers of the period MMMMAMMM, d 4096, 32 query
+# over 8 KV heads of 128, Mamba d_state 16 / d_conv 4 / expand 2, MoE 16
+# experts top-2 of d_ff 14336 on every other layer) is 51.6 B parameters,
+# 96 GiB in bf16: more than one card holds.  Its depth is cut to two
+# periods, 16 of 32 layers (26.05 B parameters, 48.5 GiB), at full width.
+JAMBA_LAYERS = 16
+# jamba's first step is held on prompts of 64 tokens: an 8 x 64 prefill and
+# its 8 x 65 reference both get MoE bins of 128 rows (an 8 x 1024 prefill
+# gets 1280 and its 8 x 1025 reference 1408, so their drops differ and the
+# two caches with them)
+JAMBA_HELD_PROMPT = 64
+# jamba's first step against its prefill of prompt + token, both bf16 with
+# the attention projections tempered (``_tempered``): its decode step
+# rounds dt x to bf16 before the scan where its prefill keeps fp32 (the
+# JAX package's ``mamba_decode_step`` and ``mamba_forward``), so each of
+# its 14 Mamba layers parts the two paths anew.  Measured on an H100 (the
+# hidden state of the last token, relative l2, layer by layer): 0.50% after
+# layer 0, rising steadily to 2.4% at layer 14 and 3.4% after the last
+# (one token's experts flipped by a near tie there); max |dlogit| 5.9% of
+# max |logit|.  Twice FIRST_STEP_TOL; a lost state or lost K/V reads far
+# above it (the planted faults).
+JAMBA_FIRST_STEP_TOL = 0.1
+
+
+def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, causal,
+                        flush):
+    """The packed kernels, forward and backward, against the autograd of
+    their plain version at one of the new shapes: TOLS and relative l2 as in
+    phase 7, a second launch bitwise equal, the tile census equal to
+    ``ref.tile_schedule``'s; times beside the bound and sdpa."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.packed_attention.ref import census_rule, rel_l2, visible_mask
+
+    dev = torch.device("cuda")
+    seg_q_np = np.ones((B, Sq), np.int32)
+    seg_kv_np = np.ones((B, Skv), np.int32)
+    if Sq != Skv:  # separate segment ids, each with padded tails
+        seg_kv_np[1, Skv - 200:] = 0
+        seg_kv_np[5, Skv - 37:] = 0
+        seg_q_np[2, Sq - 9:] = 0
+    seg_q, seg_kv = torch.tensor(seg_q_np, device=dev), torch.tensor(seg_kv_np, device=dev)
+    mask = visible_mask(seg_q, seg_kv, causal=causal)
+    pairs = int(mask.sum())
+    gen = torch.Generator(device=dev).manual_seed(47)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                  for shape in ((B, Sq, H, D), (B, Skv, KVH, D), (B, Skv, KVH, D),
+                                (B, Sq, H, D)))
+    out, grads = _kernel_run(packed_ops, q, k, v, g, seg_q, seg_kv, causal)
+    out2, grads2 = _kernel_run(packed_ops, q, k, v, g, seg_q, seg_kv, causal)
+    same = torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    del out2, grads2
+    ref_out, ref_grads = _plain_rows(torch, packed_ops, q, k, v, g, seg_q, seg_kv, causal)
+    err_out = (out.float() - ref_out.float()).abs().max().item()
+    err_g = [(a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref_grads)]
+    readings = {n: rel_l2(a, b) for n, a, b in zip(
+        ("out", "dq", "dk", "dv"), (out, *grads), (ref_out, *ref_grads))}
+    pk.tile_census(on=True)
+    o, lse = pk.packed_flash_attention(q, k, v, seg_q, seg_kv, causal=causal)
+    pk.packed_flash_attention_bwd(q, k, v, seg_q, seg_kv, o, g, lse, causal=causal)
+    census = pk.tile_census(on=False)
+    rule = census_rule(seg_q, seg_kv, H, KVH, causal=causal)
+    rtol, atol = PACKED_TOLS
+    pad_q = seg_q == 0
+    checks = {
+        "out within TOLS": torch.allclose(out.float(), ref_out.float(), rtol=rtol, atol=atol),
+        f"out, dq, dk, dv within rel l2 {PACKED_REL_L2}": _within(readings, PACKED_REL_L2),
+        "finite": all(bool(torch.isfinite(t).all()) for t in (out, *grads)),
+        "padded queries: output and dq 0": bool((out[pad_q] == 0).all())
+        and bool((grads[0][pad_q] == 0).all()),
+        "padded keys: dk and dv 0": all(bool((t[seg_kv == 0] == 0).all())
+                                        for t in grads[1:]),
+        "a second forward and backward bitwise equal": same,
+        "tile census equal to ref.tile_schedule's": census == rule,
+    }
+    print(f"[family] packed {name}: B={B} Sq={Sq} Skv={Skv} H={H} KVH={KVH} D={D} "
+          f"causal={causal}; visible pairs {pairs}; max_abs_err out {err_out:.3e}, "
+          f"dq/dk/dv {[f'{e:.3e}' for e in err_g]}; rel l2 (tensor/worst tile) "
+          f"{_fmt(readings)}; census {json.dumps(census)} {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"packed kernels disagree with their plain version at "
+                             f"{name}: {checks}")
+    del out, grads, ref_out, ref_grads
+    torch.cuda.empty_cache()
+    reps = 5
+    fwd_ms = _time_ms(torch, lambda: pk.packed_flash_attention(
+        q, k, v, seg_q, seg_kv, causal=causal), reps, flush)
+    bwd_ms = _time_ms(torch, lambda: pk.packed_flash_attention_bwd(
+        q, k, v, seg_q, seg_kv, o, g, lse, causal=causal), reps, flush)
+    ps = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    with torch.no_grad():
+        plain_fwd_ms = _time_ms(torch, lambda: packed_ops.packed_attention_plain(
+            *ps, seg_q, seg_kv, causal=causal), 3, flush)
+    ref = packed_ops.packed_attention_plain(*ps, seg_q, seg_kv, causal=causal)
+    plain_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
+        ref, ps, g, retain_graph=True), 3, flush)
+    del ref, ps
+    hs = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+    gt = g.transpose(1, 2).contiguous()
+    # sdpa with the same visibility: causal by its flag, padding by a mask
+    attn_mask = None if bool(mask.all()) or causal else mask[:, None]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*hs, attn_mask=attn_mask, is_causal=causal,
+                                              enable_gqa=H != KVH)
+
+    with torch.no_grad():
+        sdpa_fwd_ms = _time_ms(torch, sdpa, reps, flush)
+    sd = sdpa()
+    sdpa_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
+        sd, hs, gt, retain_graph=True), reps, flush)
+    del sd, hs, gt, o, lse
+    fb, fb_by = _packed_bound("fwd", pairs, B, Sq, H, KVH, D, "bfloat16", Skv)
+    bb, bb_by = _packed_bound("bwd", pairs, B, Sq, H, KVH, D, "bfloat16", Skv)
+    print(f"[family] packed {name}: forward {fwd_ms:.4f} ms, plain {plain_fwd_ms:.4f} ms, "
+          f"sdpa {sdpa_fwd_ms:.4f} ms, bound {fb:.4f} ms ({fb_by}); backward "
+          f"{bwd_ms:.4f} ms, plain {plain_bwd_ms:.4f} ms, sdpa {sdpa_bwd_ms:.4f} ms, "
+          f"bound {bb:.4f} ms ({bb_by})")
+    del q, k, v, g
+    torch.cuda.empty_cache()
+    return ({"max_abs_err": err_out, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+             "bound_ms": fb, "bound_by": fb_by, "library_ms": sdpa_fwd_ms,
+             "rel_l2": readings["out"], "census": census["forward"]},
+            {"max_abs_err": max(err_g), "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+             "bound_ms": bb, "bound_by": bb_by, "library_ms": sdpa_bwd_ms,
+             "census": census["dk/dv"]})
+
+
+def family_kernels(torch, np):
+    """Phase 13, part 1: each kernel at the new families' shapes against its
+    plain version; returns the by_shape records (packed forward, packed
+    backward, paged, grouped matmul)."""
+    from repro_torch.kernels.grouped_matmul.kernel import grouped_matmul
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+    from repro_torch.kernels.packed_attention import kernel as pk
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+
+    dev = torch.device("cuda")
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    fwd, bwd, paged, gmm = {}, {}, {}, {}
+    for name, B, Sq, Skv, H, KVH, D, causal in FAMILY_PACKED:
+        fwd[name], bwd[name] = _family_packed_case(
+            torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, causal, flush)
+    for key, shape in FAMILY_PAGED:
+        paged[key] = _paged_case(torch, np, key, shape, "bfloat16", flush)
+    for name, E, C, d, f, tokens in JAMBA_GMM:
+        gmm[f"jamba {name} bf16"] = _gmm_moe_case(
+            torch, grouped_matmul, grouped_matmul_ref, flush, f"jamba {name}", E, C, d, f,
+            tokens, top_k=2)
+    del flush
+    torch.cuda.empty_cache()
+    return fwd, bwd, paged, gmm
+
+
+def _counts():
+    """The three kernels' launch counters: (gmm, paged, packed forward,
+    packed backward)."""
+    from repro_torch.kernels.grouped_matmul import ops as gmm_ops
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+
+    return {"gmm": gmm_ops.launches, "paged": paged_ops.launches,
+            "packed": packed_ops.launches_fwd, "packed_bwd": packed_ops.launches_bwd}
+
+
+def _zero_counts():
+    from repro_torch.kernels.grouped_matmul import ops as gmm_ops
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+
+    gmm_ops.launches = paged_ops.launches = 0
+    packed_ops.launches_fwd = packed_ops.launches_bwd = 0
+
+
+def _family_run_local(torch, tag, argv, want):
+    """``launch.serve.run_local`` on ``argv`` with every launch counter set
+    to 0 just before; its launches held to ``want``."""
+    from repro_torch.launch import serve
+
+    _zero_counts()
+    stats = serve.run_local(serve.parse_args(argv))
+    got = _counts()
+    gen = stats["gen_tokens"]
+    print(f"[family] {tag} run_local " + json.dumps({
+        "launches": got, "prefill_s": stats["prefill_s"],
+        "decode_ms_per_step": stats["decode_s"] / gen * 1e3,
+        "tokens_per_s": stats["sequences"] * gen / stats["seconds"],
+        "pages_used": stats["pages_used"]}))
+    if got != want:
+        raise AssertionError(f"{tag} run_local launches {got}, want {want}")
+    if not stats["logits_finite"] or stats["tokens"].shape != (8, 1 + gen):
+        raise AssertionError(f"{tag} run_local: bad output: finite="
+                             f"{stats['logits_finite']}, tokens {tuple(stats['tokens'].shape)}")
+    return got
+
+
+def _copy_cache(torch, cache):
+    """A copy of a paged cache (pools, allocators, recurrent states) that the
+    copied-from cache cannot change."""
+    import copy
+
+    def one(v):
+        if torch.is_tensor(v):
+            return v.clone()
+        if isinstance(v, dict):
+            return {k: one(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return [one(x) for x in v]
+        return copy.deepcopy(v)
+
+    return one(cache)
+
+
+def _gap(got, want):
+    """max |got - want| / max |want| and the relative l2 of two logit sets."""
+    return {"max_abs_dlogit_over_max_logit": ((got - want).abs().max()
+                                              / want.abs().max()).item(),
+            "rel_l2": ((got - want).norm() / want.norm()).item()}
+
+
+def _ulp_moved(torch, table):
+    """``table`` with every entry moved by about one ulp of its dtype, up or
+    down at random (seed 0)."""
+    gen = torch.Generator(device=table.device).manual_seed(0)
+    sign = torch.randint(0, 2, table.shape, generator=gen, device=table.device) * 2 - 1
+    eps = torch.finfo(table.dtype).eps
+    return (table.float() * (1 + eps * sign)).to(table.dtype)
+
+
+def _first_step(model, params, batch, new_cache, tok0, faults):
+    """The first decode step after the prefill of ``batch(None)`` with the
+    token ``tok0``, the prefill of ``batch(tok0)``, and the same step again
+    with each planted fault done to the post-prefill cache: (step logits,
+    prefill logits, {fault: step logits})."""
+
+    def step(fault):
+        _, cache = model.prefill(params, batch(None), new_cache())
+        if fault is not None:
+            fault(cache)
+        return model.decode_step(params, {"tokens": tok0}, cache)[0]
+
+    ref, _ = model.prefill(params, batch(tok0), new_cache())
+    return step(None), ref, {name: step(f) for name, f in faults.items()}
+
+
+def _states_lost(cache):
+    """Planted fault: every recurrent state zeroed (a lost hand-off)."""
+    for state in cache["state"]:
+        for t in state.values():
+            t.zero_()
+
+
+def _kv_lost(cache):
+    """Planted fault: the prompt's K/V pages zeroed."""
+    cache["k"].zero_()
+    cache["v"].zero_()
+
+
+@contextlib.contextmanager
+def _in_fp32(params, new_cache32):
+    """An fp32 copy of the served weights, and a cache factory in fp32."""
+    from repro_torch.models.params import tree_map
+
+    yield tree_map(lambda t: t.float(), params), new_cache32
+
+
+@contextlib.contextmanager
+def _tempered(params, new_cache):
+    """The served weights with every attention block's projections brought
+    to the scale of a fan-in init in place (exactly; undone on exit).
+
+    The JAX package's init rule takes a leaf's fan-in from ``shape[-2]``
+    (ROADMAP queue 3): a (d, H, hd) projection is drawn with std
+    1/sqrt(H), not 1/sqrt(d), and wo (H, hd, d) with 1/sqrt(hd), not
+    1/sqrt(H hd).  At full width that makes wq and wk 8-11x too large (the
+    scores 64-128x, the softmax saturated) and wv and wo 2-22x (attention's
+    output outweighs the residual stream it is added to), so that the
+    random-weight models are chaotic in bf16: any two roundings of the same
+    sums end far apart (``one_ulp_embed_witness``).  Each of wq, wk, wv, wo
+    is scaled by the power of two nearest sqrt(its JAX fan-in / its input
+    width), exact in bf16; the first step then reads the serving path
+    rather than the init's chaos."""
+    import math
+
+    import torch
+
+    def attn_blocks(tree):
+        if isinstance(tree, dict):
+            if "wq" in tree and "wo" in tree:
+                yield tree
+            else:
+                for v in tree.values():
+                    yield from attn_blocks(v)
+
+    scaled = []
+    for blk in attn_blocks(params):
+        for name in ("wq", "wk", "wv", "wo"):
+            t = blk[name]  # stacked: (n, d, heads, hd) or (n, H, hd, d)
+            fan_in = t.shape[-3] if name != "wo" else t.shape[-3] * t.shape[-2]
+            scaled.append((t, 2.0 ** round(0.5 * math.log2(t.shape[-2] / fan_in))))
+    with torch.no_grad():
+        for t, f in scaled:
+            t.mul_(f)
+    try:
+        yield params, new_cache
+    finally:
+        with torch.no_grad():
+            for t, f in scaled:
+                t.mul_(1.0 / f)
+
+
+def _family_serve(torch, tag, model, params, batch, new_cache, steps, want_prefill,
+                  want_step, held, repeat=False, profile_ranges=None):
+    """Prefill ``batch(None)``, then ``steps`` greedy decode steps; the
+    first step's logits against the port's own prefill of prompt + that
+    step's token (``batch(token)``), read on the served weights and held
+    within ``held["tol"]`` on those of ``held["weights"]`` (a context
+    manager factory taking the params and giving (params, cache factory)),
+    on ``held["batch"]``'s prompts if given, beside ``held["faults"]``
+    (planted in the post-prefill cache; each must read above the limit);
+    launch counts held to ``want_prefill`` and ``want_step`` a step.  With ``repeat`` the first step is run again
+    on a copy of the post-prefill cache and must give the same bits; with
+    ``profile_ranges`` one decode step and one prefill run under
+    ``torch.profiler``, with those ranges' shares.  Returns the readings."""
+    from repro_torch.launch import serve
+
+    torch.cuda.synchronize()
+    cache = new_cache()
+    _zero_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch(None), cache)
+    tok = serve.greedy(logits)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill = _counts()
+    finite = torch.isfinite(logits).all()
+    snapshot = _copy_cache(torch, cache) if repeat else None
+    _zero_counts()
+    step_ms = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, {"tokens": tok}, cache)
+        if i == 0:
+            first, tok0 = logits.clone(), tok.clone()
+        finite &= torch.isfinite(logits).all()
+        tok = serve.greedy(logits)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    decode = _counts()
+    p50 = sorted(step_ms)[steps // 2]
+    B = tok.shape[0]
+    out = {"prefill_ms": prefill_ms, "decode_ms_per_step": sum(step_ms) / steps,
+           "decode_ms_p50": p50, "tokens_per_s": B * steps / (sum(step_ms) / 1e3),
+           "prefill_launches": prefill, "decode_launches": decode}
+    if profile_ranges is not None:
+        state = {"tok": tok, "cache": cache}
+
+        def step():
+            lg, state["cache"] = model.decode_step(params, {"tokens": state["tok"]},
+                                                   state["cache"])
+            state["tok"] = serve.greedy(lg)
+
+        out["decode_profile"] = _device_profile(torch, step, 1, p50, profile_ranges)
+        del state
+    del cache
+    if profile_ranges is not None:
+        out["prefill_profile"] = _device_profile(
+            torch, lambda: model.prefill(params, batch(None), new_cache()), 1, prefill_ms,
+            profile_ranges)
+    if repeat:
+        again, snapshot = model.decode_step(params, {"tokens": tok0}, snapshot)
+        out["first_step_again_bitwise_equal"] = torch.equal(again, first)
+        del snapshot, again
+    # the first step against the port's prefill of prompt + token: read on
+    # the served weights, and beside it the same prefill with the embedding
+    # table moved by about one bf16 ulp (how far rounding alone moves these
+    # logits); held on the weights of ``held``
+    ref, _ = model.prefill(params, batch(tok0), new_cache())
+    noisy, _ = model.prefill(dict(params, embed=_ulp_moved(torch, params["embed"])),
+                             batch(tok0), new_cache())
+    out.update({"first_step_vs_prefill": _gap(first, ref),
+                "one_ulp_embed_witness": _gap(noisy, ref)})
+    del ref, first, noisy
+    held_batch, tol = held.get("batch"), held["tol"]
+    with held["weights"](params) as (hparams, hcache):
+        if held_batch is None:
+            held_batch, held_tok = batch, tok0
+        else:  # its own prompts: the first step's token greedy from their prefill
+            held_tok = serve.greedy(model.prefill(hparams, held_batch(None), hcache())[0])
+        got, want, planted = _first_step(model, hparams, held_batch, hcache, held_tok,
+                                         held["faults"])
+        out["held"] = dict(_gap(got, want), weights=held["label"], tol=tol,
+                           planted={n: _gap(p, want) for n, p in planted.items()})
+        del got, want, planted
+    out["peak_device_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    reading = "max_abs_dlogit_over_max_logit"
+    checks = {
+        f"prefill launches {want_prefill}": prefill == want_prefill,
+        f"decode launches {steps} x {want_step}": decode == {
+            k: steps * n for k, n in want_step.items()},
+        "all logits finite": bool(finite),
+        f"first step within {tol} of max |logit| ({held['label']})":
+            out["held"][reading] <= tol,
+        f"each planted fault reads above {tol}": all(
+            g[reading] > tol for g in out["held"]["planted"].values()),
+    }
+    if repeat:
+        checks["the first step again gives the same bits"] = out[
+            "first_step_again_bitwise_equal"]
+    print(f"[family] {tag} " + json.dumps(out))
+    print(f"[family] {tag} checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} serving: {checks}")
+    return out
+
+
+def _token_batch(torch, np, vocab, B, S, seed, extra=None):
+    """``batch(tok)``: B equal-length prompts of S random tokens (one
+    document a row), with ``tok`` (B, 1) appended when given; ``extra``
+    entries are added as they are."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    prompts = torch.tensor(rng.integers(1, vocab, size=(B, S)).astype(np.int32), device=dev)
+
+    def batch(tok):
+        t = prompts if tok is None else torch.cat([prompts, tok], dim=1)
+        n = t.shape[1]
+        return {"tokens": t,
+                "segment_ids": torch.ones((B, n), dtype=torch.int32, device=dev),
+                "positions": torch.arange(n, dtype=torch.int32, device=dev).expand(B, n),
+                **(extra or {})}
+
+    return batch
+
+
+def families_phase(torch, np):
+    """Phase 13: xlstm-125m, seamless-m4t-medium, internvl2-1b and
+    jamba-v0.1-52b (16 of 32 layers) served at full width; returns each
+    path's launches of the three kernels."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, ssm, transformer
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[family] {torch.cuda.memory_allocated() / 2**30:.2f} GiB held before the phase")
+    launches, readings = {}, {}
+    pages = ["--requests", "8", "--gen-tokens", "16", "--pages", "1024"]
+
+    def params_of(model):
+        t0 = time.perf_counter()
+        params = serve.make_params(model, 0, dev)
+        torch.cuda.synchronize()
+        print(f"[family] {model.cfg.name}: weights drawn on the card in "
+              f"{time.perf_counter() - t0:.2f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+        return params
+
+    def cache_of(model, cfg, dtype=serve.DTYPE):
+        return lambda: model.init_paged_cache(serve.paged_layout(cfg, 1024), dtype, dev)
+
+    def noise(shape, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02).float()
+
+    none = {"gmm": 0, "paged": 0, "packed": 0, "packed_bwd": 0}
+
+    # xlstm-125m: full width and depth; no TPU kernel on its path
+    arch = "xlstm-125m"
+    cfg = get_config(arch)
+    launches[f"{arch} run_local"] = _family_run_local(
+        torch, arch, ["--backend", "local", "--arch", arch] + pages, none)
+    model = build_model(cfg)
+    params = params_of(model)
+    torch.cuda.reset_peak_memory_stats()
+    readings[arch] = _family_serve(
+        torch, arch, model, params,
+        _token_batch(torch, np, cfg.vocab_size, 8, FAMILY_PROMPT, 31),
+        cache_of(model, cfg), FAMILY_STEPS, none, none,
+        held={"label": "fp32", "tol": FIRST_STEP_TOL, "faults": {"states lost": _states_lost},
+              "weights": lambda p: _in_fp32(p, cache_of(model, cfg, torch.float32))})
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # seamless-m4t-medium: 12 encoder + 12 decoder layers
+    arch = "seamless-m4t-medium"
+    cfg = get_config(arch)
+    L = cfg.n_layers
+    launches[f"{arch} run_local"] = _family_run_local(
+        torch, arch, ["--backend", "local", "--arch", arch] + pages,
+        dict(none, packed=cfg.n_encoder_layers + 2 * L, paged=2 * L * 16))
+    model = build_model(cfg)
+    params = params_of(model)
+    torch.cuda.reset_peak_memory_stats()
+    enc = {"enc_embeds": noise((8, SEAMLESS_FRAMES, cfg.d_model), 32),
+           "enc_segment_ids": torch.ones((8, SEAMLESS_FRAMES), dtype=torch.int32,
+                                         device=dev)}
+    readings[arch] = _family_serve(
+        torch, arch, model, params,
+        _token_batch(torch, np, cfg.vocab_size, 8, SEAMLESS_PROMPT, 33, enc),
+        cache_of(model, cfg), FAMILY_STEPS,
+        dict(none, packed=cfg.n_encoder_layers + 2 * L), dict(none, paged=2 * L),
+        held={"label": "bf16, attention projections tempered", "tol": FIRST_STEP_TOL,
+              "faults": {"K/V lost": _kv_lost},
+              "weights": lambda p: _tempered(p, cache_of(model, cfg))})
+    launches[f"{arch} prefill"] = readings[arch]["prefill_launches"]
+    launches[f"{arch} decode"] = readings[arch]["decode_launches"]
+    del params, model, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # internvl2-1b: 256 patch rows + 64 text tokens; run_local's 16-token
+    # prompts cannot hold the 256 rows, and it raises as the JAX package does
+    arch = "internvl2-1b"
+    cfg = get_config(arch)
+    L = cfg.n_layers
+    _zero_counts()
+    try:
+        serve.run_local(serve.parse_args(["--backend", "local", "--arch", arch] + pages))
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    print(f"[family] {arch} run_local at full width: ValueError {raised!r}")
+    if raised is None or "256" not in raised or "16" not in raised:
+        raise AssertionError(f"{arch} run_local did not raise the 256-rows-in-16 "
+                             f"ValueError: {raised!r}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    params = params_of(model)
+    torch.cuda.reset_peak_memory_stats()
+    vis = {"vision_embeds": noise((8, cfg.frontend_tokens, cfg.d_model), 34)}
+    readings[arch] = _family_serve(
+        torch, arch, model, params,
+        _token_batch(torch, np, cfg.vocab_size, 8, cfg.frontend_tokens + INTERNVL_PROMPT,
+                     35, vis),
+        cache_of(model, cfg), FAMILY_STEPS, dict(none, packed=L), dict(none, paged=L),
+        held={"label": "bf16, attention projections tempered", "tol": FIRST_STEP_TOL,
+              "faults": {"K/V lost": _kv_lost},
+              "weights": lambda p: _tempered(p, cache_of(model, cfg))})
+    launches[f"{arch} prefill"] = readings[arch]["prefill_launches"]
+    launches[f"{arch} decode"] = readings[arch]["decode_launches"]
+    del params, model, vis
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # jamba-v0.1-52b at full width, 16 of 32 layers
+    arch = "jamba-v0.1-52b"
+    cfg = dataclasses.replace(get_config(arch), n_layers=JAMBA_LAYERS)
+    n_attn = cfg.pattern.count("A") * cfg.n_periods
+    n_moe = sum(cfg.moe.is_moe_layer(pos) for pos in range(len(cfg.pattern))
+                if cfg.pattern[pos] in "AM") * cfg.n_periods
+    print(f"[family] {arch}: reduced n_layers 32 -> {JAMBA_LAYERS} (one card: "
+          f"{cfg.param_counts()[0] / 1e9:.2f} B parameters); {n_attn} attention, "
+          f"{n_moe} MoE layers")
+    launches[f"{arch} run_local"] = _family_run_local(
+        torch, arch, ["--backend", "local", "--arch", arch, "--n-layers",
+                      str(JAMBA_LAYERS)] + pages,
+        dict(none, gmm=3 * n_moe * 17, paged=n_attn * 16, packed=n_attn))
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    params = params_of(model)
+    torch.cuda.reset_peak_memory_stats()
+    drops = []
+
+    def timed(name, fn):
+        def inner(*args, **kw):
+            with torch.autograd.profiler.record_function(name):
+                return fn(*args, **kw)
+        return inner
+
+    forward, step = transformer._RECURRENT["M"]
+    with _recording(transformer, drops), \
+            _patched(ssm, "_ssm_scan", timed("mamba scan", ssm._ssm_scan)), \
+            _patched(transformer, "_RECURRENT", dict(
+                transformer._RECURRENT, M=(timed("mamba block", forward),
+                                           timed("mamba block", step)))):
+        readings[arch] = _family_serve(
+            torch, arch, model, params,
+            _token_batch(torch, np, cfg.vocab_size, 8, FAMILY_PROMPT, 36),
+            cache_of(model, cfg), FAMILY_STEPS,
+            dict(none, gmm=3 * n_moe, packed=n_attn), dict(none, gmm=3 * n_moe, paged=n_attn),
+            held={"label": f"bf16, attention projections tempered, 8 x {JAMBA_HELD_PROMPT} "
+                           "prompts", "tol": JAMBA_FIRST_STEP_TOL,
+                  "faults": {"states lost": _states_lost, "K/V lost": _kv_lost},
+                  "weights": lambda p: _tempered(p, cache_of(model, cfg)),
+                  "batch": _token_batch(torch, np, cfg.vocab_size, 8, JAMBA_HELD_PROMPT, 37)},
+            repeat=True, profile_ranges=("mamba block", "mamba scan"))
+    readings[arch]["drop_fraction_by_forward"] = [
+        round(torch.stack(drops[i:i + n_moe]).mean().item(), 6)
+        for i in range(0, len(drops), n_moe)]
+    print(f"[family] {arch} MoE drop fraction per forward (prefill, 32 steps, profiled "
+          f"step, profiled prefill, repeat, prefill of prompt + token, the same with the "
+          f"embedding moved, then tempered on 8 x {JAMBA_HELD_PROMPT} prompts: prefill for "
+          f"the token, prefill, step, prefill of prompt + token): "
+          f"{readings[arch]['drop_fraction_by_forward']}")
+    launches[f"{arch} prefill"] = readings[arch]["prefill_launches"]
+    launches[f"{arch} decode"] = readings[arch]["decode_launches"]
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, readings
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         _fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -1908,6 +2595,11 @@ def main() -> None:
     with _phase("moe serve"):
         moe_launches = moe_phase(torch, np)
 
+    # 13. the hybrid, recurrent, encoder-decoder and vision families
+    with _phase("families"):
+        fam_fwd, fam_bwd, fam_paged, fam_gmm = family_kernels(torch, np)
+        fam_launches, _ = families_phase(torch, np)
+
     print(json.dumps({"kernels": [{
         "name": "grouped_matmul",
         "route": "cuda",
@@ -1918,9 +2610,10 @@ def main() -> None:
             **{f"multiproc {r['payload']}": r["launches"] for r in mp_runs},
             "inproc full": gmm_launches,
             **{path: c["gmm"] for path, c in moe_launches.items()},
+            **{path: c["gmm"] for path, c in fam_launches.items()},
         },
         **gmm_record,
-        "by_shape": gmm_by_shape,
+        "by_shape": {**gmm_by_shape, **fam_gmm},
     }, {
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -1930,9 +2623,10 @@ def main() -> None:
         "launches_by_path": {"serve run_local": serve_launches,
                              "ragged serve": ragged_launches,
                              **{path: c["paged"] for path, c in moe_launches.items()
-                                if "paged" in c}},
+                                if "paged" in c},
+                             **{path: c["paged"] for path, c in fam_launches.items()}},
         **paged_record,
-        "by_shape": paged_records,
+        "by_shape": {**paged_records, **fam_paged},
     }, {
         "name": "packed_flash_attention",
         "route": "cuda",
@@ -1942,10 +2636,11 @@ def main() -> None:
         "launches_by_path": {"train": train_fwd, "serve run_local": serve_packed,
                              "ragged serve": ragged_packed,
                              **{path: c["packed"] for path, c in moe_launches.items()
-                                if "packed" in c}},
+                                if "packed" in c},
+                             **{path: c["packed"] for path, c in fam_launches.items()}},
         **packed_fwd_record,
         "by_shape": {**{n: fwd for n, (fwd, _) in packed_records.items()},
-                     f"{MOE_ARCH} prefill": packed_moe_record},
+                     f"{MOE_ARCH} prefill": packed_moe_record, **fam_fwd},
     }, {
         "name": "packed_flash_attention_bwd",
         "route": "cuda",
@@ -1955,9 +2650,10 @@ def main() -> None:
         "launches_by_path": {"train": train_bwd, "serve run_local": 0,
                              "ragged serve": 0,
                              **{path: 0 for path, c in moe_launches.items()
-                                if "packed" in c}},
+                                if "packed" in c},
+                             **{path: c["packed_bwd"] for path, c in fam_launches.items()}},
         **packed_bwd_record,
-        "by_shape": {n: bwd for n, (_, bwd) in packed_records.items()},
+        "by_shape": {**{n: bwd for n, (_, bwd) in packed_records.items()}, **fam_bwd},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

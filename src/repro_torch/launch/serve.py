@@ -6,7 +6,12 @@ discrete-time simulated backend (capacity planning / control-plane soak,
 (``--backend local``): the bf16 weights are drawn from a seeded generator
 on the device, the KV cache is a bf16 First-Fit paged pool, and every
 decode step's attention is the Hopper paged-attention kernel on the card;
-an MoE model's experts run through the grouped-matmul kernel there.
+an MoE model's experts run through the grouped-matmul kernel there.  Every
+architecture serves: the recurrent layers carry their states in the cache,
+the encoder-decoder gets the JAX package's stub frame embeddings (as many
+frames as prompt tokens) and the vision model its stub patch embeddings
+(``frontend_tokens`` of them, which at full width do not fit the 16-token
+prompts: internvl2-1b raises there, as the JAX package's run does).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --backend sim --requests 500
@@ -16,11 +21,14 @@ Usage:
       --arch qwen3-8b --smoke --device cpu                # plain version, CPU
   PYTHONPATH=src python -m repro_torch.launch.serve --backend local \
       --arch qwen3-moe-30b-a3b                            # 56.9 GiB of weights
+  PYTHONPATH=src python -m repro_torch.launch.serve --backend local \
+      --arch jamba-v0.1-52b --n-layers 16                 # 16 of 32 layers
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Any, Dict, List, Optional
 
@@ -86,6 +94,8 @@ def run_local(args: argparse.Namespace) -> Dict[str, Any]:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     model = build_model(cfg)
     params = make_params(model, 0, device)
     rng = np.random.default_rng(0)
@@ -100,6 +110,16 @@ def run_local(args: argparse.Namespace) -> Dict[str, Any]:
         "positions": torch.arange(prompt_len, dtype=torch.int32,
                                   device=device).expand(B, prompt_len),
     }
+    # the JAX package's stub frontends, drawn in its order from the same rng
+    if cfg.encdec:
+        batch["enc_embeds"] = torch.from_numpy(
+            rng.normal(size=(B, prompt_len, cfg.d_model)) * 0.02).float().to(device)
+        batch["enc_segment_ids"] = torch.ones((B, prompt_len), dtype=torch.int32,
+                                              device=device)
+    if cfg.frontend == "vision":
+        batch["vision_embeds"] = torch.from_numpy(
+            rng.normal(size=(B, cfg.frontend_tokens, cfg.d_model)) * 0.02
+        ).float().to(device)
     cache = model.init_paged_cache(paged_layout(cfg, args.pages), DTYPE, device)
 
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
@@ -138,6 +158,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--arch", default="qwen3-8b", choices=ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--gen-tokens", type=int, default=16)
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut the (decoder) depth to this many layers, a multiple "
+                         "of the layer pattern's period (default: the config's)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     return ap.parse_args(argv)

@@ -4,11 +4,13 @@ decode attention over the First-Fit paged KV cache.
 Full-sequence attention (training and prefill) runs on the card through
 ``kernels.packed_attention``: the Hopper forward and backward kernels, with
 the segment-ID masks of the First-Fit sequence packer, GQA and sliding
-windows.  On the CPU it is the JAX package's chunked online-softmax (flash)
-form in plain PyTorch (``flash_attention``): peak memory O(chunk^2) instead
-of O(S^2), differentiable by autograd.  Decode attends one new token per
-sequence against its pages through ``kernels.paged_attention`` (the Hopper
-kernel on the card).
+windows, causal or not, and a cross-attention source of another length
+(the encoder-decoder's).  On the CPU it is the JAX package's chunked
+online-softmax (flash) form in plain PyTorch (``flash_attention``): peak
+memory O(chunk^2) instead of O(S^2), differentiable by autograd.  Decode
+attends one new token per sequence against its pages through
+``kernels.paged_attention`` (the Hopper kernel on the card): its own K/V
+pages, or the encoder's cross K/V pages (``cross_attention_decode``).
 
 Conventions (the JAX package's):
   q: (B, S, H, D)   k/v: (B, S, KVH, D)   segment_ids: (B, S) int32, 0 = pad
@@ -41,6 +43,7 @@ __all__ = [
     "attention_specs",
     "attention",
     "attention_decode",
+    "cross_attention_decode",
     "mlp_specs",
     "mlp",
 ]
@@ -249,7 +252,9 @@ def flash_attention(
 # ---------------------------------------------------------------------------
 
 
-def attention_specs(cfg: Any) -> Dict[str, Any]:
+def attention_specs(cfg: Any, cross: bool = False) -> Dict[str, Any]:
+    """The block's projections; a cross-attention block (``cross``) has the
+    same ones, as in the JAX package."""
     d, hd = cfg.d_model, cfg.head_dim_
     H, KVH = cfg.n_heads, cfg.n_kv_heads
     specs: Dict[str, Any] = {
@@ -275,17 +280,28 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(
-    p: Dict[str, torch.Tensor], cfg: Any, x: torch.Tensor
+    p: Dict[str, torch.Tensor], cfg: Any, x: torch.Tensor,
+    x_kv: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
+    """q from ``x``, k and v from ``x_kv`` (a cross-attention source;
+    default ``x``)."""
+    x_kv = x if x_kv is None else x_kv
+    k, v = _heads(x_kv, p["wk"]), _heads(x_kv, p["wv"])
     if cfg.qkv_bias:
-        q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
-    return q, k, v
+    return _project_q(p, cfg, x), k, v
+
+
+def _project_q(p: Dict[str, torch.Tensor], cfg: Any, x: torch.Tensor) -> torch.Tensor:
+    q = _heads(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+    return q
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -300,19 +316,32 @@ def attention(
     x: torch.Tensor,            # (B, S, d)
     segment_ids: torch.Tensor,  # (B, S)
     positions: torch.Tensor,    # (B, S)
+    *,
+    causal: bool = True,
+    x_kv: Optional[torch.Tensor] = None,             # cross-attention source
+    segment_ids_kv: Optional[torch.Tensor] = None,
+    positions_kv: Optional[torch.Tensor] = None,
+    use_rope: bool = True,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Causal full-sequence self-attention (training and prefill).  Returns
-    (out, (k, v)).  On the card the attention core is the packed-attention
-    kernels (differentiable); on the CPU, the plain chunked flash path."""
-    q, k, v = _project_qkv(p, cfg, x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    """Full-sequence attention (training and prefill).  Returns (out, (k,
+    v)).  Self-attention by default; with ``x_kv`` the keys and values come
+    from that source (B, Skv, d), masked by ``segment_ids_kv``, as the JAX
+    package's cross attention.  On the card the attention core is the
+    packed-attention kernels (differentiable, causal or not, Sq and Skv
+    apart); on the CPU, the plain chunked flash path."""
+    x_kv = x if x_kv is None else x_kv
+    segment_ids_kv = segment_ids if segment_ids_kv is None else segment_ids_kv
+    positions_kv = positions if positions_kv is None else positions_kv
+    q, k, v = _project_qkv(p, cfg, x, x_kv)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions_kv, cfg.rope_theta)
     if x.device.type == "cpu":
-        out = flash_attention(q, k, v, segment_ids, segment_ids,
+        out = flash_attention(q, k, v, segment_ids, segment_ids_kv, causal=causal,
                               window=cfg.sliding_window)
     else:  # the Hopper kernels, or a raise: never the plain version
-        out = packed_ops.packed_attention(q, k, v, segment_ids, segment_ids,
-                                          window=cfg.sliding_window)
+        out = packed_ops.packed_attention(q, k, v, segment_ids, segment_ids_kv,
+                                          causal=causal, window=cfg.sliding_window)
     return _out_proj(out, p["wo"]), (k, v)
 
 
@@ -348,6 +377,24 @@ def attention_decode(
     v_pool[page, slot] = v[:, 0].to(v_pool.dtype)
     out = paged_ops.paged_attention(q[:, 0].to(k_pool.dtype), k_pool, v_pool,
                                     page_table, cache_len)
+    return _out_proj(out.to(x.dtype)[:, None], p["wo"])
+
+
+def cross_attention_decode(
+    p: Dict[str, torch.Tensor],
+    cfg: Any,
+    x: torch.Tensor,           # (B, 1, d)
+    k_pool: torch.Tensor,      # (num_pages, page_size, KVH, D): the cross K/V
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # (B, max_pages) int32, -1 = unused slot
+    enc_len: torch.Tensor,     # (B,) int32 valid encoder positions
+) -> torch.Tensor:
+    """One decode step's cross attention: the token's query (no RoPE)
+    against the encoder K/V that prefill wrote into the sequence's cross
+    pages, through the paged kernel.  Nothing is written."""
+    q = _project_q(p, cfg, x)
+    out = paged_ops.paged_attention(q[:, 0].to(k_pool.dtype), k_pool, v_pool,
+                                    page_table, enc_len)
     return _out_proj(out.to(x.dtype)[:, None], p["wo"])
 
 

@@ -1,0 +1,86 @@
+"""Memory-bounded sequential scans for the recurrent layers (Mamba, xLSTM).
+
+``chunked_scan`` runs a step function over time in chunks, as the JAX
+package's does with ``lax.scan`` and ``jax.checkpoint``: when autograd is
+recording, each chunk runs under ``torch.utils.checkpoint``, so the forward
+keeps only the carries at chunk boundaries and the backward recomputes the
+states inside a chunk.  With no gradient to record it is the plain loop.
+
+The loop is Python over time steps, one step's tensor ops at a time: on
+the card every op of every step is its own launch (a fused scan kernel is
+later work).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+__all__ = ["chunked_scan"]
+
+Tree = Any  # a tensor, or a tuple / list / dict of trees
+
+
+def _leaves(tree: Tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for t in tree for leaf in _leaves(t)]
+    return [tree]
+
+
+def _map(fn: Callable[..., Any], tree: Tree, *rest: Tree) -> Tree:
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def _scan(step: Callable[[Tree, Tree], Tuple[Tree, Tree]], carry: Tree,
+          xs: Tree, start: int, n: int) -> Tuple[Tree, Tree]:
+    """``lax.scan`` over steps ``start .. start + n - 1`` of ``xs``: the
+    final carry and the step outputs stacked along a new time dim 0."""
+    ys = []
+    for t in range(start, start + n):
+        carry, y = step(carry, _map(lambda x: x[t], xs))
+        ys.append(y)
+    return carry, _map(lambda *a: torch.stack(a), *ys)
+
+
+def chunked_scan(
+    step: Callable[[Tree, Tree], Tuple[Tree, Tree]],
+    init: Tree,
+    xs: Tree,
+    *,
+    chunk_size: int = 128,
+) -> Tuple[Tree, Tree]:
+    """Equivalent to ``lax.scan(step, init, xs)`` with chunked remat.
+
+    ``xs`` leaves share the leading (time) dimension L.  As in the JAX
+    package, the time axis is padded with zeros to a multiple of the chunk
+    ``min(chunk_size, L)``: the padded steps run and update the carry, and
+    their outputs are trimmed.
+    """
+    leaves = _leaves(xs)
+    if not leaves:
+        raise ValueError("chunked_scan needs at least one xs leaf")
+    L = leaves[0].shape[0]
+    c = min(chunk_size, L)
+    pad = (-L) % c
+    if pad:
+        xs = _map(lambda x: F.pad(x, (0, 0) * (x.dim() - 1) + (0, pad)), xs)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in _leaves(init) + _leaves(xs))
+    carry, chunks = init, []
+    for start in range(0, L + pad, c):
+        if remat:
+            carry, ys = checkpoint(_scan, step, carry, xs, start, c, use_reentrant=False)
+        else:
+            carry, ys = _scan(step, carry, xs, start, c)
+        chunks.append(ys)
+    ys = _map(lambda *a: torch.cat(a)[:L], *chunks)
+    return carry, ys

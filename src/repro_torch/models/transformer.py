@@ -1,5 +1,7 @@
 """Decoder-only LM assembled from an ``ArchConfig``: the training and
-serving paths of the attention-only decoders, dense or MoE.
+serving paths of the decoders, whatever their layer pattern: attention
+('A'), Mamba ('M', ``ssm.py``), mLSTM and sLSTM ('l', 's', ``xlstm.py``),
+dense or MoE feed-forwards, and the vision-embedding prefix.
 
 Parameters keep the JAX package's layout: each position of the layer
 pattern is a dict of tensors stacked over periods, so the JAX package's
@@ -12,17 +14,20 @@ Entry points, with the JAX package's argument order and returns:
   - ``loss``        : training forward + chunked cross-entropy, over rows
                       the First-Fit sequence packer fills with documents;
   - ``prefill``     : full-sequence forward; writes every valid token's K/V
-                      into the pages the First-Fit allocator gives its row;
+                      into the pages the First-Fit allocator gives its row,
+                      and keeps each recurrent layer's final state;
   - ``decode_step`` : one new token per sequence, attending over its pages
-                      through the paged-attention kernel.
+                      through the paged-attention kernel and advancing each
+                      recurrent state by one step.
 On the card, ``loss`` and ``prefill`` attend through the packed-attention
 kernels (``layers.attention``), and an MoE layer's experts run through the
 grouped-matmul kernel (``moe.moe_layer``; serving only: the kernel has no
-backward).  The cache is the paged one
-(``init_paged_cache``): a K pool and a V pool ``(n_layers, num_pages,
-page_size, KVH, D)``, the port's ``PageAllocator``, the active sequence ids
-and their lengths.  Both serving entry points update it in place and return
-it.
+backward).  The recurrent scans are plain PyTorch loops over time, as the
+JAX package's are ``lax.scan`` loops.  The cache is the paged one
+(``init_paged_cache``): a K pool and a V pool ``(n_attn_layers, num_pages,
+page_size, KVH, D)``, the port's ``PageAllocator``, the active sequence
+ids, their lengths and the recurrent states.  Both serving entry points
+update it in place and return it.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from torch.utils.checkpoint import (
 
 from ..kernels.paged_attention.ops import page_table_from_allocator
 from ..serving.kv_cache import PageAllocator, PagedCacheLayout
+from . import ssm, xlstm
 from .layers import (
     attention,
     attention_decode,
@@ -113,21 +119,90 @@ def chunked_cross_entropy(
 
 
 def _block_specs(cfg: Any, pos: int) -> Dict[str, Any]:
-    """Parameter specs for the attention block at ``pos`` within the period:
-    its feed-forward is the MoE layer where the config makes ``pos`` one."""
-    if cfg.pattern[pos] != "A":
-        raise ValueError(f"attention blocks only, got pattern char {cfg.pattern[pos]!r}")
-    specs: Dict[str, Any] = {
-        "ln1": norm_specs(cfg.norm_type, cfg.d_model),
-        "mixer": attention_specs(cfg),
-    }
-    if cfg.d_ff or cfg.moe:
+    """Parameter specs for the block at position ``pos`` within the period:
+    its mixer (attention, Mamba, mLSTM or sLSTM), and for attention and
+    Mamba blocks a feed-forward, the MoE layer where the config makes
+    ``pos`` one (the xLSTM blocks carry their own projections)."""
+    char = cfg.pattern[pos]
+    specs: Dict[str, Any] = {"ln1": norm_specs(cfg.norm_type, cfg.d_model)}
+    if char == "A":
+        specs["mixer"] = attention_specs(cfg)
+    elif char == "M":
+        specs["mixer"] = ssm.mamba_specs(cfg)
+    elif char == "l":
+        specs["mixer"] = xlstm.mlstm_specs(cfg)
+    elif char == "s":
+        specs["mixer"] = xlstm.slstm_specs(cfg)
+    else:
+        raise ValueError(f"unknown pattern char {char!r}")
+    if char in ("A", "M") and (cfg.d_ff or cfg.moe):
         specs["ln2"] = norm_specs(cfg.norm_type, cfg.d_model)
         if cfg.moe is not None and cfg.moe.is_moe_layer(pos):
             specs["ffn"] = moe_specs(cfg)
         elif cfg.d_ff:
             specs["ffn"] = mlp_specs(cfg)
     return specs
+
+
+# each recurrent block's (full-sequence forward, one-token step); both take
+# and return the block's state (a dict of fp32 tensors)
+_RECURRENT = {
+    "M": (ssm.mamba_forward, ssm.mamba_decode_step),
+    "l": (xlstm.mlstm_forward, xlstm.mlstm_decode_step),
+    "s": (xlstm.slstm_forward, xlstm.slstm_decode_step),
+}
+
+
+def _mixer(char: str, p: Dict[str, Any], cfg: Any, h: torch.Tensor,
+           seg: torch.Tensor, pos_ids: torch.Tensor):
+    """The full-sequence mixer of a ``char`` block on its normed input:
+    (out, (k, v)) for attention, (out, final state) for a recurrent block,
+    which ignores the segment ids, as in the JAX package."""
+    if char == "A":
+        return attention(p, cfg, h, seg, pos_ids)
+    if char in _RECURRENT:
+        return _RECURRENT[char][0](p, cfg, h)
+    raise ValueError(f"unknown pattern char {char!r}")
+
+
+def write_plan(alloc: PageAllocator, seg: torch.Tensor):
+    """Give row b of ``seg`` (B, S) its pages as sequence b of ``alloc``
+    (its valid tokens: ``seg > 0``), and return (lens, b_idx, t_idx, dest):
+    the rows' valid counts, each valid token's row and column, and its slot
+    in a pool flattened over (page, slot): slot ``i % page_size`` of the
+    row's page ``i // page_size``, where i counts the row's valid tokens."""
+    valid = seg > 0
+    lens = valid.sum(dim=1, dtype=torch.int32)
+    for b, n in enumerate(lens.tolist()):
+        if alloc.allocate(b, n) is None:
+            raise RuntimeError(
+                f"the KV pool cannot hold sequence {b} of {n} tokens "
+                f"({alloc.free_pages} pages free)")
+    table, _ = page_table_from_allocator(alloc, list(range(seg.shape[0])), seg.device)
+    page_size = alloc.layout.page_size
+    rank = valid.long().cumsum(dim=1) - 1  # index among the row's valid tokens
+    b_idx, t_idx = valid.nonzero(as_tuple=True)
+    r = rank[b_idx, t_idx]
+    dest = table.long()[b_idx, r // page_size] * page_size + r % page_size
+    return lens, b_idx, t_idx, dest
+
+
+def grow(alloc: PageAllocator, seqs: List[int], device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One more token for each of ``seqs``: (page table, new lengths)."""
+    for s in seqs:
+        if alloc.extend(s, 1) is None:
+            raise RuntimeError(
+                f"the KV pool cannot grow sequence {s} ({alloc.free_pages} pages free)")
+    return page_table_from_allocator(alloc, seqs, device)
+
+
+def write_tokens(k_pool: torch.Tensor, v_pool: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, plan) -> None:
+    """Write the valid tokens' K/V (B, S, KVH, D) into one layer's pools at
+    the slots of ``plan`` (``write_plan``)."""
+    _, b_idx, t_idx, dest = plan
+    for pool, new in ((k_pool, k), (v_pool, v)):
+        pool.flatten(0, 1)[dest] = new[b_idx, t_idx].to(pool.dtype)
 
 
 def _stack_period(cfg: Any, spec_tree: Any) -> Any:
@@ -205,7 +280,21 @@ class DecoderLM:
 
     def _embed(self, params: Dict[str, Any],
                batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return params["embed"][batch["tokens"]]
+        """The tokens' embeddings; for a vision model the precomputed patch
+        embeddings (``vision_embeds``, B x nv x d) take the first nv
+        positions, as the JAX package's frontend stub does.  nv more than
+        the sequence raises the ``ValueError`` the JAX package raises."""
+        x = params["embed"][batch["tokens"]]
+        if self.cfg.frontend == "vision" and "vision_embeds" in batch:
+            vis = batch["vision_embeds"]
+            nv, S = vis.shape[1], x.shape[1]
+            if nv > S:
+                raise ValueError(
+                    f"{nv} vision embedding rows do not fit a sequence of {S} tokens: "
+                    f"incompatible shapes for broadcasting, {tuple(vis.shape)} into "
+                    f"{tuple(x.shape[:2])} + ({x.shape[2]},)")
+            x = torch.cat([vis.to(x.dtype), x[:, nv:]], dim=1)
+        return x
 
     def _logits(self, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
         return x.float() @ self._table(params).float().T
@@ -221,11 +310,11 @@ class DecoderLM:
                 for period in range(cfg.n_periods)]
 
     def _layers(self, params: Dict[str, Any]):
-        """(layer index, that layer's params) in order."""
-        n = len(self.cfg.pattern)
+        """(layer index, its pattern char, its params) in order."""
+        pattern = self.cfg.pattern
         for period, blocks in enumerate(self._periods(params)):
-            for pos in range(n):
-                yield period * n + pos, blocks[str(pos)]
+            for pos, char in enumerate(pattern):
+                yield period * len(pattern) + pos, char, blocks[str(pos)]
 
     def _ffn(self, p: Dict[str, Any], x: torch.Tensor
              ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
@@ -251,14 +340,8 @@ class DecoderLM:
         aux: Dict[str, torch.Tensor],
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
-        if char == "M":
-            raise NotImplementedError("Mamba blocks are ROADMAP queue 1 item 6")
-        if char in ("l", "s"):
-            raise NotImplementedError("xLSTM blocks are ROADMAP queue 1 item 6")
-        if char != "A":
-            raise ValueError(f"unknown pattern char {char!r}")
         h = norm(p["ln1"], cfg.norm_type, x)
-        out, _ = attention(p["mixer"], cfg, h, seg, pos_ids)
+        out, _ = _mixer(char, p["mixer"], cfg, h, seg, pos_ids)
         x, moe_aux = self._ffn(p, x + out)
         return x, _add_aux(aux, moe_aux)
 
@@ -308,15 +391,18 @@ class DecoderLM:
         dtype: torch.dtype = torch.bfloat16,
         device: Optional[torch.device] = None,
     ) -> Dict[str, Any]:
-        """An empty paged cache: zeroed K and V pools of ``(n_layers,
-        num_pages, page_size, KVH, D)``, a First-Fit allocator over them, and
-        no sequences."""
+        """An empty paged cache: zeroed K and V pools of ``(n_attn_layers,
+        num_pages, page_size, KVH, D)``, one per attention layer of the
+        pattern in layer order, a First-Fit allocator over them, no
+        sequences, and no recurrent states yet (``prefill`` gives each
+        Mamba/xLSTM layer its state, in layer order, under ``"state"``)."""
         cfg = self.cfg
         if (layout.n_kv_heads, layout.head_dim) != (cfg.n_kv_heads, cfg.head_dim_):
             raise ValueError(
                 f"layout has {layout.n_kv_heads} KV heads of {layout.head_dim}, "
                 f"the model {cfg.n_kv_heads} of {cfg.head_dim_}")
-        shape = (cfg.n_layers, layout.num_pages, layout.page_size,
+        n_attn = cfg.pattern.count("A") * cfg.n_periods
+        shape = (n_attn, layout.num_pages, layout.page_size,
                  layout.n_kv_heads, layout.head_dim)
         return {
             "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -324,6 +410,7 @@ class DecoderLM:
             "alloc": PageAllocator(layout),
             "seqs": [],
             "len": torch.zeros((0,), dtype=torch.int32, device=device),
+            "state": [],
         }
 
     # ---- serving: prefill ---------------------------------------------------
@@ -337,41 +424,33 @@ class DecoderLM:
 
         Row b becomes sequence b of ``cache``, which must hold none yet: the
         allocator gives it the pages for its valid tokens (``seg > 0``), and
-        each valid token's K/V is written to slot ``i % page_size`` of its
-        row's page ``i // page_size``, where i counts the row's valid tokens.
+        each attention layer writes each valid token's K/V to slot ``i %
+        page_size`` of its row's page ``i // page_size``, where i counts the
+        row's valid tokens.  Each recurrent layer's final state is recorded.
         """
         cfg = self.cfg
         if cache["seqs"]:
             raise ValueError("prefill takes a cache that holds no sequence")
         seg, pos_ids = batch["segment_ids"], batch["positions"]
         B = seg.shape[0]
-        alloc: PageAllocator = cache["alloc"]
-        valid = seg > 0
-        lens = valid.sum(dim=1, dtype=torch.int32)
-        for b, n in enumerate(lens.tolist()):
-            if alloc.allocate(b, n) is None:
-                raise RuntimeError(
-                    f"the KV pool cannot hold sequence {b} of {n} tokens "
-                    f"({alloc.free_pages} pages free)")
-        seqs = list(range(B))
-        table, _ = page_table_from_allocator(alloc, seqs, seg.device)
-        page_size = alloc.layout.page_size
-        rank = valid.long().cumsum(dim=1) - 1  # index among the row's valid tokens
-        b_idx, t_idx = valid.nonzero(as_tuple=True)
-        r = rank[b_idx, t_idx]
-        dest = table.long()[b_idx, r // page_size] * page_size + r % page_size
+        plan = write_plan(cache["alloc"], seg)
+        lens = plan[0]
 
         x = self._embed(params, batch)
-        for layer, p in self._layers(params):
+        n_attn, states = 0, []
+        for _, char, p in self._layers(params):
             h = norm(p["ln1"], cfg.norm_type, x)
-            out, (k, v) = attention(p["mixer"], cfg, h, seg, pos_ids)
-            for pool, new in ((cache["k"], k), (cache["v"], v)):
-                pool[layer].flatten(0, 1)[dest] = new[b_idx, t_idx].to(pool.dtype)
+            out, kept = _mixer(char, p["mixer"], cfg, h, seg, pos_ids)
+            if char == "A":
+                write_tokens(cache["k"][n_attn], cache["v"][n_attn], *kept, plan)
+                n_attn += 1
+            else:
+                states.append(kept)
             x, _ = self._ffn(p, x + out)
         x = norm(params["final_norm"], cfg.norm_type, x)
         last = (lens.long() - 1).clamp(min=0)  # last valid position per row
         logits = self._logits(params, x[torch.arange(B, device=x.device), last])
-        cache["seqs"], cache["len"] = seqs, lens
+        cache["seqs"], cache["len"], cache["state"] = list(range(B)), lens, states
         return logits, cache
 
     # ---- serving: decode ----------------------------------------------------
@@ -381,26 +460,29 @@ class DecoderLM:
         batch: Dict[str, torch.Tensor],  # {"tokens": (B, 1)}
         cache: Dict[str, Any],
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """One token for every sequence of the cache, in its order."""
+        """One token for every sequence of the cache, in its order: each
+        attention layer attends over its pages, each recurrent layer
+        advances its state by the token."""
         cfg = self.cfg
         tokens = batch["tokens"]
         seqs = cache["seqs"]
         if tokens.shape[0] != len(seqs):
             raise ValueError(f"{tokens.shape[0]} tokens for {len(seqs)} sequences")
-        alloc: PageAllocator = cache["alloc"]
-        for s in seqs:
-            if alloc.extend(s, 1) is None:
-                raise RuntimeError(
-                    f"the KV pool cannot grow sequence {s} "
-                    f"({alloc.free_pages} pages free)")
-        table, new_len = page_table_from_allocator(alloc, seqs, tokens.device)
+        table, new_len = grow(cache["alloc"], seqs, tokens.device)
         position = new_len - 1  # 0-based position of the new token
 
         x = self._embed(params, batch)  # (B, 1, d)
-        for layer, p in self._layers(params):
+        n_attn = n_rec = 0
+        for _, char, p in self._layers(params):
             h = norm(p["ln1"], cfg.norm_type, x)
-            out = attention_decode(p["mixer"], cfg, h, position, cache["k"][layer],
-                                   cache["v"][layer], table, new_len)
+            if char == "A":
+                out = attention_decode(p["mixer"], cfg, h, position, cache["k"][n_attn],
+                                       cache["v"][n_attn], table, new_len)
+                n_attn += 1
+            else:
+                out, cache["state"][n_rec] = _RECURRENT[char][1](
+                    p["mixer"], cfg, h, cache["state"][n_rec])
+                n_rec += 1
             x, _ = self._ffn(p, x + out)
         x = norm(params["final_norm"], cfg.norm_type, x)
         cache["len"] = new_len

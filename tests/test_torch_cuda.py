@@ -293,6 +293,26 @@ def test_paged_decode_on_card_launches_once_per_layer_and_step():
 # tensor-core operands and take delta from the bf16 output, where the plain
 # version keeps fp32 (chip_smoke.py's PACKED_REL_L2 gives the argument and
 # the planted faults these limits catch).
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KVH,D", [(16, 16, 64), (14, 2, 64)], ids=["G1", "G7"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_at_the_new_families_decode_shapes(H, KVH, D, dtype):
+    """seamless-m4t-medium's decode (G = 1, D = 64; its cross attention runs
+    over 1024 encoder positions) and internvl2-1b's (G = 7, D = 64), with a
+    second launch bitwise equal to the first."""
+    _need_card()
+    rng = np.random.default_rng(H + KVH)
+    lens = [1024, 320, 0, 65, 1000, 17, 1024, 333]
+    args = _paged_inputs(rng, H, KVH, D, lens, 16, 1024, dtype)
+    out = paged_ops.paged_attention(*args)
+    again = paged_ops.paged_attention(*args)
+    torch.cuda.synchronize()
+    ref = paged_attention_ref(*args)
+    assert torch.isfinite(out).all() and (out[2] == 0).all()
+    assert torch.equal(again, out)
+    torch.testing.assert_close(out.float(), ref.float(), **PAGED_TOLS[dtype])
+
+
 PACKED_TOLS = dict(rtol=2e-2, atol=2e-2)
 REL_L2 = (1e-2, 2e-2)  # (whole tensor, worst 64-row tile of a head)
 # (S, H, KVH, D, window[, layout]): test_kernels' grid, GQA, a window, ragged
@@ -421,6 +441,60 @@ def test_packed_padded_row_gives_zero_output_and_gradient():
     assert (out[1] == 0).all() and torch.isfinite(out).all()
     for grad in (dq, dk, dv):
         assert (grad[pad] == 0).all()
+
+
+# (Sq, Skv, H, KVH, D, causal): queries and keys of different lengths, as
+# seamless-m4t-medium's cross attention (64 decoder tokens against 1024
+# encoder frames, and 1000: a ragged last key tile), its non-causal
+# encoder, a causal Sq != Skv, and G = 7 at D = 64
+CROSS_CASES = [(64, 1024, 16, 16, 64, False), (64, 1000, 16, 16, 64, False),
+               (320, 320, 14, 2, 64, False), (300, 130, 4, 2, 128, False),
+               (200, 450, 14, 2, 64, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CROSS_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_packed_kernels_with_separate_key_lengths_on_card(case):
+    """Forward and backward against the autograd of the plain version with
+    separate query and key segment ids (each padding some rows), the tile
+    census equal to ``ref.tile_schedule``'s, padded keys' dK and dV 0."""
+    _need_card()
+    from repro_torch.kernels.packed_attention import kernel as pk
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+    from repro_torch.kernels.packed_attention.ref import census_rule, rel_l2
+
+    Sq, Skv, H, KVH, D, causal = case
+    B = 3
+    rng = np.random.default_rng(Sq + Skv + D)
+
+    def t(shape):
+        return torch.tensor(rng.normal(size=shape), device="cuda").to(torch.bfloat16)
+
+    q, k, v, g = (t((B, Sq, H, D)), t((B, Skv, KVH, D)), t((B, Skv, KVH, D)),
+                  t((B, Sq, H, D)))
+    seg_q_np, seg_kv_np = np.ones((B, Sq), np.int32), np.ones((B, Skv), np.int32)
+    seg_q_np[1, Sq - Sq // 5:] = 0
+    seg_kv_np[2, Skv - Skv // 3:] = 0
+    seg_q, seg_kv = (torch.tensor(a, device="cuda") for a in (seg_q_np, seg_kv_np))
+    out, grads = _packed_run(lambda *a: packed_ops.packed_attention(
+        *a, seg_q, seg_kv, causal=causal), q, k, v, g)
+    ref, ref_grads = _packed_run(lambda *a: packed_ops.packed_attention_plain(
+        *a, seg_q, seg_kv, causal=causal), q, k, v, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **PACKED_TOLS)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (out, *grads), (ref, *ref_grads),
+                          strict=True):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        whole, tile = rel_l2(a, b)
+        assert whole <= REL_L2[0] and tile <= REL_L2[1], (name, whole, tile)
+    pad_kv = seg_kv == 0
+    assert (grads[1][pad_kv] == 0).all() and (grads[2][pad_kv] == 0).all()
+    assert (out[seg_q == 0] == 0).all()
+    pk.tile_census(on=True)
+    o, lse = pk.packed_flash_attention(q, k, v, seg_q, seg_kv, causal=causal)
+    pk.packed_flash_attention_bwd(q, k, v, seg_q, seg_kv, o, g, lse, causal=causal)
+    census = pk.tile_census(on=False)
+    assert census == census_rule(seg_q.cpu(), seg_kv.cpu(), H, KVH, causal=causal)
 
 
 # (S, H, KVH, D, window, causal): skipped, full and masked tiles, GQA, a

@@ -227,7 +227,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "scenarios", "serving"} <= scanned
     assert port / "kernels" / "paged_attention" / "ops.py" in files
     for rel_path in ("models/moe.py", "core/spark_baseline.py",
-                     "core/view_conformance.py", "scenarios/serving.py", "obs/__main__.py"):
+                     "core/view_conformance.py", "scenarios/serving.py", "obs/__main__.py",
+                     "models/scan_utils.py", "models/ssm.py", "models/xlstm.py",
+                     "models/encdec.py"):
         assert port / rel_path in files, rel_path
     bad = [
         f"{p.relative_to(ROOT)}:{line} imports {mod}"

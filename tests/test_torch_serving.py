@@ -108,7 +108,7 @@ def test_configs_are_the_jax_packages():
             assert cfg.param_counts() == ref.param_counts()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", JAX_ARCH_NAMES)
 def test_param_specs_match_jax_at_full_width(arch):
     def flat(tree, path=""):
         if isinstance(tree, dict):
@@ -141,13 +141,6 @@ def test_init_params_follows_the_jax_rules():
     again = init_params(specs, torch.Generator().manual_seed(0), torch.bfloat16)
     assert again["s"].dtype == torch.bfloat16
     torch.testing.assert_close(again["s"], p["s"].to(torch.bfloat16))
-
-
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-125m",
-                                  "seamless-m4t-medium", "internvl2-1b"])
-def test_other_families_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        build_model(get_config(arch))
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "grok-1-314b"])

@@ -203,10 +203,31 @@ def test_packed_vs_separate_loss_equivalence(built):
     assert float(packed) == pytest.approx(float(separate), rel=1e-5)
 
 
-def test_non_dense_blocks_raise(built):
-    _, _, _, tm = built("olmo-1b")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tm._apply_block_train("M", {}, None, None, None, None)
+@pytest.mark.parametrize("arch,pos", [("jamba-v0.1-52b", 0), ("xlstm-125m", 0),
+                                      ("xlstm-125m", 5)], ids=["M", "l", "s"])
+def test_recurrent_block_through_apply_block_train_matches_jax(built, arch, pos):
+    """A Mamba block (with its MLP), an mLSTM block and an sLSTM block
+    through ``_apply_block_train``: output and the aux losses carried
+    through, against the JAX package's."""
+    cfg, jm, jp, tm = built(arch)
+    char = cfg.pattern[pos]
+    batch = packed_batches(cfg.vocab_size, 32, 2, 1, seed=6)[0]
+    x = np.random.default_rng(9).normal(size=(2, 32, cfg.d_model)).astype(np.float32)
+    carried = {"moe_load_balance": 0.5, "moe_z_loss": 0.25, "moe_drop_fraction": 0.125}
+    jblock = jax.tree.map(lambda t: t[0], jp["blocks"][str(pos)])
+    want, jaux = jm._apply_block_train(
+        char, jblock, jm.cfg, jnp.asarray(x), jnp.asarray(batch["segment_ids"]),
+        jnp.asarray(batch["positions"]),
+        {k: jnp.float32(v) for k, v in carried.items()})
+    with torch.no_grad():
+        got, aux = tm._apply_block_train(
+            char, port_params(to_np(jblock)), torch.from_numpy(x),
+            torch.from_numpy(batch["segment_ids"]), torch.from_numpy(batch["positions"]),
+            {k: torch.tensor(v) for k, v in carried.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+    for k in carried:
+        assert rel(aux[k], jaux[k]) <= LOSS_RTOL, k
+    assert ("ffn" in jblock) == (char == "M")
 
 
 def test_moe_block_through_apply_block_train_matches_jax(built):
