@@ -86,6 +86,22 @@ Phases, in order; any failure raises and the script exits nonzero:
    bf16 compute over fp32 masters, checkpointing into a temporary directory
    it removes after; the packed kernels' launches held to 8 x 16 x 2
    forward and 8 x 16 backward, then one more step under ``torch.profiler``;
+11b. the distributed layer (``[distributed]`` lines), olmo-1b at full width
+   as in phase 11: (a) the first 3 of its batches through ``make_train_step``
+   with ``GradCompressor(stochastic=False)`` and without it, from the same
+   drawn weights: step ms p50 of each, the peak memory, the error-feedback
+   state's bytes; on step 1's gradients, every leaf's max |g - deq| <=
+   scale / 2, the error feedback equal to g - deq, two ``apply`` calls with
+   ``stochastic=True`` giving the same bits (the reference's same-seed
+   rule) and the compressor's device ms (CUDA events); the compressed run's
+   step-1 loss equal to the uncompressed run's; (b) ``launch.train.run``
+   with ``--mesh local`` (a (1, 1) DTensor mesh, the step inside
+   ``activation_sharding``), 3 steps: its step-1 loss bitwise equal to the
+   uncompressed run's, its step ms, the packed kernels' launches a step
+   (the DTensor rule runs them on the local shards), and the host time
+   DTensor adds (step ms p50 and a profiled step's wall less device time,
+   each against the plain run's); its checkpoint goes to a temporary
+   directory removed after;
 12. MoE serving: ``qwen3-moe-30b-a3b`` at full width and depth in bf16
    (weights drawn on the card from a seed, after every earlier phase's
    tensors are freed), each MoE layer's experts through the grouped
@@ -188,7 +204,17 @@ TRAIN = {"B": 4, "S": 4096, "H": 16, "KVH": 16, "D": 128}
 TRAIN_STEPS = 8
 TRAIN_ARGV = ["--arch", "olmo-1b", "--shape", "train_4k", "--steps", str(TRAIN_STEPS),
               "--batch-size", str(TRAIN["B"]), "--remat", "nothing",
-              "--ckpt-every", "1000"]
+              "--ckpt-every", "1000", "--mesh", "none"]
+# phase 11b: the same run's first DIST_STEPS steps with the int8 gradient
+# compressor and without it (make_train_step), then through --mesh local
+DIST_STEPS = 3
+# |g - deq| <= scale / 2 holds in exact arithmetic; in fp32 x = g / scale
+# and deq = q x scale each round once, by up to 2^-24 of |x| <= 127 steps,
+# so the bound is read with 2 x 127 x 2^-24 of a step, doubled (3.0e-5)
+QUANT_SLACK = 127 * 2.0 ** -22
+DIST_ARGV = ["--arch", "olmo-1b", "--shape", "train_4k", "--steps", str(DIST_STEPS),
+             "--batch-size", str(TRAIN["B"]), "--remat", "nothing",
+             "--ckpt-every", "1000", "--mesh", "local"]
 # The packed kernels against the autograd of their plain version, in bf16
 # (the kernels take bf16 only; float32 on the card raises).  The output is
 # held elementwise to test_kernels' bf16 TOLS.  The output and the gradients
@@ -1392,6 +1418,188 @@ def train_phase(torch, np):
     return fwd, bwd
 
 
+def _bf16_grads(torch, model, params, batch):
+    """The gradients ``make_train_step`` takes by default: through the bf16
+    compute copy of the fp32 masters (loss, bf16 gradient tree)."""
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.training.train_step import cast_params_for_compute
+
+    leaves = [t.detach().requires_grad_(True)
+              for t in tree_leaves(cast_params_for_compute(params))]
+    with torch.enable_grad():
+        loss, _ = model.loss(tree_unflatten(params, leaves), batch, remat_policy="nothing")
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(params, list(grads))
+
+
+def _event_ms(torch, fn):
+    """(result, ms) of one call of ``fn`` between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _compressor_checks(torch, model, params, batch):
+    """Phase 11b (a), on step 1's gradients: the error bound, the error
+    feedback identity, the same-seed repeat and the compressor's device ms."""
+    from repro_torch.distributed import GradCompressor
+    from repro_torch.models.params import tree_leaves
+
+    _, grads = _bf16_grads(torch, model, params, batch)
+    comp = GradCompressor(stochastic=False)
+    comp.apply(grads, None)  # warm up
+    times = []
+    for _ in range(3):
+        (deq, ef), ms = _event_ms(torch, lambda: comp.apply(grads, None))
+        times.append(ms)
+    worst_ratio, ef_identity = 0.0, True
+    for g, d, e in zip(tree_leaves(grads), tree_leaves(deq), tree_leaves(ef)):
+        g = g.float()
+        scale = torch.clamp(g.abs().amax(), min=1e-12) / 127.0
+        worst_ratio = max(worst_ratio, float((g - d).abs().amax() / scale))
+        ef_identity &= bool(torch.equal(e, g - d))
+    del deq, ef
+    noisy = GradCompressor(stochastic=True)
+    first = noisy.apply(grads, None)
+    second = noisy.apply(grads, None)
+    repeat = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(first[0]) + tree_leaves(first[1]),
+        tree_leaves(second[0]) + tree_leaves(second[1])))
+    del first, second, grads
+    torch.cuda.empty_cache()
+    times.sort()
+    return {"compressor_ms": times[1], "compressor_ms_all": times,
+            "max_err_over_scale": worst_ratio, "ef_is_g_minus_deq": ef_identity,
+            "stochastic_repeat_bitwise": repeat}
+
+
+def _timed_steps(torch, step_fn, params, opt_state, batches):
+    """Run ``step_fn`` over ``batches``: (losses, step ms, final state)."""
+    losses, ms = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    return losses, ms, params, opt_state
+
+
+def distributed_phase(torch, np):
+    """Phase 11b: olmo-1b at full width with the int8 gradient compressor
+    and through ``launch.train --mesh local``; returns the packed kernels'
+    (forward, backward) launches of each path."""
+    import math
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import GradCompressor
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training import OptimizerConfig, init_opt_state, make_train_step
+
+    cfg = get_config("olmo-1b")
+    model = build_model(cfg)
+    dev = torch.device("cuda")
+    params = train.make_params(model, 0, dev)  # launch.train's weights
+    batches = []
+    for pb in _train_batches():
+        batches.append({k: torch.from_numpy(getattr(pb, k)).to(dev)
+                        for k in ("tokens", "labels", "segment_ids", "positions")})
+        if len(batches) == DIST_STEPS:
+            break
+    opt_cfg = OptimizerConfig(decay_steps=100)  # launch.train's at 3 steps
+    checks = _compressor_checks(torch, model, params, batches[0])
+
+    # (a) the same batches with the compressor and without it
+    runs, launches = {}, {}
+    for name, comp in (("compressed", GradCompressor(stochastic=False)), ("plain", None)):
+        step_fn = make_train_step(model, opt_cfg, remat_policy="nothing", compressor=comp)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        packed_ops.launches_fwd = packed_ops.launches_bwd = 0
+        losses, ms, p, o = _timed_steps(torch, step_fn, params, init_opt_state(params),
+                                        batches)
+        launches[name] = (packed_ops.launches_fwd, packed_ops.launches_bwd)
+        runs[name] = {"losses": losses, "step_ms": ms, "step_ms_p50": sorted(ms)[1],
+                      "peak_device_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if comp is not None:
+            runs[name]["ef_bytes"] = sum(t.numel() * t.element_size()
+                                         for t in tree_leaves(o["ef"]))
+        else:
+            runs[name]["profile"] = _profile_train_step(torch, step_fn, p, o, batches[0])
+        del p, o
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) launch.train through --mesh local
+    ckpt_dir = tempfile.mkdtemp(prefix="dist_ckpt_", dir=ROOT / "build")
+    seen: dict = {}
+
+    def after_run(step_fn, p, o, stream):
+        seen["launches"] = (packed_ops.launches_fwd, packed_ops.launches_bwd)
+        seen["profile"] = _profile_train_step(torch, step_fn, p, o, next(stream))
+        seen["placements"] = sorted({str(tuple(t.placements)) for t in tree_leaves(p)})
+
+    try:
+        packed_ops.launches_fwd = packed_ops.launches_bwd = 0
+        stats = train.run(train.parse_args(DIST_ARGV + ["--ckpt-dir", ckpt_dir]),
+                          after_run=after_run)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    launches["mesh local"] = seen["launches"]
+    mesh_prof, plain_prof = seen["profile"], runs["plain"].pop("profile")
+    plain, comp_run = runs["plain"], runs["compressed"]
+    mesh_host_ms = mesh_prof["profiled_wall_ms"] - mesh_prof["device_ms"]
+    plain_host_ms = plain_prof["profiled_wall_ms"] - plain_prof["device_ms"]
+    print("[distributed] compressor " + json.dumps({
+        **checks, **{f"{k}_compressed": v for k, v in comp_run.items()},
+        **{f"{k}_plain": v for k, v in plain.items()},
+        "compression_adds_ms_p50": comp_run["step_ms_p50"] - plain["step_ms_p50"],
+        "launches_fwd_bwd": launches}))
+    print("[distributed] mesh local " + json.dumps({
+        "mesh": stats["mesh"], "placements": seen["placements"],
+        "losses": stats["losses"], "step_ms": stats["step_ms"],
+        "step_ms_p50": stats["step_ms_p50"],
+        "packed_launches_per_step": [n / DIST_STEPS for n in launches["mesh local"]],
+        "dtensor_adds_ms_p50": stats["step_ms_p50"] - plain["step_ms_p50"],
+        "profile_mesh": mesh_prof, "profile_plain": plain_prof,
+        "host_ms_mesh": mesh_host_ms, "host_ms_plain": plain_host_ms,
+        "dtensor_adds_host_ms": mesh_host_ms - plain_host_ms,
+        "peak_device_mem_gib": stats["peak_device_mem_gib"],
+        "loss1_bitwise_plain": stats["losses"][0] == plain["losses"][0],
+        "loss1_rel_to_plain": abs(stats["losses"][0] - plain["losses"][0])
+        / abs(plain["losses"][0])}))
+    n = cfg.n_layers * DIST_STEPS
+    ok = {
+        "compressed |g - deq| <= scale / 2": checks["max_err_over_scale"]
+        <= 0.5 + QUANT_SLACK,
+        "error feedback == g - deq": checks["ef_is_g_minus_deq"],
+        "stochastic apply repeats bitwise": checks["stochastic_repeat_bitwise"],
+        "losses finite": all(math.isfinite(x) for x in comp_run["losses"] + plain["losses"]
+                             + stats["losses"]),
+        "compressed step-1 loss == plain": comp_run["losses"][0] == plain["losses"][0],
+        "mesh step-1 loss within 1e-6 of plain": abs(stats["losses"][0] - plain["losses"][0])
+        <= 1e-6 * abs(plain["losses"][0]),
+        "mesh (1, 1)": stats["mesh"] == {"data": 1, "model": 1},
+        f"packed launches == ({2 * n}, {n}) on every path": all(
+            v == (2 * n, n) for v in launches.values()),
+    }
+    print(f"[distributed] checks: {ok}")
+    if not all(ok.values()):
+        raise AssertionError(f"distributed: {ok}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def serve_phase(torch):
     """Phase 9: the serving entry point at full width; returns the paged
     kernel's launches and the packed forward's."""
@@ -2591,6 +2799,10 @@ def main() -> None:
     with _phase("train"):
         train_fwd, train_bwd = train_phase(torch, np)
 
+    # 11b. the distributed layer: gradient compression, --mesh local
+    with _phase("distributed"):
+        dist_launches = distributed_phase(torch, np)
+
     # 12. MoE serving at full width and depth
     with _phase("moe serve"):
         moe_launches = moe_phase(torch, np)
@@ -2634,6 +2846,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/packed_attention/kernel.py:39",
         "launches": train_fwd,
         "launches_by_path": {"train": train_fwd, "serve run_local": serve_packed,
+                             **{f"distributed {k}": v[0] for k, v in dist_launches.items()},
                              "ragged serve": ragged_packed,
                              **{path: c["packed"] for path, c in moe_launches.items()
                                 if "packed" in c},
@@ -2648,6 +2861,7 @@ def main() -> None:
         "replaces": "src/repro/models/layers.py:147",
         "launches": train_bwd,
         "launches_by_path": {"train": train_bwd, "serve run_local": 0,
+                             **{f"distributed {k}": v[1] for k, v in dist_launches.items()},
                              "ragged serve": 0,
                              **{path: 0 for path, c in moe_launches.items()
                                 if "packed" in c},

@@ -11,7 +11,13 @@
     writes them in a background thread (one outstanding save at a time),
     overlapping the next training steps,
   - ``restore`` loads into the structure of a target tree, each leaf on the
-    target leaf's device and in its dtype, verifying every checksum.
+    target leaf's device and in its dtype, verifying every checksum;
+    ``shardings`` (a tree of ``distributed.sharding.Sharding``) restores
+    elastically onto the current mesh: each rank reads the file and keeps
+    its own shard of each leaf.  A DTensor target leaf with no sharding
+    given keeps its own layout.
+  - a DTensor leaf is saved whole (``full_tensor``, a collective every
+    rank takes part in); with a process group running, rank 0 writes.
 
 A checkpoint written by either package restores in the other.  numpy has no
 bfloat16, so a bf16 tensor is written as float32 (exactly) and cast back to
@@ -30,6 +36,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..models.params import tree_paths, tree_unflatten
 
@@ -42,6 +50,8 @@ _SEP = "__"
 def _to_numpy(leaf: Any) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy()
@@ -69,6 +79,8 @@ class CheckpointManager:
         host = [(name, _to_numpy(leaf)) for name, leaf in _flatten(tree)]
         self.last_save = {"step": step, "bytes": sum(a.nbytes for _, a in host),
                           "snapshot_s": time.perf_counter() - t0}
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return self._path(step)
         if blocking:
             return self._write(step, host)
         self.wait()  # one outstanding async save at a time
@@ -133,16 +145,22 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target: Tree, *, verify: bool = True) -> Tree:
+    def restore(self, step: int, target: Tree, shardings: Optional[Tree] = None, *,
+                verify: bool = True) -> Tree:
         """Restore into the structure of ``target``: each leaf a tensor on
-        the target leaf's device, in its dtype."""
+        the target leaf's device, in its dtype.  ``shardings`` (the same
+        structure) lays each leaf out as a DTensor on its mesh."""
         path = self._path(step)
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         by_name = {leaf["name"]: leaf for leaf in meta["leaves"]}
         paths = tree_paths(target)
+        flat_shard = ([s for _, s in tree_paths(shardings)] if shardings is not None
+                      else [None] * len(paths))
+        if len(flat_shard) != len(paths):
+            raise ValueError(f"{len(flat_shard)} shardings for {len(paths)} leaves")
         out = []
-        for key_path, tgt in paths:
+        for (key_path, tgt), shd in zip(paths, flat_shard):
             name = _SEP.join(str(k) for k in key_path)
             info = by_name.get(name)
             if info is None:
@@ -155,5 +173,13 @@ class CheckpointManager:
             if tuple(arr.shape) != tuple(tgt.shape):
                 raise ValueError(f"shape mismatch for {name}: ckpt {arr.shape} vs "
                                  f"target {tuple(tgt.shape)}")
-            out.append(torch.from_numpy(arr).to(device=tgt.device, dtype=tgt.dtype))
+            leaf = torch.from_numpy(arr).to(device=tgt.device, dtype=tgt.dtype)
+            if shd is not None:
+                mesh, placements = shd.mesh, shd.placements
+            elif isinstance(tgt, DTensor):
+                mesh, placements = tgt.device_mesh, tgt.placements
+            else:
+                out.append(leaf)
+                continue
+            out.append(distribute_tensor(leaf, mesh, placements, src_data_rank=None))
         return tree_unflatten(target, out)

@@ -2,6 +2,11 @@
 tensors, the plain PyTorch version for CPU tensors; and the SwiGLU expert
 FFN built from three of them.
 
+On DTensors ``gmm`` runs shard-locally when only the expert dim (of x, w
+and the group sizes alike) and w's output columns are sharded
+(``kernels/shard_local.py``), and raises on any other layout, a sharded
+contraction dim among them.
+
 ``launches`` counts the kernel launches this process made through ``gmm``
 (``expert_ffn_swiglu`` adds 3 a call); a run resets it to 0 and reads it
 back to show that its main path went through the kernel.
@@ -15,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..shard_local import any_dtensor, shard_local
 from .kernel import grouped_matmul
 from .ref import grouped_matmul_ref
 
@@ -37,6 +43,10 @@ def gmm(
     ``kernel.grouped_matmul``); the plain version takes none.
     """
     global launches
+    if any_dtensor(x, w, group_sizes):
+        return shard_local(
+            "gmm", lambda *a: gmm(*a, events=events),
+            [("x", x, "e.."), ("w", w, "e.f"), ("group_sizes", group_sizes, "e")], "e.f")
     if x.device.type == "cpu":
         return grouped_matmul_ref(x, w, group_sizes)
     out = grouped_matmul(x, w, group_sizes, events)

@@ -9,6 +9,10 @@ the backward kernels.  The JAX wrapper pads to block multiples with segment
 0 and repeats the KV heads; the kernels mask ragged tails and index KV head
 ``h // (H // KVH)`` themselves, so the result is the same with neither.
 
+On DTensors it runs shard-locally when only the batch and head dims are
+sharded (``kernels/shard_local.py``; q's heads and the KV heads over the
+same mesh dims) and raises on any other layout.
+
 ``launches_fwd`` and ``launches_bwd`` count the forward and backward
 launches this process made through ``packed_attention``; a run resets them
 to 0 and reads them back to show that its path went through the kernels.
@@ -20,6 +24,7 @@ import threading
 
 import torch
 
+from ..shard_local import any_dtensor, shard_local
 from .kernel import packed_flash_attention, packed_flash_attention_bwd
 from .ref import packed_attention_ref
 
@@ -90,6 +95,13 @@ def packed_attention(
     A CUDA tensor launches the kernels or raises; only a tensor that lies on
     the CPU takes the plain version.
     """
+    if any_dtensor(q, k, v, segment_ids_q, segment_ids_kv):
+        return shard_local(
+            "packed_attention",
+            lambda *a: packed_attention(*a, causal=causal, window=window),
+            [("q", q, "b.h."), ("k", k, "b.h."), ("v", v, "b.h."),
+             ("segment_ids_q", segment_ids_q, "b."),
+             ("segment_ids_kv", segment_ids_kv, "b.")], "b.h.")
     if q.device.type == "cpu":
         return packed_attention_plain(q, k, v, segment_ids_q, segment_ids_kv,
                                       causal=causal, window=window)

@@ -2,6 +2,10 @@
 tensors, the plain PyTorch version for CPU tensors, and the bridge from the
 host-side First-Fit ``PageAllocator`` to the page tables they read.
 
+On DTensors ``paged_attention`` runs shard-locally when only the batch
+dim and the heads (q's and the pools' KV heads over the same mesh dims)
+are sharded (``kernels/shard_local.py``), and raises on any other layout.
+
 ``launches`` counts the kernel launches this process made through
 ``paged_attention``; a run resets it to 0 and reads it back to show that
 its decode path went through the kernel.
@@ -14,6 +18,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ..shard_local import any_dtensor, shard_local
 from ...serving.kv_cache import PageAllocator
 from .kernel import paged_decode_attention
 from .ref import paged_attention_ref
@@ -48,6 +53,11 @@ def paged_attention(
     the CPU takes the plain version.
     """
     global launches
+    if any_dtensor(q, k_pool, v_pool, page_table, seq_lens):
+        return shard_local(
+            "paged_attention", paged_attention,
+            [("q", q, "bh."), ("k_pool", k_pool, "..h."), ("v_pool", v_pool, "..h."),
+             ("page_table", page_table, "b."), ("seq_lens", seq_lens, "b")], "bh.")
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, page_table, seq_lens)
     out = paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens)

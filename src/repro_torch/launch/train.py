@@ -1,4 +1,4 @@
-"""Training driver on one card.
+"""Training driver.
 
 Streams synthetic documents through the IRM-managed First-Fit packing
 pipeline into fixed-length rows, trains a dense decoder on them with AdamW
@@ -9,12 +9,20 @@ backward.  The fp32 master weights are drawn on the device from a seeded
 ``torch.Generator`` under the JAX package's init rules.  ``--device cpu``
 runs the plain PyTorch versions on the CPU, at ``--smoke`` size.
 
-Not ported from the JAX package's launcher: ``--mesh`` and the sharding
-rules (ROADMAP queue 1 item 8); ``--device`` takes its place.
+``--mesh`` lays the run out as the JAX package's launcher does: the mesh
+(``launch/mesh.py``), its rules and ``param_shardings`` place the fp32
+masters as DTensors, ``batch_shardings`` places each batch, and the step
+runs inside ``activation_sharding``.  ``local`` (the default) is every rank
+of the process group on the data axis: (1, 1) on one card, (N, 1) under
+``torchrun --nproc-per-node N``; ``single-pod`` and ``multi-pod`` are the
+16x16 and 2x16x16 production meshes, which need that many ranks.
+``none`` runs with no mesh, on plain tensors.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --smoke \
       --device cpu --steps 20
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch olmo-1b --smoke --device cpu --steps 3    # gloo, a (4, 1) mesh
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
       --batch-size 4 --steps 8                       # full width, the card
 """
@@ -27,17 +35,31 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..configs import ARCH_NAMES, SHAPES_BY_NAME, get_config
 from ..data import StreamingPipeline, synthetic_documents
+from ..distributed.context import activation_sharding
+from ..distributed.sharding import (
+    batch_shardings,
+    distribute,
+    make_rules,
+    param_shardings,
+)
 from ..kernels.packed_attention import ops as packed_ops
 from ..models import build_model, init_params
+from ..models.params import tree_map
 from ..training import OptimizerConfig, init_opt_state, make_train_step
 from ..training.controller import (
     DEFAULT_CHECKPOINT_DIR,
     TrainController,
     TrainControllerConfig,
 )
+from .mesh import make_local_mesh, make_production_mesh
+
+MESHES = ["local", "single-pod", "multi-pod", "none"]
 
 def make_params(model, seed: int, device: torch.device):
     """The model's fp32 master weights, drawn leaf by leaf on ``device``."""
@@ -49,6 +71,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=ARCH_NAMES)
     ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--mesh", default="local", choices=MESHES)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=20)
@@ -77,11 +100,14 @@ def run(
     seconds, the packed-attention kernels' launches during the run and the
     peak device memory.
 
-    ``params`` (fp32, on ``--device``) replaces the drawn initial weights;
+    ``params`` (fp32, on ``--device``; the same on every rank) replaces the
+    drawn initial weights;
     ``compute_dtype`` is that of the forward and backward (the kernels on
     the card take bf16).
     ``after_run(step_fn, params, opt_state, batches)`` is called once the
-    controller is done, with the trained state and the batch iterator.
+    controller is done, with the trained state and the batch iterator
+    (under ``--mesh``, DTensors and a step that enters the mesh context).
+    A process group that the run started is ended before it returns.
     """
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -90,21 +116,47 @@ def run(
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    model = build_model(cfg)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    started_group = args.mesh != "none" and not dist.is_initialized()
+    try:
+        return _run(args, cfg, model, device, params, compute_dtype, after_run)
+    finally:
+        if started_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _scalar(t: torch.Tensor) -> float:
+    return float(t.full_tensor() if isinstance(t, DTensor) else t)
+
+
+def _run(args, cfg, model, device, params, compute_dtype, after_run) -> Dict[str, Any]:
     shape = SHAPES_BY_NAME[args.shape]
     seq_len = args.seq_len or (256 if args.smoke else shape.seq_len)
     batch = args.batch_size or (4 if args.smoke else shape.global_batch)
-    model = build_model(cfg)
     cuda = device.type == "cuda"
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
-
     if params is None:
         params = make_params(model, 0, device)
+    mesh = rules = p_shard = None
+    if args.mesh != "none":
+        mesh = (make_local_mesh(device.type) if args.mesh == "local" else
+                make_production_mesh(multi_pod=args.mesh == "multi-pod",
+                                     device_type=device.type))
+        rules = make_rules(mesh)
+        p_shard = param_shardings(model.param_specs(), mesh, rules)
+        params = tree_map(distribute, params, p_shard)
     opt_state = init_opt_state(params)
     step_fn = make_train_step(
         model, OptimizerConfig(decay_steps=max(args.steps, 100)),
         remat_policy=args.remat, microbatches=args.microbatches,
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, grad_shardings=p_shard)
+    if mesh is not None:
+        inner = step_fn
+
+        def step_fn(params, opt_state, batch):
+            with activation_sharding(mesh, rules), implicit_replication():
+                return inner(params, opt_state, batch)
 
     pipe = StreamingPipeline(
         synthetic_documents(cfg.vocab_size, mean_len=seq_len // 3,
@@ -115,24 +167,31 @@ def run(
     fill: List[float] = []
 
     def batches() -> Iterator[Dict[str, torch.Tensor]]:
+        b_shard = None
         for pb in pipe:
             segments.append(float(pb.segment_ids.max(axis=1).mean()))
             fill.append(pb.real_tokens / pb.capacity)
-            yield {k: torch.from_numpy(getattr(pb, k)).to(device)
+            out = {k: torch.from_numpy(getattr(pb, k)).to(device)
                    for k in ("tokens", "labels", "segment_ids", "positions")}
+            if mesh is not None:
+                b_shard = b_shard or batch_shardings(out, mesh, rules)
+                out = {k: distribute(v, b_shard[k]) for k, v in out.items()}
+            yield out
 
     ctl = TrainController(step_fn, TrainControllerConfig(
         checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every))
     params, opt_state, start = ctl.init_state(lambda: (params, opt_state))
-    print(f"arch={cfg.name} device={device} seq={seq_len} batch={batch} "
-          f"remat={args.remat} compute={compute_dtype} start={start}")
+    mesh_shape = ({n: mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)}
+                  if mesh is not None else None)
+    print(f"arch={cfg.name} device={device} mesh={mesh_shape} seq={seq_len} "
+          f"batch={batch} remat={args.remat} compute={compute_dtype} start={start}")
 
     losses: List[float] = []
     grad_norms: List[float] = []
 
     def on_metrics(step: int, metrics: Dict[str, torch.Tensor]) -> None:
-        losses.append(float(metrics["loss"]))
-        grad_norms.append(float(metrics["grad_norm"]))
+        losses.append(_scalar(metrics["loss"]))
+        grad_norms.append(_scalar(metrics["grad_norm"]))
         if step % 10 == 0 or step == start + 1:
             print(f"step {step:>5}  loss {losses[-1]:.4f}  "
                   f"grad_norm {grad_norms[-1]:.3f}")
@@ -149,7 +208,7 @@ def run(
     done = summary["final_step"] - start
     step_ms = sorted(1e3 * s for s in summary["step_times"])
     stats: Dict[str, Any] = {
-        "arch": cfg.name, "device": str(device), "seq_len": seq_len,
+        "arch": cfg.name, "device": str(device), "mesh": mesh_shape, "seq_len": seq_len,
         "batch_size": batch, "steps": done, "seconds": dt,
         "tokens_per_s": done * batch * seq_len / dt if dt > 0 else 0.0,
         "step_ms": [1e3 * s for s in summary["step_times"]],

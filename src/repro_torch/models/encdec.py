@@ -22,6 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..distributed.context import constrain
 from ..kernels.paged_attention.ops import page_table_from_allocator
 from ..serving.kv_cache import PageAllocator, PagedCacheLayout
 from .layers import (
@@ -116,6 +117,7 @@ class EncDecLM:
         pos = torch.arange(Se, dtype=torch.int32, device=enc_embeds.device).expand(B, Se)
 
         def body(p, x):
+            x = constrain(x, ("batch", "seq", None))
             h = norm(p["ln1"], cfg.norm_type, x)
             out, _ = attention(p["self_attn"], cfg, h, enc_segment_ids, pos, causal=False)
             x = x + out
@@ -150,6 +152,7 @@ class EncDecLM:
         enc_pos = torch.arange(Se, dtype=torch.int32, device=enc_out.device).expand(B, Se)
 
         def body(p, x):
+            x = constrain(x, ("batch", "seq", None))
             h = norm(p["ln1"], cfg.norm_type, x)
             out, kv = attention(p["self_attn"], cfg, h, segment_ids, positions)
             x = x + out
@@ -266,6 +269,7 @@ class EncDecLM:
         position = new_len - 1
         x = params["embed"][tokens]  # (B, 1, d)
         for layer, p in enumerate(self._layers(params["dec_blocks"])):
+            x = constrain(x, ("batch", None, None))
             h = norm(p["ln1"], cfg.norm_type, x)
             x = x + attention_decode(p["self_attn"], cfg, h, position, cache["k"][layer],
                                      cache["v"][layer], table, new_len)

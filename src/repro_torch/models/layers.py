@@ -17,7 +17,9 @@ Conventions (the JAX package's):
   positions: (B, S) int32 — within-segment positions (used for RoPE);
   causality uses absolute sequence indices, so packed segments stay causal.
 Parameters are the JAX package's, keyed by the same names; the projections
-keep its (d, H, hd) and (H, hd, d) layouts.
+keep its (d, H, hd) and (H, hd, d) layouts.  ``constrain`` pins the
+activations' layout at the JAX package's call sites while a mesh context
+is active (``distributed/context.py``); without one it does nothing.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
+from ..distributed.context import constrain
 from ..kernels.packed_attention import ops as packed_ops
 from ..kernels.paged_attention import ops as paged_ops
 from .params import Spec
@@ -221,8 +225,8 @@ def flash_attention(
     B, Sq, H, D = q.shape
     KVH = k.shape[2]
     scale = 1.0 / math.sqrt(D)
-    k = repeat_kv(k, H // KVH)
-    v = repeat_kv(v, H // KVH)
+    k = constrain(repeat_kv(k, H // KVH), ("batch", None, "heads", None))
+    v = constrain(repeat_kv(v, H // KVH), ("batch", None, "heads", None))
 
     chunk_q = min(chunk_q, Sq)
     chunk_kv = min(chunk_kv, k.shape[1])
@@ -286,17 +290,25 @@ def _project_qkv(
     """q from ``x``, k and v from ``x_kv`` (a cross-attention source;
     default ``x``)."""
     x_kv = x if x_kv is None else x_kv
+    # the sequence gathered before the projections (as XLA gathers it
+    # between sequence-parallel blocks): a DTensor product cannot flatten
+    # (B, S) with S sharded
+    x_kv = constrain(x_kv, ("batch", None, None))
     k, v = _heads(x_kv, p["wk"]), _heads(x_kv, p["wv"])
     if cfg.qkv_bias:
         k = k + p["bk"]
         v = v + p["bv"]
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"])
-    return _project_q(p, cfg, x), k, v
+    # the layout inside the block: heads over model, sequence gathered
+    q = constrain(_project_q(p, cfg, x), ("batch", None, "heads", None))
+    k = constrain(k, ("batch", None, "kv_heads", None))
+    v = constrain(v, ("batch", None, "kv_heads", None))
+    return q, k, v
 
 
 def _project_q(p: Dict[str, torch.Tensor], cfg: Any, x: torch.Tensor) -> torch.Tensor:
-    q = _heads(x, p["wq"])
+    q = _heads(constrain(x, ("batch", None, None)), p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     if cfg.qk_norm:
@@ -308,6 +320,20 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """(B, S, H, hd) @ (H, hd, d) -> (B, S, d)."""
     H, hd, d = wo.shape
     return out.flatten(-2) @ wo.reshape(H * hd, d)
+
+
+def _sharded_heads(t: torch.Tensor) -> list:
+    return [m for m, pl in enumerate(t.placements) if isinstance(pl, Shard) and pl.dim == 2]
+
+
+def _kv_heads_as_q(q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+    """K or V for the kernels on DTensors, whose rule wants the KV heads
+    sharded as q's heads: where the rules could not shard the KV heads so
+    (fewer KV heads than shards), they are repeated to q's heads first and
+    laid out as q's, as the JAX package's flash path does."""
+    if not isinstance(q, DTensor) or _sharded_heads(q) == _sharded_heads(kv):
+        return kv
+    return constrain(repeat_kv(kv, q.shape[2] // kv.shape[2]), ("batch", None, "heads", None))
 
 
 def attention(
@@ -333,15 +359,20 @@ def attention(
     segment_ids_kv = segment_ids if segment_ids_kv is None else segment_ids_kv
     positions_kv = positions if positions_kv is None else positions_kv
     q, k, v = _project_qkv(p, cfg, x, x_kv)
-    if use_rope:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions_kv, cfg.rope_theta)
+    if use_rope:  # positions laid out as q and k are: the sequence whole
+        q = rope(q, constrain(positions, ("batch", None)), cfg.rope_theta)
+        k = rope(k, constrain(positions_kv, ("batch", None)), cfg.rope_theta)
+    # the kernels read whole rows of segment ids (as XLA gathers them)
+    segment_ids = constrain(segment_ids, ("batch", None))
+    segment_ids_kv = constrain(segment_ids_kv, ("batch", None))
     if x.device.type == "cpu":
         out = flash_attention(q, k, v, segment_ids, segment_ids_kv, causal=causal,
                               window=cfg.sliding_window)
     else:  # the Hopper kernels, or a raise: never the plain version
+        k, v = _kv_heads_as_q(q, k), _kv_heads_as_q(q, v)
         out = packed_ops.packed_attention(q, k, v, segment_ids, segment_ids_kv,
                                           causal=causal, window=cfg.sliding_window)
+    out = constrain(out, ("batch", None, "heads", None))
     return _out_proj(out, p["wo"]), (k, v)
 
 
@@ -419,8 +450,10 @@ def mlp_specs(cfg: Any, d_ff: Optional[int] = None) -> Dict[str, Spec]:
 
 
 def mlp(p: Dict[str, torch.Tensor], cfg: Any, x: torch.Tensor) -> torch.Tensor:
+    x = constrain(x, ("batch", None, None))  # the sequence gathered
     if cfg.act == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = F.gelu(x @ p["w_up"], approximate="tanh")  # jax.nn.gelu's default
+    h = constrain(h, ("batch", None, "mlp"))
     return h @ p["w_down"]

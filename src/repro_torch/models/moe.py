@@ -12,8 +12,16 @@ tokens in token order and the same tokens overflow), give each its position
 in its expert's bin by a count per expert, scatter into an ``(E, C, d)``
 buffer, run the expert FFNs, and combine back with the router's gates.
 
-The port has one device and no mesh, so the JAX package's dispatch groups
-are one group (G = 1).  On the card a SwiGLU layer runs its experts through
+The dispatch is group-local, as in the JAX package: the tokens split into G
+groups along the batch dim, G being the number of batch shards of the
+active mesh layout (``distributed.context.batch_shard_count``; G = 1 with
+no mesh context).  Each group routes, sorts and fills its own capacity
+bins (the capacity is per group: each shard drops its own overflow), which
+the port computes as one dispatch over G x E bins.  On DTensors the
+dispatch and the combine run on each rank's own groups (the router
+gathered whole), and only the expert FFN between them runs as DTensor
+products laid out by the rules.  On the card a SwiGLU
+layer with G = 1 runs its experts through
 the grouped-matmul kernel (``kernels.grouped_matmul.ops.expert_ffn_swiglu``),
 whose tiles take 128-row bins; elsewhere the experts are a batched product
 over 8-aligned bins, as the JAX package computes them off the TPU.  The
@@ -33,7 +41,9 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..distributed.context import batch_shard_count, constrain
 from ..kernels.grouped_matmul.ops import expert_ffn_swiglu
 from .params import Spec
 
@@ -93,57 +103,94 @@ def moe_layer(
     B, S, d = x.shape
     E, K = mcfg.num_experts, mcfg.top_k
     T = B * S
-    kernel_path = use_gmm_kernel and cfg.act == "swiglu" and x.is_cuda
-    C = expert_capacity(T, E, K, mcfg.capacity_factor, align=128 if kernel_path else 8)
-    xt = x.reshape(T, d)
+    G = batch_shard_count(B)
+    Tg = (B // G) * S
+    kernel_path = use_gmm_kernel and cfg.act == "swiglu" and x.is_cuda and G == 1
+    C = expert_capacity(Tg, E, K, mcfg.capacity_factor, align=128 if kernel_path else 8)
+    x = constrain(x, ("batch", None, None))  # the sequence gathered
+    xg = constrain(x.reshape(G, Tg, d), ("batch", None, None))
+    router = p["router"]
+    lay = None  # on DTensors: (mesh, the groups' placements)
+    if isinstance(xg, DTensor):
+        # each rank dispatches its own groups: groups over the batch mesh
+        # dims, whole on the others
+        lay = (xg.device_mesh, [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+                                for pl in xg.placements])
+        xg = xg.redistribute(*lay).to_local()
+        router = router.full_tensor() if isinstance(router, DTensor) else router
+        G = xg.shape[0]
+        T = G * Tg
+    xt = xg.reshape(T, d)
 
-    # ---- routing and capacity-bin packing -----------------------------------
-    logits = xt.float() @ p["router"].float()
+    # ---- routing and capacity-bin packing, per group -------------------------
+    logits = xt.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = _top_k_iterative(probs, K)  # (T, K)
     # renormalize the selected gates (Mixtral/Qwen convention)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp(min=1e-9)
 
-    flat_expert = expert_idx.reshape(-1).long()          # (T*K,)
-    order = torch.argsort(flat_expert, stable=True)      # sort by destination
-    sorted_expert = flat_expert[order]
+    # bin g * E + e is expert e's bin of group g: token t is in group t // Tg
+    group = torch.arange(T * K, device=x.device) // (Tg * K)
+    flat_bin = group * E + expert_idx.reshape(-1).long()    # (T*K,)
+    order = torch.argsort(flat_bin, stable=True)          # sort by destination
+    sorted_bin = flat_bin[order]
     sorted_token = order // K
-    counts = torch.zeros(E, dtype=torch.int32, device=x.device).index_add_(
-        0, flat_expert, torch.ones_like(flat_expert, dtype=torch.int32))
-    starts = torch.cumsum(counts, 0) - counts            # exclusive prefix sum
-    pos_in_expert = torch.arange(T * K, device=x.device) - starts[sorted_expert]
-    keep = pos_in_expert < C                              # bin overflow -> drop
-    dest = torch.where(keep, sorted_expert * C + pos_in_expert, E * C)
-    buf = x.new_zeros((E * C + 1, d))
-    buf[dest] = xt[sorted_token]                          # row E*C takes the drops
-    buf = buf[:E * C].view(E, C, d)
+    counts = torch.zeros(G * E, dtype=torch.int32, device=x.device).index_add_(
+        0, flat_bin, torch.ones_like(flat_bin, dtype=torch.int32))
+    starts = torch.cumsum(counts, 0) - counts             # exclusive prefix sum
+    pos_in_bin = torch.arange(T * K, device=x.device) - starts[sorted_bin]
+    keep = pos_in_bin < C                                 # bin overflow -> drop
+    dest = torch.where(keep, sorted_bin * C + pos_in_bin, G * E * C)
+    buf = xt.new_zeros((G * E * C + 1, d))
+    buf[dest] = xt[sorted_token]                          # the last row takes the drops
+    # (G, E, C, d): groups over the batch axes, experts over model
+    buf = buf[:G * E * C].view(G, E, C, d)
+    if lay is not None:
+        buf = DTensor.from_local(buf, *lay, run_check=False)
+    buf = constrain(buf, ("batch", "experts", None, None))
 
     # ---- the expert FFN ------------------------------------------------------
     if kernel_path:
-        out_buf = expert_ffn_swiglu(buf, p["w_gate"], p["w_up"], p["w_down"],
-                                    counts.clamp(max=C))
+        out_buf = expert_ffn_swiglu(buf[0], p["w_gate"], p["w_up"], p["w_down"],
+                                    counts.clamp(max=C))[None]
     else:
         if cfg.act == "swiglu":
-            h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w_gate"])) * torch.einsum(
-                "ecd,edf->ecf", buf, p["w_up"])
+            h = F.silu(torch.einsum("gecd,edf->gecf", buf, p["w_gate"])) * torch.einsum(
+                "gecd,edf->gecf", buf, p["w_up"])
         else:  # jax.nn.gelu's default is the tanh form
-            h = F.gelu(torch.einsum("ecd,edf->ecf", buf, p["w_up"]), approximate="tanh")
-        out_buf = torch.einsum("ecf,efd->ecd", h, p["w_down"])
+            h = F.gelu(torch.einsum("gecd,edf->gecf", buf, p["w_up"]), approximate="tanh")
+        h = constrain(h, ("batch", "experts", None, "mlp"))
+        out_buf = torch.einsum("gecf,efd->gecd", h, p["w_down"])
+    out_buf = constrain(out_buf, ("batch", "experts", None, None))
+    if lay is not None:
+        out_buf = out_buf.redistribute(*lay).to_local()
 
     # ---- combine: each token's K contributions, summed in fp32 --------------
-    gathered = out_buf.reshape(E * C, d)[torch.where(keep, dest, 0)].float()
+    gathered = out_buf.reshape(G * E * C, d)[torch.where(keep, dest, 0)].float()
     gates_sorted = gate_vals.reshape(-1)[order]
     contrib = torch.where(keep[:, None], gathered * gates_sorted[:, None], 0.0)
     inverse = torch.empty_like(order)
     inverse[order] = torch.arange(T * K, device=x.device)
     out = contrib[inverse].view(T, K, d).sum(dim=1).to(x.dtype)
+    out = out.view(G, Tg, d)
+    if lay is not None:
+        out = DTensor.from_local(out, *lay, run_check=False)
+    out = constrain(out, ("batch", None, None))
 
     # ---- aux losses ----------------------------------------------------------
-    # Switch-style load balance: E * sum_e (fraction_e * prob_e)
-    frac = counts.float() / max(1, T * K)
-    lb_loss = E * torch.sum(frac * probs.mean(dim=0))
-    z_loss = torch.logsumexp(logits, dim=-1).square().mean()
-    dropped = (~keep).sum() / max(1, T * K)
+    # Switch-style load balance: E * sum_e (fraction_e * prob_e), averaged
+    # over groups (the global statistic when groups are equal-sized)
+    frac = counts.view(G, E).float() / max(1, Tg * K)
+    mean_prob = probs.view(G, Tg, E).mean(dim=1)
+    lb_g = torch.sum(frac * mean_prob, dim=-1)                        # (G,)
+    z_g = torch.logsumexp(logits, dim=-1).square().view(G, Tg).mean(dim=1)
+    drop_g = (~keep).view(G, Tg * K).sum(dim=1)
+    if lay is not None:  # each rank's groups, averaged over every group
+        lb_g, z_g, drop_g = (DTensor.from_local(t, *lay, run_check=False)
+                             for t in (lb_g, z_g, drop_g))
+    lb_loss = E * torch.mean(lb_g)
+    z_loss = z_g.mean()
+    dropped = drop_g.sum() / max(1, B * S * K)
     aux = {
         "moe_load_balance": lb_loss * mcfg.load_balance_loss,
         "moe_z_loss": z_loss * mcfg.router_z_loss,

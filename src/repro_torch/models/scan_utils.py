@@ -17,11 +17,34 @@ from typing import Any, Callable, List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["chunked_scan"]
+__all__ = ["chunked_scan", "time_major"]
 
 Tree = Any  # a tensor, or a tuple / list / dict of trees
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient comes back contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def time_major(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, ...) -> (S, B, ...), a view.  On a DTensor the gradient that
+    comes back through it is made contiguous: it arrives time-major, and
+    DTensor reshapes a gradient as a view of its local tensor, which the
+    transposed layout cannot give (a product's backward upstream fails)."""
+    if isinstance(x, DTensor):
+        x = _ContiguousGrad.apply(x)
+    return x.transpose(0, 1)
 
 
 def _leaves(tree: Tree) -> List[torch.Tensor]:

@@ -17,8 +17,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.context import constrain
 from .params import Spec
-from .scan_utils import chunked_scan
+from .scan_utils import chunked_scan, time_major
 
 __all__ = ["mamba_specs", "mamba_forward", "mamba_decode_step", "mamba_init_state",
            "causal_depthwise_conv", "MambaState"]
@@ -77,7 +78,7 @@ def _ssm_scan(
         y = (h @ c_t[..., None])[..., 0]                    # (B, di)
         return h, y
 
-    xs = tuple(t.transpose(0, 1) for t in (dt, x, Bmat, Cmat))
+    xs = tuple(time_major(t) for t in (dt, x, Bmat, Cmat))
     h, ys = chunked_scan(step, h0, xs, chunk_size=chunk_size)
     return h, ys.transpose(0, 1)  # (B, S, di)
 
@@ -104,7 +105,9 @@ def mamba_forward(
     B, S, _ = x.shape
     di, ds = s.inner(cfg.d_model), s.d_state
 
-    x_in, z = (x @ p["in_proj"]).chunk(2, dim=-1)  # (B, S, di) each
+    x = constrain(x, ("batch", None, None))  # the sequence gathered
+    xz = constrain(x @ p["in_proj"], ("batch", None, "mlp"))
+    x_in, z = xz.chunk(2, dim=-1)  # (B, S, di) each
     if state is not None:
         conv_in = torch.cat([state["conv"].to(x_in.dtype), x_in], dim=1)
         conv_out = causal_depthwise_conv(conv_in, p["conv_w"], p["conv_b"])

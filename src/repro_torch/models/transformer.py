@@ -37,12 +37,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
 )
 
+from ..distributed.context import constrain
 from ..kernels.paged_attention.ops import page_table_from_allocator
 from ..serving.kv_cache import PageAllocator, PagedCacheLayout
 from . import ssm, xlstm
@@ -71,10 +73,25 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's pending partial reductions carried out (each partial mesh
+    dim made ``Replicate``); anything else as it is.  A gather along a
+    sharded dim leaves a masked partial, which DTensor cannot carry through
+    the select that follows."""
+    if not isinstance(x, DTensor) or not any(p.is_partial() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in x.placements])
+
+
 def _chunk_loss(h_c: torch.Tensor, table_f: torch.Tensor, l_c: torch.Tensor):
-    logits = h_c.float() @ table_f.T  # (B, chunk, V) fp32
+    # batch over the data axes only, so that the vocab dim can take "model":
+    # the (b, chunk, V) logits stay sharded
+    h_c = constrain(h_c, ("batch_data", None, None))
+    logits = constrain(h_c.float() @ table_f.T,  # (B, chunk, V) fp32
+                       ("batch_data", None, "vocab"))
     lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, l_c.clamp(min=0).long()[..., None])[..., 0]
+    picked = _reduce_partial(logits.gather(-1, l_c.clamp(min=0).long()[..., None]))[..., 0]
     valid = (l_c >= 0).float()
     ce = (lse - picked) * valid
     zl = lse.square() * valid
@@ -96,6 +113,8 @@ def chunked_cross_entropy(
     The table is cast to fp32 once, outside the chunks (the JAX package casts
     it inside each; the values are the same)."""
     B, S, d = hidden.shape
+    hidden = constrain(hidden, ("batch_data", None, None))  # the sequence gathered
+    labels = constrain(labels, ("batch_data", None))
     chunk = min(chunk, S)
     pad = (-S) % chunk
     if pad:
@@ -316,18 +335,23 @@ class DecoderLM:
             for pos, char in enumerate(pattern):
                 yield period * len(pattern) + pos, char, blocks[str(pos)]
 
-    def _ffn(self, p: Dict[str, Any], x: torch.Tensor
+    def _ffn(self, p: Dict[str, Any], x: torch.Tensor, out_axes: Optional[tuple] = None
              ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
         """``x`` plus the block's feed-forward (the MLP, or the MoE layer
         where ``p["ffn"]`` has a router) of its normed input, and the MoE
-        layer's aux losses (None for an MLP)."""
+        layer's aux losses (None for an MLP).  ``out_axes`` constrains the
+        feed-forward's output before the sum."""
         if "ffn" not in p:
             return x, None
         h = norm(p["ln2"], self.cfg.norm_type, x)
+        aux = None
         if "router" in p["ffn"]:
             out, aux = moe_layer(p["ffn"], self.cfg, h)
-            return x + out, aux
-        return x + mlp(p["ffn"], self.cfg, h), None
+        else:
+            out = mlp(p["ffn"], self.cfg, h)
+        if out_axes is not None:
+            out = constrain(out, out_axes)
+        return x + out, aux
 
     # ---- training forward -----------------------------------------------------
     def _apply_block_train(
@@ -340,9 +364,11 @@ class DecoderLM:
         aux: Dict[str, torch.Tensor],
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
+        x = constrain(x, ("batch", "seq", None))
         h = norm(p["ln1"], cfg.norm_type, x)
         out, _ = _mixer(char, p["mixer"], cfg, h, seg, pos_ids)
-        x, moe_aux = self._ffn(p, x + out)
+        x = x + constrain(out, ("batch", "seq", None))
+        x, moe_aux = self._ffn(p, x, out_axes=("batch", "seq", None))
         return x, _add_aux(aux, moe_aux)
 
     def hidden_states(
@@ -439,6 +465,7 @@ class DecoderLM:
         x = self._embed(params, batch)
         n_attn, states = 0, []
         for _, char, p in self._layers(params):
+            x = constrain(x, ("batch", "seq", None))
             h = norm(p["ln1"], cfg.norm_type, x)
             out, kept = _mixer(char, p["mixer"], cfg, h, seg, pos_ids)
             if char == "A":
@@ -474,6 +501,7 @@ class DecoderLM:
         x = self._embed(params, batch)  # (B, 1, d)
         n_attn = n_rec = 0
         for _, char, p in self._layers(params):
+            x = constrain(x, ("batch", None, None))
             h = norm(p["ln1"], cfg.norm_type, x)
             if char == "A":
                 out = attention_decode(p["mixer"], cfg, h, position, cache["k"][n_attn],

@@ -22,9 +22,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.context import constrain
 from .layers import rms_norm
 from .params import Spec
-from .scan_utils import chunked_scan
+from .scan_utils import chunked_scan, time_major
 from .ssm import causal_depthwise_conv
 
 __all__ = [
@@ -101,7 +102,7 @@ def _mlstm_scan(q, k, v, ig, fg, state: State,
         den = torch.maximum((n * q_t).sum(-1).abs(), torch.exp(-m_new))
         return (C, n, m_new), num / den[..., None]
 
-    xs = tuple(a.float().transpose(0, 1) for a in (q, k, v, ig, fg))
+    xs = tuple(time_major(a.float()) for a in (q, k, v, ig, fg))
     (C, n, m), hs = chunked_scan(step, (state["C"], state["n"], state["m"]), xs,
                                  chunk_size=chunk_size)
     return hs.transpose(0, 1), {"C": C, "n": n, "m": m}  # (B, S, H, dh)
@@ -117,7 +118,9 @@ def mlstm_forward(
 ) -> Tuple[torch.Tensor, State]:
     B, S, _ = x.shape
     du, H, dh = _mlstm_dims(cfg)
-    xm, z = (x @ p["up"]).chunk(2, dim=-1)  # (B, S, du)
+    x = constrain(x, ("batch", None, None))  # the sequence gathered
+    up = constrain(x @ p["up"], ("batch", None, "mlp"))
+    xm, z = up.chunk(2, dim=-1)  # (B, S, du)
     if state is None:
         state = mlstm_init_state(cfg, B, x.device)
         conv_in, trim = xm, 0
@@ -199,7 +202,7 @@ def _slstm_scan(gx: torch.Tensor, wr: torch.Tensor, b: torch.Tensor, state: Stat
 
     (c, n, h, m), hs = chunked_scan(
         step, (state["c"], state["n"], state["h"], state["m"]),
-        gx.float().transpose(0, 1), chunk_size=chunk_size)
+        time_major(gx.float()), chunk_size=chunk_size)
     return hs.transpose(0, 1), {"c": c, "n": n, "h": h, "m": m}
 
 
@@ -214,6 +217,7 @@ def slstm_forward(
     B, S, d = x.shape
     if state is None:
         state = slstm_init_state(cfg, B, x.device)
+    x = constrain(x, ("batch", None, None))  # the sequence gathered
     gx = _heads(x, p["wx"])  # (B, S, 4, H, dh)
     h, new_state = _slstm_scan(gx, p["wr"], p["b"], state, chunk_size)
     h = rms_norm(h, p["out_norm"]).reshape(B, S, d).to(x.dtype)

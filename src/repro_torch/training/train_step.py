@@ -1,4 +1,4 @@
-"""Training step builder: mixed precision and microbatching.
+"""Training step builder: mixed precision, microbatching, grad compression.
 
 ``make_train_step`` returns a ``(params, opt_state, batch) -> (params,
 opt_state, metrics)`` function, as the JAX package's does: the gradient of
@@ -6,9 +6,15 @@ opt_state, metrics)`` function, as the JAX package's does: the gradient of
 card), then AdamW.  Master params and the optimizer state stay fp32; the
 forward runs on a copy cast to ``compute_dtype``.
 
-Not ported: gradient compression (``compressor``; ROADMAP queue 1 item 7)
-and the gradient shardings of a mesh (``grad_shardings``; item 8): this
-path trains on one card.
+Distributed-optimization options, off by default as in the JAX package:
+  - ``microbatches > 1``: gradient accumulation, summed in fp32;
+  - ``compressor``: int8 quantization with error feedback of the
+    (microbatch-averaged) gradients before AdamW
+    (``distributed/compression.py``); the error feedback lives in
+    ``opt_state["ef"]``, out of the AdamW core;
+  - ``grad_shardings``: with the params as DTensors on a mesh, the compute
+    copy and the gradients are redistributed to these (the parameters')
+    shardings (``distributed/sharding.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.params import tree_leaves, tree_map, tree_unflatten
 from .optimizer import OptimizerConfig, adamw_update
@@ -36,6 +43,14 @@ def cast_params_for_compute(params: Tree, dtype: torch.dtype = torch.bfloat16) -
     return tree_map(lambda p: _cast(p, dtype), params)
 
 
+def _redistribute(t: torch.Tensor, sharding: Any) -> torch.Tensor:
+    """A DTensor ``t`` moved to ``sharding``'s placements; a plain tensor as
+    it is."""
+    if isinstance(t, DTensor) and tuple(t.placements) != sharding.placements:
+        return t.redistribute(t.device_mesh, sharding.placements)
+    return t
+
+
 def _microbatch_split(batch: Dict[str, torch.Tensor], n: int) -> List[Dict[str, torch.Tensor]]:
     """(B, ...) -> n batches of (B/n, ...)."""
     for x in batch.values():
@@ -52,6 +67,7 @@ def make_train_step(
     microbatches: int = 1,
     compute_dtype: torch.dtype = torch.bfloat16,
     compressor: Optional[Any] = None,
+    grad_shardings: Optional[Tree] = None,
     grad_reduce_dtype: str = "bf16",
 ) -> Callable[[Tree, Dict[str, Any], Dict[str, torch.Tensor]],
               Tuple[Tree, Dict[str, Any], Dict[str, torch.Tensor]]]:
@@ -61,19 +77,22 @@ def make_train_step(
     the params, so the gradients come out in the compute dtype and are cast
     to fp32 by the optimizer, as the JAX package does; ``"f32"``
     differentiates through the cast, giving fp32 gradients.  Microbatch
-    gradients are summed in fp32 and averaged.
+    gradients are summed in fp32 and averaged.  ``grad_shardings`` (a tree
+    of ``Sharding`` shaped as the params) pins the compute copy and the
+    gradients to the parameter placements.
     """
-    if compressor is not None:
-        raise NotImplementedError(
-            "gradient compression is ROADMAP queue 1 item 7; it is not ported")
     if grad_reduce_dtype not in ("bf16", "f32"):
         raise ValueError(f"unknown grad_reduce_dtype {grad_reduce_dtype!r}")
     bf16_reduce = grad_reduce_dtype == "bf16"
 
+    pin = (lambda leaves: leaves) if grad_shardings is None else (
+        lambda leaves: [_redistribute(t, s) for t, s in
+                        zip(leaves, tree_leaves(grad_shardings), strict=True)])
+
     def compute_grads(params: Tree, batch: Dict[str, torch.Tensor]):
         if bf16_reduce:
-            wrt = [_cast(p, compute_dtype).detach().requires_grad_(True)
-                   for p in tree_leaves(params)]
+            wrt = [t.detach().requires_grad_(True) for t in
+                   pin([_cast(p, compute_dtype) for p in tree_leaves(params)])]
             compute = tree_unflatten(params, wrt)
         else:
             wrt = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
@@ -81,7 +100,7 @@ def make_train_step(
         with torch.enable_grad():
             loss, metrics = model.loss(compute, batch, remat_policy=remat_policy)
             grads = torch.autograd.grad(loss, wrt, allow_unused=True)
-        grads = [torch.zeros_like(w) if g is None else g for w, g in zip(wrt, grads)]
+        grads = pin([torch.zeros_like(w) if g is None else g for w, g in zip(wrt, grads)])
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, tree_unflatten(params, grads)
 
@@ -101,7 +120,13 @@ def make_train_step(
             metrics: Dict[str, torch.Tensor] = {"loss": lsum / microbatches}
         else:
             _, metrics, grads = compute_grads(params, batch)
-        params_new, opt_new, opt_metrics = adamw_update(params, grads, opt_state, opt_cfg)
+        ef_state = opt_state.get("ef")
+        opt_core = {k: v for k, v in opt_state.items() if k != "ef"}
+        if compressor is not None:
+            grads, ef_state = compressor.apply(grads, ef_state)
+        params_new, opt_new, opt_metrics = adamw_update(params, grads, opt_core, opt_cfg)
+        if ef_state is not None:
+            opt_new["ef"] = ef_state
         return params_new, opt_new, dict(metrics, **opt_metrics)
 
     return train_step

@@ -876,3 +876,162 @@ def test_moe_serving_on_card_launches_three_products_per_layer():
     assert ops.launches == before + 3 * 2 * (1 + 3)  # 2 layers, prefill + 3 steps
     assert paged_ops.launches == paged_before + 2 * 3
     assert stats["logits_finite"] and stats["tokens"].shape == (4, 4)
+
+
+# ---------------------------------------------------------------------------
+# The distributed layer on the card: the kernels' DTensor rule on a (1, 1)
+# mesh of a one-rank NCCL group, and the int8 gradient compressor
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def card_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    started = not dist.is_initialized()
+    yield make_local_mesh("cuda")
+    if started and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _dt(t, mesh, placements):
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(t, mesh, placements, run_check=False)
+
+
+@pytest.mark.cuda
+def test_packed_kernels_run_shard_local_on_dtensors(card_mesh):
+    """Batch and heads sharded: the kernels run (forward and backward) on
+    the local shards and give the plain tensors' results; the sequence
+    sharded raises and launches nothing."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels.packed_attention import ops as packed
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, S, H, KVH, D = 2, 256, 4, 2, 64
+    q, k, v = (torch.randn(B, S, h, D, device="cuda", generator=g, dtype=torch.bfloat16)
+               for h in (H, KVH, KVH))
+    seg = torch.ones(B, S, dtype=torch.int32, device="cuda")
+    seg[:, 100:] = 2
+    want = packed.packed_attention(q, k, v, seg, seg)
+    heads, rows = (Shard(0), Shard(2)), (Shard(0), Replicate())
+    dq = _dt(q.clone(), card_mesh, heads).requires_grad_(True)
+    fwd, bwd = packed.launches_fwd, packed.launches_bwd
+    out = packed.packed_attention(dq, _dt(k, card_mesh, heads), _dt(v, card_mesh, heads),
+                                  _dt(seg, card_mesh, rows), _dt(seg, card_mesh, rows))
+    assert isinstance(out, DTensor) and tuple(out.placements) == heads
+    assert torch.equal(out.to_local(), want)
+    out.sum().backward()
+    assert (packed.launches_fwd, packed.launches_bwd) == (fwd + 1, bwd + 1)
+    assert tuple(dq.grad.placements) == heads
+    with pytest.raises(ValueError, match="packed_attention: q"):
+        packed.packed_attention(_dt(q, card_mesh, (Shard(0), Shard(1))),
+                                _dt(k, card_mesh, heads), _dt(v, card_mesh, heads),
+                                _dt(seg, card_mesh, rows), _dt(seg, card_mesh, rows))
+    assert (packed.launches_fwd, packed.launches_bwd) == (fwd + 1, bwd + 1)
+
+
+@pytest.mark.cuda
+def test_paged_and_grouped_kernels_run_shard_local_on_dtensors(card_mesh):
+    from torch.distributed.tensor import Replicate, Shard
+
+    rng = np.random.default_rng(3)
+    B, H, KVH, D, P, ps = 4, 8, 2, 128, 32, 16
+    q = torch.tensor(rng.normal(size=(B, H, D)), device="cuda").to(torch.bfloat16)
+    kp, vp = (torch.tensor(rng.normal(size=(P, ps, KVH, D)), device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    table = torch.arange(B * 8, dtype=torch.int32, device="cuda").view(B, 8)
+    lens = torch.tensor([128, 17, 64, 1], dtype=torch.int32, device="cuda")
+    want = paged_ops.paged_attention(q, kp, vp, table, lens)
+    rows, heads = (Shard(0), Replicate()), (Shard(0), Shard(1))
+    pools = (Replicate(), Shard(2))
+    before = paged_ops.launches
+    out = paged_ops.paged_attention(_dt(q, card_mesh, heads), _dt(kp, card_mesh, pools),
+                                    _dt(vp, card_mesh, pools), _dt(table, card_mesh, rows),
+                                    _dt(lens, card_mesh, rows))
+    assert paged_ops.launches == before + 1 and torch.equal(out.to_local(), want)
+    with pytest.raises(ValueError, match="paged_attention: k_pool"):
+        paged_ops.paged_attention(_dt(q, card_mesh, heads),
+                                  _dt(kp, card_mesh, (Shard(0), Shard(2))),
+                                  _dt(vp, card_mesh, pools), _dt(table, card_mesh, rows),
+                                  _dt(lens, card_mesh, rows))
+    E, C, d, f = 4, 128, 64, 64
+    x = torch.tensor(rng.normal(size=(E, C, d)), device="cuda").to(torch.bfloat16)
+    w = torch.tensor(rng.normal(size=(E, d, f)), device="cuda").to(torch.bfloat16)
+    gs = torch.tensor([128, 3, 0, 64], dtype=torch.int32, device="cuda")
+    want = ops.gmm(x, w, gs)
+    experts = (Replicate(), Shard(0))
+    before = ops.launches
+    out = ops.gmm(_dt(x, card_mesh, experts), _dt(w, card_mesh, (Shard(2), Shard(0))),
+                  _dt(gs, card_mesh, experts))
+    assert ops.launches == before + 1 and torch.equal(out.to_local(), want)
+    with pytest.raises(ValueError, match="gmm: w"):
+        ops.gmm(_dt(x, card_mesh, experts), _dt(w, card_mesh, (Shard(1), Shard(0))),
+                _dt(gs, card_mesh, experts))
+    assert ops.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_compressor_and_mesh_local_training_at_smoke_width_on_card(tmp_path):
+    """The chip smoke's distributed phase at olmo-1b smoke width: the
+    compressor's error bound, error-feedback identity and same-seed
+    repeat on the step's gradients, the compressed run's step-1 loss equal
+    to the plain run's, and ``launch.train --mesh local`` through the
+    packed kernels with the plain run's step-1 loss."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import GradCompressor
+    from repro_torch.kernels.packed_attention import ops as packed
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.training import OptimizerConfig, init_opt_state, make_train_step
+    from repro_torch.training.train_step import cast_params_for_compute
+
+    cfg = get_config("olmo-1b").smoke()
+    model = build_model(cfg)
+    dev = torch.device("cuda")
+    params = train.make_params(model, 0, dev)
+    rng = np.random.default_rng(0)
+    tok = torch.tensor(rng.integers(0, cfg.vocab_size, (4, 256)), dtype=torch.int32,
+                       device=dev)
+    seg = torch.ones_like(tok)
+    seg[:, 90:] = 2
+    pos = torch.cat([torch.arange(90), torch.arange(166)]).int().to(dev).expand(4, 256)
+    batch = {"tokens": tok, "labels": tok.roll(-1, 1), "segment_ids": seg,
+             "positions": pos.contiguous()}
+    leaves = [t.detach().requires_grad_(True)
+              for t in tree_leaves(cast_params_for_compute(params))]
+    loss, _ = model.loss(tree_unflatten(params, leaves), batch)
+    grads = tree_unflatten(params, list(torch.autograd.grad(loss, leaves)))
+    deq, ef = GradCompressor(stochastic=False).apply(grads, None)
+    for g, dq, e in zip(tree_leaves(grads), tree_leaves(deq), tree_leaves(ef)):
+        g = g.float()  # half a step, and fp32's two roundings (chip_smoke QUANT_SLACK)
+        scale = float(g.abs().max()) / 127.0
+        assert float((g - dq).abs().max()) <= scale * (0.5 + 127 * 2.0 ** -22)
+        assert torch.equal(e, g - dq)
+    noisy = GradCompressor(stochastic=True)
+    a, b = noisy.apply(grads, None), noisy.apply(grads, None)
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a[0]), tree_leaves(b[0])))
+    losses = {}
+    for name, comp in (("compressed", GradCompressor(stochastic=False)), ("plain", None)):
+        step = make_train_step(model, OptimizerConfig(decay_steps=100), compressor=comp)
+        _, opt, met = step(params, init_opt_state(params), batch)
+        losses[name] = float(met["loss"])
+        assert ("ef" in opt) == (comp is not None)
+    assert losses["compressed"] == losses["plain"]
+    fwd = packed.launches_fwd
+    argv = ["--arch", "olmo-1b", "--smoke", "--steps", "2", "--ckpt-dir", str(tmp_path)]
+    meshed = train.run(train.parse_args(argv + ["--mesh", "local"]))
+    plain = train.run(train.parse_args(argv + ["--mesh", "none",
+                                               "--ckpt-dir", str(tmp_path / "none")]))
+    assert meshed["mesh"] == {"data": 1, "model": 1}
+    assert meshed["launches_fwd"] == plain["launches_fwd"] == 2 * 2 * cfg.n_layers
+    assert packed.launches_fwd == fwd + 2 * 2 * 2 * cfg.n_layers
+    assert abs(meshed["losses"][0] - plain["losses"][0]) <= 1e-6 * abs(plain["losses"][0])

@@ -40,9 +40,10 @@ from repro.training.optimizer import adamw_update as jax_adamw_update
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data import StreamingPipeline, synthetic_documents
+from repro_torch.distributed import GradCompressor
 from repro_torch.launch import train
 from repro_torch.models import build_model, params_from_numpy
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
 from repro_torch.training import (
     OptimizerConfig,
     init_opt_state,
@@ -409,10 +410,31 @@ def test_microbatch_indivisible_raises(built):
         step(params, init_opt_state(params), batch)
 
 
-def test_compressor_is_not_ported(built):
-    _, _, _, tm = built("olmo-1b")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        make_train_step(tm, OptimizerConfig(), compressor=object())
+def test_compressor_path_runs(built):
+    """The compressor quantizes the gradients before AdamW and keeps its
+    error feedback in ``opt_state["ef"]``, out of the AdamW core."""
+    cfg, _, jp, tm = built("olmo-1b")
+    params = port_params(jp)
+    batch = to_torch(packed_batches(cfg.vocab_size, 64, 2, 1)[0])
+    step = make_train_step(tm, OptimizerConfig(), compute_dtype=torch.float32,
+                           compressor=GradCompressor(stochastic=False))
+    plain = make_train_step(tm, OptimizerConfig(), compute_dtype=torch.float32)
+    new, opt, met = step(params, init_opt_state(params), batch)
+    _, opt0, met0 = plain(params, init_opt_state(params), batch)
+    assert float(met["loss"]) == float(met0["loss"])  # compression acts after the loss
+    assert set(opt) == {"m", "v", "step", "ef"} and set(opt0) == {"m", "v", "step"}
+    # the error feedback is the compressor's on the step's gradients
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    loss, _ = tm.loss(tree_unflatten(params, leaves), batch)
+    grads = tree_unflatten(params, list(torch.autograd.grad(loss, leaves)))
+    _, ef = GradCompressor(stochastic=False).apply(grads, None)
+    for a, b, g in zip(tree_leaves(opt["ef"]), tree_leaves(ef), tree_leaves(grads)):
+        assert torch.equal(a, b)
+        # half a step, and fp32's two roundings of it (chip_smoke QUANT_SLACK)
+        assert float(a.abs().max()) <= float(g.abs().max()) / 127.0 * (0.5 + 127 * 2.0 ** -22)
+    _, opt2, _ = step(new, opt, batch)  # the error feedback is carried
+    assert not all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(opt2["ef"]), tree_leaves(opt["ef"])))
 
 
 # ---------------------------------------------------------------------------
