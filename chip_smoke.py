@@ -256,6 +256,26 @@ SERVE_ARGV = ["--backend", "local", "--arch", "qwen3-8b", "--requests", "8",
               "--gen-tokens", "16", "--pages", "1024"]
 RAGGED_STEPS = 32
 PROFILE_STEPS = 2  # decode steps under torch.profiler, after the timed ones
+# phase 11c: the dry-run's count of a step on meta stand-ins against the
+# same step on the card.  The peak it predicts is its arguments plus the
+# most bytes its dispatched ops hold live at once; the card's is
+# max_memory_allocated() over the step less what the process holds beside
+# the step's arguments.  They part where the caching allocator gives a block
+# more than was asked (each rounded up to 512 bytes, and a block of over
+# 1 MB left unsplit when less than 1 MB would remain: at most ~1 MB a live
+# block, a few hundred live blocks at the train step's peak) and where a
+# kernel allocates scratch the operators' fakes do not (the packed
+# backward's delta, B H S fp32, 1 MB at the train shape); cuBLAS's
+# workspaces and the paged kernel's split scratch are allocated by the
+# warm-up step before it.  So the two agree to a few hundred MB of ~34 GB
+# (the train step) and ~19 GB (the decode step): 5% holds that with room,
+# and a step the count got wrong by one activation of a layer (~0.5 GB
+# in 34) would still read inside it, so the FLOPs and the roofline are held
+# exactly and by a bound instead.
+DRYRUN_MEM_TOL = 0.05
+# the ragged decode step counted on stand-ins: phase 10's 8 sequences, its
+# 1024-page pool and 128-page tables (seq_len 2048 = 128 pages of 16)
+DRYRUN_DECODE = {"B": 8, "S": 2048}
 # The first paged decode step against the port's prefill of prompt + token,
 # both bf16 at full width: max |dlogit| <= FIRST_STEP_TOL * max |logit|.
 # bf16 keeps 8 significant bits; the two paths round at different places
@@ -1477,6 +1497,20 @@ def _compressor_checks(torch, model, params, batch):
             "stochastic_repeat_bitwise": repeat}
 
 
+def _census_step(torch, step_fn, params, opt_state, batch):
+    """The packed kernels' tile census over one more step on ``batch``."""
+    from repro_torch.kernels.packed_attention import kernel as pk
+
+    pk.tile_census(True)
+    try:
+        out = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        del out
+    finally:
+        census = pk.tile_census(False)
+    return census
+
+
 def _timed_steps(torch, step_fn, params, opt_state, batches):
     """Run ``step_fn`` over ``batches``: (losses, step ms, final state)."""
     losses, ms = [], []
@@ -1499,7 +1533,8 @@ def distributed_phase(torch, np):
     import tempfile
 
     from repro_torch.configs import get_config
-    from repro_torch.distributed import GradCompressor
+    from repro_torch.distributed import GradCompressor, batch_shardings, make_rules
+    from repro_torch.distributed.sharding import distribute
     from repro_torch.kernels.packed_attention import ops as packed_ops
     from repro_torch.launch import train
     from repro_torch.models import build_model
@@ -1536,6 +1571,7 @@ def distributed_phase(torch, np):
                                          for t in tree_leaves(o["ef"]))
         else:
             runs[name]["profile"] = _profile_train_step(torch, step_fn, p, o, batches[0])
+            runs[name]["census"] = _census_step(torch, step_fn, p, o, batches[0])
         del p, o
     del params
     torch.cuda.empty_cache()
@@ -1546,7 +1582,12 @@ def distributed_phase(torch, np):
 
     def after_run(step_fn, p, o, stream):
         seen["launches"] = (packed_ops.launches_fwd, packed_ops.launches_bwd)
-        seen["profile"] = _profile_train_step(torch, step_fn, p, o, next(stream))
+        # the plain run's profiled batch, laid out on the run's mesh
+        mesh = tree_leaves(p)[0].device_mesh
+        b_shard = batch_shardings(batches[0], mesh, make_rules(mesh))
+        batch0 = {k: distribute(v, b_shard[k]) for k, v in batches[0].items()}
+        seen["profile"] = _profile_train_step(torch, step_fn, p, o, batch0)
+        seen["census"] = _census_step(torch, step_fn, p, o, batch0)
         seen["placements"] = sorted({str(tuple(t.placements)) for t in tree_leaves(p)})
 
     try:
@@ -1557,6 +1598,7 @@ def distributed_phase(torch, np):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     launches["mesh local"] = seen["launches"]
     mesh_prof, plain_prof = seen["profile"], runs["plain"].pop("profile")
+    mesh_census, plain_census = seen["census"], runs["plain"].pop("census")
     plain, comp_run = runs["plain"], runs["compressed"]
     mesh_host_ms = mesh_prof["profiled_wall_ms"] - mesh_prof["device_ms"]
     plain_host_ms = plain_prof["profiled_wall_ms"] - plain_prof["device_ms"]
@@ -1571,7 +1613,9 @@ def distributed_phase(torch, np):
         "step_ms_p50": stats["step_ms_p50"],
         "packed_launches_per_step": [n / DIST_STEPS for n in launches["mesh local"]],
         "dtensor_adds_ms_p50": stats["step_ms_p50"] - plain["step_ms_p50"],
-        "profile_mesh": mesh_prof, "profile_plain": plain_prof,
+        "profiled_batch": "the plain run's first", "profile_mesh": mesh_prof,
+        "profile_plain": plain_prof, "tile_census_mesh": mesh_census,
+        "tile_census_plain": plain_census,
         "host_ms_mesh": mesh_host_ms, "host_ms_plain": plain_host_ms,
         "dtensor_adds_host_ms": mesh_host_ms - plain_host_ms,
         "peak_device_mem_gib": stats["peak_device_mem_gib"],
@@ -1592,12 +1636,133 @@ def distributed_phase(torch, np):
         "mesh (1, 1)": stats["mesh"] == {"data": 1, "model": 1},
         f"packed launches == ({2 * n}, {n}) on every path": all(
             v == (2 * n, n) for v in launches.values()),
+        "both profiles' batch: the same tile census": mesh_census == plain_census,
     }
     print(f"[distributed] checks: {ok}")
     if not all(ok.values()):
         raise AssertionError(f"distributed: {ok}")
     torch.cuda.empty_cache()
     return launches
+
+
+def _roofline_reading(rec, measured_ms):
+    """A count's roofline terms beside a measured step."""
+    return {k: rec[k] for k in ("t_compute_s", "t_memory_s", "t_collective_s",
+                                "dominant", "roofline_step_s", "flops_per_dev",
+                                "dot_bytes_per_dev")} | {
+        "eager_bytes": rec["eager_cost"]["eager_bytes"],
+        "measured_ms": measured_ms,
+        "measured_over_roofline": measured_ms / 1e3 / rec["roofline_step_s"]}
+
+
+def dryrun_phase(torch, np, smi, decode_reading):
+    """Phase 11c: the dry-run.  The JAX package's test cell through the
+    CLI (olmo-1b at decode_32k on the 256- and 512-rank meshes of a fake
+    process group); then two steps that earlier phases run, counted on meta
+    stand-ins on the one-card (1, 1) mesh and held to the same steps on the
+    card: phase 11's olmo-1b train step (run here once more from the same
+    weights and batch) and phase 10's qwen3-8b ragged decode step
+    (``decode_reading``).  The FLOPs must be equal, each measured step no
+    faster than its roofline bound, the predicted peak within
+    ``DRYRUN_MEM_TOL`` of the card's."""
+    import os
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models import build_model
+    from repro_torch.training import OptimizerConfig, init_opt_state, make_train_step
+
+    # (a) the JAX package's dry-run test cell
+    out = ROOT / "build" / "dryrun.json"
+    out.parent.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "olmo-1b",
+         "--shape", "decode_32k", "--multi-pod", "both", "--out", str(out)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True,
+        text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith(("[OK]", "[FAIL]")):
+            print(f"[dryrun] {line}")
+    print(f"[dryrun] the CLI took {cli_s:.1f} s")
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-4000:])
+        raise RuntimeError(f"the dry-run exited with {proc.returncode}")
+    records = json.loads(out.read_text())
+    cell_ok = len(records) == 2 and all(
+        "error" not in r and r["chips"] in (256, 512) and r["memory"]["total_hbm_bytes"] > 0
+        and r["flops_per_dev"] > 0 and r["collectives"]["total"] > 0
+        and r["dominant"] in ("compute", "memory", "collective") for r in records) and any(
+        r["mesh"] == "2x16x16" and r["chips"] == 512 for r in records)
+    for r in records:
+        print("[dryrun] " + json.dumps({k: r.get(k) for k in (
+            "mesh", "chips", "flops_per_dev", "t_compute_s", "t_memory_s",
+            "t_collective_s", "dominant", "roofline_step_s")} | {
+            "hbm_per_dev_gb": r["memory"]["total_hbm_bytes"] / 1e9,
+            "collectives_gb": {k: v / 1e9 for k, v in r["collectives"].items()
+                               if k != "count"}}))
+
+    # (b) the two steps counted on meta stand-ins on the one-card mesh
+    t0 = time.perf_counter()
+    dryrun.fake_process_group(1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        train_rec = dryrun.lower_cell(
+            "olmo-1b", "train_4k", mesh=mesh, remat_policy="nothing",
+            shape=ShapeConfig("train_4k", "train", TRAIN["S"], TRAIN["B"]))
+        dec_rec = dryrun.lower_cell(
+            "qwen3-8b", "decode", mesh=mesh, shape=ShapeConfig(
+                "ragged decode", "decode", DRYRUN_DECODE["S"], DRYRUN_DECODE["B"]))
+    finally:
+        dist.destroy_process_group()
+    count_s = time.perf_counter() - t0
+
+    # (c) phase 11's train step on the card: a warm-up, one counted, one timed
+    model = build_model(get_config("olmo-1b"))
+    dev = torch.device("cuda")
+    params = train.make_params(model, 0, dev)
+    batch = {k: torch.from_numpy(getattr(next(_train_batches()), k)).to(dev)
+             for k in ("tokens", "labels", "segment_ids", "positions")}
+    step_fn = make_train_step(model, OptimizerConfig(), remat_policy="nothing")
+    opt_state = init_opt_state(params)
+    _, ms, params, opt_state = _timed_steps(torch, step_fn, params, opt_state, [batch])
+    flops, peak_bytes, res = _step_reading(
+        torch, lambda: step_fn(params, opt_state, batch), (params, opt_state, batch))
+    del res
+    _, ms2, params, opt_state = _timed_steps(torch, step_fn, params, opt_state, [batch])
+    train_ms = min(ms + ms2)
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+
+    readings = {}
+    for name, rec, real_flops, real_peak, step_ms in (
+            ("olmo-1b train 4 x 4096", train_rec, flops, peak_bytes, train_ms),
+            ("qwen3-8b ragged decode, 8 sequences", dec_rec, decode_reading["flops"],
+             decode_reading["peak_bytes"], decode_reading["step_ms_p50"])):
+        pred = rec["memory"]["peak_memory_in_bytes"]
+        readings[name] = {
+            "card": smi, "flops_fake": rec["flops_per_dev"], "flops_real": real_flops,
+            **_roofline_reading(rec, step_ms),
+            "peak_pred_gib": pred / 2**30, "peak_card_gib": real_peak / 2**30,
+            "peak_rel_err": (pred - real_peak) / real_peak}
+        if "decode" in name:
+            readings[name]["device_ms"] = decode_reading["device_ms"]
+            readings[name]["device_over_roofline"] = (
+                decode_reading["device_ms"] / 1e3 / rec["roofline_step_s"])
+        print(f"[dryrun] one card: {name}: " + json.dumps(readings[name]))
+    print(f"[dryrun] the two counts took {count_s:.1f} s")
+    checks = {"the decode_32k cell on both meshes": cell_ok}
+    for name, r in readings.items():
+        checks[f"{name}: FLOPs on stand-ins == on the card"] = r["flops_fake"] == r["flops_real"]
+        checks[f"{name}: no faster than its roofline"] = r["measured_over_roofline"] >= 1.0
+        checks[f"{name}: peak within {DRYRUN_MEM_TOL}"] = abs(r["peak_rel_err"]) <= DRYRUN_MEM_TOL
+    print(f"[dryrun] checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"dry-run: {checks}")
 
 
 def serve_phase(torch):
@@ -1702,6 +1867,36 @@ def _device_profile(torch, step, n, step_wall_ms, ranges=()):
     }
 
 
+def _storage_bytes(torch, tree) -> int:
+    """Bytes of the distinct storages of a tree's tensors."""
+    from torch.utils._pytree import tree_leaves
+
+    seen = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in tree_leaves(tree) if isinstance(t, torch.Tensor)}
+    return sum(seen.values())
+
+
+def _step_reading(torch, step, args):
+    """One call of ``step()`` on the card under ``FlopCounterMode``: (its
+    FLOPs, the peak bytes the process allocated during it less what it held
+    beside ``args``, the step's arguments; the step's result).  Garbage is
+    collected first: a train step leaves ~4.4 GiB of tensors in reference
+    cycles, which the collector may free in the middle of the next step,
+    under what was read as held beside it."""
+    import gc
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    beside = torch.cuda.memory_allocated() - _storage_bytes(torch, args)
+    with FlopCounterMode(display=False) as fc:
+        out = step()
+        torch.cuda.synchronize()
+    return fc.get_total_flops(), torch.cuda.max_memory_allocated() - beside, out
+
+
 def ragged_phase(torch, np):
     """Phase 10: ragged prompts through prefill and paged decode at full
     width; returns the decode launches and the packed forward's."""
@@ -1769,7 +1964,14 @@ def ragged_phase(torch, np):
     need = sum(layout.pages_for(int(n) + RAGGED_STEPS) for n in lens)
     profile = _profile_decode(torch, model, params, tok, cache,
                               sum(step_ms) / RAGGED_STEPS)
-    del cache
+    # one more step counted by FlopCounterMode, for phase 11c
+    flops, peak_bytes, (logits, cache) = _step_reading(
+        torch, lambda: model.decode_step(params, {"tokens": tok}, cache),
+        (params, tok, cache))
+    decode_reading = {"flops": flops, "peak_bytes": peak_bytes,
+                      "step_ms_p50": sorted(step_ms)[RAGGED_STEPS // 2],
+                      "device_ms": profile["device_ms_per_step"]}
+    del cache, logits
 
     # the port's own prefill of prompt + first generated token
     for b, n in enumerate(lens):
@@ -1810,7 +2012,7 @@ def ragged_phase(torch, np):
         raise AssertionError(f"ragged serving: {checks}")
     del params
     torch.cuda.empty_cache()
-    return launches, prefill_packed[0]
+    return launches, prefill_packed[0], decode_reading
 
 
 @contextlib.contextmanager
@@ -2793,7 +2995,7 @@ def main() -> None:
 
     # 10. ragged prompts through prefill and paged decode
     with _phase("ragged serve"):
-        ragged_launches, ragged_packed = ragged_phase(torch, np)
+        ragged_launches, ragged_packed, decode_reading = ragged_phase(torch, np)
 
     # 11. training at full width and depth
     with _phase("train"):
@@ -2802,6 +3004,10 @@ def main() -> None:
     # 11b. the distributed layer: gradient compression, --mesh local
     with _phase("distributed"):
         dist_launches = distributed_phase(torch, np)
+
+    # 11c. the dry-run, and its count of two steps against the card
+    with _phase("dry-run"):
+        dryrun_phase(torch, np, smi, decode_reading)
 
     # 12. MoE serving at full width and depth
     with _phase("moe serve"):

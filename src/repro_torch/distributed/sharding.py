@@ -273,8 +273,11 @@ _PAGED_POOL_AXES = ("layers", "pages", None, "kv_heads", None)
 def cache_shardings(cache: Any, mesh: Any, rules: Optional[Rules] = None) -> Any:
     """Shardings for every tensor of a cache (nested dicts and lists), by
     its path; anything else (the page allocator, sequence ids) maps to
-    None.  The K and V pools of the port's paged cache (``init_paged_cache``,
-    the one with an ``"alloc"``) are laid out by page, not by batch."""
+    None.  In the port's paged cache (``init_paged_cache``, the one with an
+    ``"alloc"``) the K and V pools, self and cross, are laid out by page,
+    not by batch; the cross page table is whole on every rank, as the self
+    table each decode step makes; and each recurrent layer's state is its
+    own (batch first, no stacked layers dim)."""
     rules = rules or make_rules(mesh)
     paged = isinstance(cache, dict) and "alloc" in cache
 
@@ -286,8 +289,12 @@ def cache_shardings(cache: Any, mesh: Any, rules: Optional[Rules] = None) -> Any
         if not isinstance(node, torch.Tensor):
             return None
         shape = tuple(node.shape)
-        if paged and len(path) == 1 and path[0] in ("k", "v"):
+        if paged and len(path) == 1 and path[0] in ("k", "v", "ck", "cv"):
             axes = _PAGED_POOL_AXES
+        elif paged and path == ("cross_table",):
+            axes = (None, None)
+        elif paged and path[0] == "state":
+            axes = _cache_leaf_axes(path, (1,) + shape)[1:]
         else:
             axes = _cache_leaf_axes(path, shape)
         return Sharding(mesh, axes_to_pspec(axes, shape, rules, mesh))

@@ -7,6 +7,12 @@ and the group sizes alike) and w's output columns are sharded
 (``kernels/shard_local.py``), and raises on any other layout, a sharded
 contraction dim among them.
 
+A tensor that does not lie on the CPU goes through the operator
+``repro_torch::gmm`` (``kernels/custom_ops.py``): the kernel on the card, a
+fake that does no work on meta stand-ins.  Its FLOPs are the dense
+``2 E C d f`` over every capacity row: the formula sees shapes, not
+``group_sizes``, whose live rows the kernel's bound counts.
+
 ``launches`` counts the kernel launches this process made through ``gmm``
 (``expert_ffn_swiglu`` adds 3 a call); a run resets it to 0 and reads it
 back to show that its main path went through the kernel.
@@ -20,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..custom_ops import define, nbytes
 from ..shard_local import any_dtensor, shard_local
 from .kernel import grouped_matmul
 from .ref import grouped_matmul_ref
@@ -28,6 +35,30 @@ __all__ = ["gmm", "expert_ffn_swiglu", "launches"]
 
 launches = 0
 _count_lock = threading.Lock()
+_timing = threading.local()  # the (start, end) events of this thread's next launch
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    global launches
+    out = grouped_matmul(x, w, group_sizes, getattr(_timing, "events", None))
+    if out.numel():  # an empty output launches nothing
+        with _count_lock:
+            launches += 1
+    return out
+
+
+def _fake(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
+
+
+def _flops(x_shape, w_shape, gs_shape, *args, out_shape=None, **kwargs) -> int:
+    E, C, d = x_shape
+    return 2 * E * C * d * w_shape[2]
+
+
+_GMM = define("gmm", "(Tensor x, Tensor w, Tensor group_sizes) -> Tensor",
+              cuda=_launch, cpu=grouped_matmul_ref, fake=_fake, flops=_flops,
+              moved=nbytes)  # x, w and the sizes read, out written
 
 
 def gmm(
@@ -42,18 +73,17 @@ def gmm(
     the CPU takes the plain version.  ``events`` time the launch (see
     ``kernel.grouped_matmul``); the plain version takes none.
     """
-    global launches
     if any_dtensor(x, w, group_sizes):
         return shard_local(
             "gmm", lambda *a: gmm(*a, events=events),
             [("x", x, "e.."), ("w", w, "e.f"), ("group_sizes", group_sizes, "e")], "e.f")
     if x.device.type == "cpu":
         return grouped_matmul_ref(x, w, group_sizes)
-    out = grouped_matmul(x, w, group_sizes, events)
-    if out.numel():  # an empty output launches nothing
-        with _count_lock:
-            launches += 1
-    return out
+    _timing.events = events
+    try:
+        return _GMM(x, w, group_sizes)
+    finally:
+        _timing.events = None
 
 
 def expert_ffn_swiglu(

@@ -6,6 +6,13 @@ On DTensors ``paged_attention`` runs shard-locally when only the batch
 dim and the heads (q's and the pools' KV heads over the same mesh dims)
 are sharded (``kernels/shard_local.py``), and raises on any other layout.
 
+A tensor that does not lie on the CPU goes through the operator
+``repro_torch::paged_attention`` (``kernels/custom_ops.py``): the kernel on
+the card, a fake that does no work on meta stand-ins.  Its work is the
+PERF.md bound's (4 H D FLOPs and each K and V row once per token) over
+every token the page table can hold: the formula sees shapes, not the
+sequences' lengths.
+
 ``launches`` counts the kernel launches this process made through
 ``paged_attention``; a run resets it to 0 and reads it back to show that
 its decode path went through the kernel.
@@ -18,6 +25,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ..custom_ops import define, nbytes
 from ..shard_local import any_dtensor, shard_local
 from ...serving.kv_cache import PageAllocator
 from .kernel import paged_decode_attention
@@ -27,6 +35,40 @@ __all__ = ["paged_attention", "page_table_from_allocator", "launches"]
 
 launches = 0
 _count_lock = threading.Lock()
+
+
+def _launch(q, k_pool, v_pool, page_table, seq_lens) -> torch.Tensor:
+    global launches
+    out = paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens)
+    if out.numel():  # an empty output launches nothing
+        with _count_lock:
+            launches += 1
+    return out
+
+
+def _table_tokens(page_table_shape, k_pool_shape) -> int:
+    """The tokens the page table can hold: the dense count of the tokens
+    the kernel reads."""
+    return page_table_shape[0] * page_table_shape[1] * k_pool_shape[1]
+
+
+def _flops(q_shape, k_shape, v_shape, table_shape, lens_shape, *args, out_shape=None,
+           **kwargs) -> int:
+    _, H, D = q_shape
+    return 4 * _table_tokens(table_shape, k_shape) * H * D  # q.K and p.V
+
+
+def _moved(q, k_pool, v_pool, page_table, seq_lens, out) -> float:
+    KVH, D = k_pool.shape[2], k_pool.shape[3]
+    kv = 2 * _table_tokens(page_table.shape, k_pool.shape) * KVH * D * k_pool.element_size()
+    return kv + nbytes(q, page_table, seq_lens, out)
+
+
+_PAGED = define(
+    "paged_attention",
+    "(Tensor q, Tensor k_pool, Tensor v_pool, Tensor page_table, Tensor seq_lens) -> Tensor",
+    cuda=_launch, cpu=paged_attention_ref, fake=lambda q, *_: torch.empty_like(q),
+    flops=_flops, moved=_moved)
 
 
 def page_table_from_allocator(
@@ -52,7 +94,6 @@ def paged_attention(
     A CUDA tensor launches the kernel or raises; only a tensor that lies on
     the CPU takes the plain version.
     """
-    global launches
     if any_dtensor(q, k_pool, v_pool, page_table, seq_lens):
         return shard_local(
             "paged_attention", paged_attention,
@@ -60,8 +101,4 @@ def paged_attention(
              ("page_table", page_table, "b."), ("seq_lens", seq_lens, "b")], "bh.")
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, page_table, seq_lens)
-    out = paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens)
-    if out.numel():  # an empty output launches nothing
-        with _count_lock:
-            launches += 1
-    return out
+    return _PAGED(q, k_pool, v_pool, page_table, seq_lens)

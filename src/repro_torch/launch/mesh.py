@@ -25,9 +25,14 @@ __all__ = ["make_production_mesh", "make_local_mesh"]
 
 
 def _device_type(device_type: Optional[str]) -> str:
+    """The mesh's device type: the caller's, else the card, which must be
+    there (the CPU is asked for by name, as the launchers' ``--device
+    cpu``)."""
     if device_type is not None:
         return device_type
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: pass device_type='cpu' for a mesh on the CPU")
+    return "cuda"
 
 
 def _free_port() -> int:

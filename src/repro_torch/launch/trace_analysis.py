@@ -1,0 +1,294 @@
+"""What one step dispatches, counted per device: FLOPs, dot bytes,
+collective wire bytes split NVLink/network, the bytes every op moves, and
+the peak of the live bytes.
+
+The counterpart of ``repro/launch/hlo_analysis.py``, which parses XLA's
+optimized HLO.  The port has no HLO: ``analyze_step`` runs the step under
+a dispatch mode and reads the eager dispatch stream, which holds every op
+the card would run, each loop iteration dispatched anew (layers, the
+chunked cross-entropy, the recurrent loops over time).  So it has no
+trip-count extraction (the JAX module's ``_cond_trips``): a loop's body
+counts as often as it runs.
+
+Under DTensor the mode declines the DTensor-level call (it returns
+``NotImplemented``, as ``CommDebugMode`` does), DTensor redispatches the
+local ops and the collectives its layouts need, and the mode counts those:
+the counts are one device's, the rank whose coordinate the mesh reports
+(rank 0 under the ``fake`` process group, where the collectives move
+nothing and still dispatch).
+
+The JAX module's conventions are kept:
+  - FLOPs: ``torch.utils.flop_counter``'s formulas, the ones
+    ``FlopCounterMode`` applies (2 M N K a product), with the kernels'
+    operators counted by their own formulas (``kernels/custom_ops.py``);
+  - ``dot_bytes``: the operand and result bytes of every product and
+    kernel, the HBM proxy;
+  - collective wire bytes per device: all-reduce 2x the tensor, all-gather
+    the output, reduce-scatter the input, all-to-all the tensor
+    (``analysis.collective_wire_bytes``); a group whose ranks span at least
+    ``pod_size`` (``max - min >= pod_size``) crosses a pod: on this card,
+    an 8-GPU node, so those bytes go over the network (``dcn``), the rest
+    over NVLink (``ici``).
+Where the JAX package takes XLA's ``bytes accessed`` (a fused program's
+traffic, loop bodies once), the port takes ``eager_bytes``: each op's
+inputs and outputs once (views move nothing; a gather moves what it
+gathers; an in-place scatter moves what it writes), the traffic of an
+unfused eager step.
+
+Memory: the arguments' storages and every op's new output storage are
+held live until freed (a weak reference on each storage); ``peak_bytes``
+is the most held at once, autograd's saved tensors included.
+
+The stand-ins are meta tensors (or real ones): ops dispatched while a
+``FakeTensorMode`` is active are DTensor's own shape propagation, run on
+fake tensors of the global shapes, and are not counted.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import weakref
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.utils import flop_counter
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+
+from ..kernels.custom_ops import BYTES
+from .analysis import KINDS, collective_kind, collective_wire_bytes
+
+__all__ = ["StepCost", "analyze_step", "top_collectives"]
+
+aten = torch.ops.aten
+
+_DOTS = {aten.mm, aten.addmm, aten.bmm, aten.baddbmm}
+# metadata queries: no work (as FlopCounterMode passes them by)
+_META = {aten.is_contiguous, aten.is_strides_like_format, aten.is_non_overlapping_and_dense,
+         aten.size, aten.sym_size, aten.stride, aten.sym_stride, aten.storage_offset,
+         aten.sym_storage_offset, aten.numel, aten.sym_numel, aten.dim,
+         torch.ops.prim.layout, torch.ops.prim.device}
+# no data moved: allocation without initialisation, and waits
+_FREE = {aten.empty, aten.empty_like, aten.empty_strided, aten.new_empty,
+         aten.new_empty_strided, torch.ops._c10d_functional.wait_tensor}
+# reads only what it gathers: 2x the output, plus the indices
+_GATHERS = {aten.index, aten._unsafe_index, aten.index_select, aten.gather, aten.embedding,
+            aten.take}
+# in place, writes only the slices it is given: 2x the values, plus the indices
+_SCATTERS = {aten.index_put_, aten._index_put_impl_, aten.index_copy_, aten.index_add_,
+             aten.scatter_, aten.scatter_add_, aten.scatter_reduce_, aten.masked_scatter_,
+             aten.index_fill_, aten.masked_fill_}
+
+
+@dataclasses.dataclass
+class StepCost:
+    """One device's counts for a step (``HloCost``'s fields and more)."""
+
+    flops: float = 0.0
+    dot_bytes: float = 0.0           # product and kernel operands + results
+    coll: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: {k: 0.0 for k in KINDS})
+    ici_bytes: float = 0.0
+    dcn_bytes: float = 0.0
+    coll_count: float = 0.0
+    eager_bytes: float = 0.0         # every op's inputs and outputs once
+    ops: int = 0                     # ops dispatched (kernels launched, roughly)
+    arg_bytes: float = 0.0           # the arguments' storages
+    peak_bytes: float = 0.0          # most live bytes at once, arguments included
+    out_bytes: float = 0.0           # the result's storages that are new
+    flops_by_op: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # (kind, group, shape, dtype) -> [wire bytes over all calls, calls]
+    collectives: Dict[Tuple[str, str, Tuple[int, ...], str], List[float]] = (
+        dataclasses.field(default_factory=dict))
+
+    @property
+    def coll_bytes(self) -> float:
+        return self.ici_bytes + self.dcn_bytes
+
+
+def _tensors(tree: Any) -> List[torch.Tensor]:
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _read_bytes(t: torch.Tensor) -> int:
+    """What reading ``t`` once moves: its elements, or its storage where
+    that is smaller (a broadcast view)."""
+    n = t.numel() * t.element_size()
+    try:
+        return min(n, t.untyped_storage().nbytes())
+    except (RuntimeError, NotImplementedError):  # a tensor without storage
+        return n
+
+
+def _storages(ts: List[torch.Tensor]) -> set:
+    return {t.untyped_storage()._cdata for t in ts}
+
+
+def _nbytes(ts: List[torch.Tensor]) -> int:
+    return sum(_read_bytes(t) for t in ts)
+
+
+def _op_bytes(func, packet, args, kwargs, out) -> float:
+    """Bytes an op moves, by the module's rule (see the docstring)."""
+    if packet in BYTES:
+        return BYTES[packet](*args, *kwargs.values(), out)
+    if packet in _FREE or func.is_view:
+        return 0.0
+    ins, outs = _tensors((args, kwargs)), _tensors(out)
+    if not func._schema.is_mutable and _storages(outs) & _storages(ins):
+        return 0.0  # an alias of an input (``_unsafe_view``, ``alias``): no data moved
+    if packet in _GATHERS:
+        idx = [t for t in ins if not t.is_floating_point()]
+        return 2.0 * _nbytes(outs) + _nbytes(idx)
+    if packet in _SCATTERS:
+        rest = ins[1:]  # everything but the tensor written into
+        vals = [t for t in rest if t.is_floating_point()]
+        return _nbytes(rest) + (max(_read_bytes(t) for t in vals) if vals else 0)
+    if packet in (aten.copy_, aten.zero_, aten.fill_):
+        return _nbytes(ins[1:]) + _nbytes(ins[:1])
+    return _nbytes(ins) + _nbytes(outs)
+
+
+class _Counter(TorchDispatchMode):
+    supports_higher_order_operators = True
+
+    def __init__(self, cost: StepCost, pod_size: int, groups: Dict[str, str]):
+        super().__init__()
+        self.cost, self.pod_size, self.groups = cost, pod_size, groups
+        self.flop_registry = dict(flop_counter.flop_registry)
+        self.live: Dict[int, int] = {}
+        self.held = 0
+        self.open = True
+        self._cross: Dict[str, Tuple[bool, str]] = {}
+
+    # ---- memory ---------------------------------------------------------
+    def hold(self, t: torch.Tensor) -> int:
+        """Count ``t``'s storage live until it is freed; its bytes if new."""
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self.live:
+            return 0
+        n = st.nbytes()
+        self.live[key] = n
+        self.held += n
+        self.cost.peak_bytes = max(self.cost.peak_bytes, self.held)
+        weakref.finalize(st, self._free, key)
+        return n
+
+    def _free(self, key: int) -> None:
+        if self.open:
+            self.held -= self.live.pop(key, 0)
+
+    # ---- collectives ----------------------------------------------------
+    def _group(self, name: str) -> Tuple[bool, str]:
+        """(crosses a pod, label) of a process group by its name."""
+        if name not in self._cross:
+            ranks = dist.get_process_group_ranks(
+                dist.distributed_c10d._resolve_process_group(name))
+            label = self.groups.get(name, f"ranks {min(ranks)}..{max(ranks)}")
+            self._cross[name] = (max(ranks) - min(ranks) >= self.pod_size, label)
+        return self._cross[name]
+
+    def _collective(self, kind: str, args, out) -> None:
+        inp, res = _local(args[0]), _tensors(out)[0]
+        wire = collective_wire_bytes(kind, _read_bytes(inp), _read_bytes(res))
+        cross, label = self._group(next(a for a in reversed(args) if isinstance(a, str)))
+        c = self.cost
+        c.coll[kind] += wire
+        c.coll_count += 1
+        if cross:
+            c.dcn_bytes += wire
+        else:
+            c.ici_bytes += wire
+        row = c.collectives.setdefault(
+            (kind, label, tuple(inp.shape), str(inp.dtype).replace("torch.", "")), [0.0, 0])
+        row[0] += wire
+        row[1] += 1
+
+    # ---- dispatch -------------------------------------------------------
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented  # DTensor redispatches its local ops to us
+        if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+            # DTensor's shape propagation, on fake tensors of the global
+            # shapes: bookkeeping, not the device's work
+            return func(*args, **kwargs)
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return func(*args, **kwargs)
+        packet = func._overloadpacket
+        if packet in _META:
+            return func(*args, **kwargs)
+        if packet not in self.flop_registry:  # as FlopCounterMode: decompose first
+            with self:
+                r = func.decompose(*args, **kwargs)
+            if r is not NotImplemented:
+                return r
+        out = func(*args, **kwargs)
+        c = self.cost
+        c.ops += 1
+        if packet in self.flop_registry:
+            f = self.flop_registry[packet](*args, **kwargs, out_val=out)
+            c.flops += f
+            key = str(packet).replace("aten.", "")
+            c.flops_by_op[key] = c.flops_by_op.get(key, 0.0) + f
+        moved = _op_bytes(func, packet, args, kwargs, out)
+        c.eager_bytes += moved
+        if packet in _DOTS or packet in BYTES:
+            c.dot_bytes += moved
+        ns, name = packet._qualified_op_name.split("::")
+        kind = collective_kind(name) if ns == "_c10d_functional" else ""
+        if kind:
+            self._collective(kind, args, out)
+        for t in _tensors(out):
+            self.hold(t)
+        return out
+
+
+def _group_labels(mesh: Any) -> Dict[str, str]:
+    """A mesh's process groups by name, each labelled by its dim's name."""
+    if mesh is None:
+        return {}
+    names = mesh.mesh_dim_names or tuple(str(i) for i in range(mesh.ndim))
+    return {mesh.get_group(i).group_name: names[i] for i in range(mesh.ndim)}
+
+
+def analyze_step(fn: Callable[..., Any], *args: Any, pod_size: int = 10**9,
+                 mesh: Any = None) -> Tuple[Any, StepCost]:
+    """Run ``fn(*args)`` under the counting mode; return its result and one
+    device's ``StepCost``.  The arguments' storages (the local shards of
+    DTensors) are live from the start; ``mesh`` names the collectives'
+    groups by mesh dim."""
+    cost = StepCost()
+    counter = _Counter(cost, pod_size, _group_labels(mesh))
+    arg_keys = set()
+    for t in _tensors(args):
+        t = _local(t)
+        arg_keys.add(t.untyped_storage()._cdata)
+        cost.arg_bytes += counter.hold(t)
+    try:
+        with counter:
+            out = fn(*args)
+        cost.out_bytes = sum(
+            _local(t).untyped_storage().nbytes() for t in
+            {_local(t).untyped_storage()._cdata: t for t in _tensors(out)}.values()
+            if _local(t).untyped_storage()._cdata not in arg_keys)
+    finally:
+        counter.open = False
+    return out, cost
+
+
+def top_collectives(cost: StepCost, n: int = 20) -> List[Tuple[str, str, float, float]]:
+    """The largest collective contributors as (group/shape, kind, wire
+    bytes over all calls, calls), ranked by bytes x calls: the JAX
+    module's rows, with the call count where it has the loop multiplier."""
+    rows = [(f"{group}/{'x'.join(map(str, shape)) or 'scalar'} {dtype}", kind, wire, calls)
+            for (kind, group, shape, dtype), (wire, calls) in cost.collectives.items()]
+    rows.sort(key=lambda r: -r[2])
+    return rows[:n]

@@ -21,6 +21,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..distributed.context import constrain
 from ..kernels.paged_attention.ops import page_table_from_allocator
@@ -167,7 +168,7 @@ class EncDecLM:
 
         if remat_policy is not None and on_layer is None:
             body = _remat(body, remat_policy)
-        x = params["embed"][tokens]
+        x = F.embedding(tokens, params["embed"])
         for layer, p in enumerate(self._layers(params["dec_blocks"])):
             x, kv, ckv = body(p, x)
             if on_layer is not None:
@@ -267,7 +268,7 @@ class EncDecLM:
             raise ValueError(f"{tokens.shape[0]} tokens for {len(seqs)} sequences")
         table, new_len = grow(cache["alloc"], seqs, tokens.device)
         position = new_len - 1
-        x = params["embed"][tokens]  # (B, 1, d)
+        x = F.embedding(tokens, params["embed"])  # (B, 1, d)
         for layer, p in enumerate(self._layers(params["dec_blocks"])):
             x = constrain(x, ("batch", None, None))
             h = norm(p["ln1"], cfg.norm_type, x)

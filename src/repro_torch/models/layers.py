@@ -29,11 +29,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed import _functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..distributed.context import constrain
+from ..distributed.context import constrain, current_mesh
 from ..kernels.packed_attention import ops as packed_ops
 from ..kernels.paged_attention import ops as paged_ops
+from ..kernels.shard_local import any_dtensor, shard_local
 from .params import Spec
 
 __all__ = [
@@ -48,6 +50,7 @@ __all__ = [
     "attention",
     "attention_decode",
     "cross_attention_decode",
+    "decode_attention_distributed",
     "mlp_specs",
     "mlp",
 ]
@@ -221,7 +224,20 @@ def flash_attention(
     chunk_q: int = 512,
     chunk_kv: int = 512,
 ) -> torch.Tensor:
-    """Chunked online-softmax attention with segment masking.  O(c^2) memory."""
+    """Chunked online-softmax attention with segment masking.  O(c^2) memory.
+
+    On DTensors it runs on each rank's shards, under the kernels' rule
+    (``kernels/shard_local.py``): its batched products would merge a
+    sharded batch dim with sharded heads, a layout DTensor cannot always
+    keep."""
+    if any_dtensor(q, k, v, segment_ids_q, segment_ids_kv):
+        return shard_local(
+            "flash_attention",
+            lambda *a: flash_attention(*a, causal=causal, window=window,
+                                       chunk_q=chunk_q, chunk_kv=chunk_kv),
+            [("q", q, "b.h."), ("k", k, "b.h."), ("v", v, "b.h."),
+             ("segment_ids_q", segment_ids_q, "b."),
+             ("segment_ids_kv", segment_ids_kv, "b.")], "b.h.")
     B, Sq, H, D = q.shape
     KVH = k.shape[2]
     scale = 1.0 / math.sqrt(D)
@@ -277,10 +293,61 @@ def attention_specs(cfg: Any, cross: bool = False) -> Dict[str, Any]:
     return specs
 
 
-def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, S, d) @ (d, H, hd) -> (B, S, H, hd)."""
-    d, H, hd = w.shape
-    return (x @ w.reshape(d, H * hd)).unflatten(-1, (H, hd))
+class _GradAsForward(torch.autograd.Function):
+    """The identity, whose backward lays the gradient out as the forward's
+    value was laid out (replicated where the value was a pending sum)."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor) -> torch.Tensor:
+        ctx.mesh = t.device_mesh
+        ctx.placements = tuple(Replicate() if pl.is_partial() else pl for pl in t.placements)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        if tuple(g.placements) != tuple(ctx.placements):
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def _pinned(t: torch.Tensor, units: int) -> torch.Tensor:
+    """``t``, whose gradient a DTensor lays out as ``t`` is laid out, where
+    the mesh could shard a dim of ``units`` whole units finer than a unit
+    (its devices do not divide ``units``); ``t`` itself elsewhere, the pin's
+    host time spared."""
+    if isinstance(t, DTensor) and units % t.device_mesh.size():
+        return _GradAsForward.apply(t)
+    return t
+
+
+def flatten_heads(t: torch.Tensor) -> torch.Tensor:
+    """(..., H, hd) -> (..., H * hd), the gradient in whole heads (see
+    ``heads_product``)."""
+    return _pinned(t.flatten(-2), t.shape[-2])
+
+
+def heads_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., d) @ (d, *dims) -> (..., *dims), the product taken over the
+    flattened weight.  On DTensors the flat columns, the product's and the
+    weight gradient's alike, are laid out in whole units of ``dims[0]``:
+    DTensor may shard them finer than that splits (8 KV heads' 1024
+    columns over a 16-wide axis), a layout it cannot unflatten; such
+    shards are gathered."""
+    d, dims = w.shape[0], tuple(w.shape[1:])
+    w_flat = w.reshape(d, -1)
+    if not isinstance(w_flat, DTensor):
+        return (x @ w_flat).unflatten(-1, dims)
+    out = x @ _pinned(w_flat, dims[0])
+    last = out.ndim - 1
+    n = 1
+    for m, pl in enumerate(out.placements):
+        if isinstance(pl, Shard) and pl.dim == last:
+            n *= out.device_mesh.size(m)
+    if dims[0] % n:
+        out = out.redistribute(out.device_mesh, [
+            Replicate() if isinstance(pl, Shard) and pl.dim == last else pl
+            for pl in out.placements])
+    return _pinned(out.unflatten(-1, dims), dims[0])
 
 
 def _project_qkv(
@@ -294,7 +361,7 @@ def _project_qkv(
     # between sequence-parallel blocks): a DTensor product cannot flatten
     # (B, S) with S sharded
     x_kv = constrain(x_kv, ("batch", None, None))
-    k, v = _heads(x_kv, p["wk"]), _heads(x_kv, p["wv"])
+    k, v = heads_product(x_kv, p["wk"]), heads_product(x_kv, p["wv"])
     if cfg.qkv_bias:
         k = k + p["bk"]
         v = v + p["bv"]
@@ -308,7 +375,7 @@ def _project_qkv(
 
 
 def _project_q(p: Dict[str, torch.Tensor], cfg: Any, x: torch.Tensor) -> torch.Tensor:
-    q = _heads(constrain(x, ("batch", None, None)), p["wq"])
+    q = heads_product(constrain(x, ("batch", None, None)), p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     if cfg.qk_norm:
@@ -319,7 +386,7 @@ def _project_q(p: Dict[str, torch.Tensor], cfg: Any, x: torch.Tensor) -> torch.T
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """(B, S, H, hd) @ (H, hd, d) -> (B, S, d)."""
     H, hd, d = wo.shape
-    return out.flatten(-2) @ wo.reshape(H * hd, d)
+    return flatten_heads(out) @ _pinned(wo.reshape(H * hd, d), H)
 
 
 def _sharded_heads(t: torch.Tensor) -> list:
@@ -365,15 +432,141 @@ def attention(
     # the kernels read whole rows of segment ids (as XLA gathers them)
     segment_ids = constrain(segment_ids, ("batch", None))
     segment_ids_kv = constrain(segment_ids_kv, ("batch", None))
+    k, v = _kv_heads_as_q(q, k), _kv_heads_as_q(q, v)
     if x.device.type == "cpu":
         out = flash_attention(q, k, v, segment_ids, segment_ids_kv, causal=causal,
                               window=cfg.sliding_window)
     else:  # the Hopper kernels, or a raise: never the plain version
-        k, v = _kv_heads_as_q(q, k), _kv_heads_as_q(q, v)
         out = packed_ops.packed_attention(q, k, v, segment_ids, segment_ids_kv,
                                           causal=causal, window=cfg.sliding_window)
     out = constrain(out, ("batch", None, "heads", None))
     return _out_proj(out, p["wo"]), (k, v)
+
+
+def _page_dims(pool: torch.Tensor) -> Optional[list]:
+    """The mesh dims that shard a DTensor pool's pages (its dim 0), in mesh
+    order (empty for a pool every rank holds whole); None for a plain
+    tensor.  Any other sharded dim raises: the partial softmax below splits
+    pages only."""
+    if not isinstance(pool, DTensor):
+        return None
+    dims = []
+    for m, pl in enumerate(pool.placements):
+        if isinstance(pl, Shard) and pl.dim == 0:
+            dims.append(m)
+        elif not pl.is_replicate():
+            raise ValueError(f"a paged pool of shape {tuple(pool.shape)} has placements "
+                             f"{tuple(pool.placements)}; only its pages may be sharded")
+    return dims
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _first_local_page(pool: torch.Tensor, dims: list) -> int:
+    """The global index of this rank's first page of a page-sharded pool
+    (its shards nest in mesh-dim order, the first dim the major one)."""
+    mesh, coord, idx = pool.device_mesh, pool.device_mesh.get_coordinate(), 0
+    for m in dims:
+        idx = idx * mesh.size(m) + coord[m]
+    return idx * pool.to_local().shape[0]
+
+
+def _write_local(pool: torch.Tensor, dims: list, page: torch.Tensor, slot: torch.Tensor,
+                 new: torch.Tensor) -> None:
+    """``pool[page, slot] = new`` (B tokens) on a DTensor pool, into each
+    rank's own shard (DTensor has no layout rule for the indexed write).
+    A pool held whole takes every token.  Where its pages are sharded, each
+    rank writes the tokens whose page it holds; the other tokens are
+    written where the first of its own goes, with its value (or, if it
+    holds none, the shard's first slot with what is there already): every
+    index stays in range and no two writes to one place differ, so nothing
+    waits for the host."""
+    if not dims:
+        pool.to_local()[page, slot] = _full(new).to(pool.dtype)
+        return
+    local = pool.to_local().flatten(0, 1)  # (pages x slots, KVH, D), a view
+    n_pages, page_size = pool.to_local().shape[:2]
+    lp = page - _first_local_page(pool, dims)
+    mine = (lp >= 0) & (lp < n_pages)
+    flat = lp.clamp(0, n_pages - 1) * page_size + slot
+    new = _full(new).to(local.dtype)
+    j = mine.int().argmax().view(1)  # the first token of this rank's, if any
+    have = mine.any()
+    tgt = torch.where(mine, flat, torch.where(have, flat.index_select(0, j), 0))
+    val = torch.where(mine[:, None, None], new,
+                      torch.where(have, new.index_select(0, j), local[:1]))
+    local[tgt] = val
+
+
+def decode_attention_distributed(
+    q: torch.Tensor,           # (B, H, D)
+    k_pool: torch.Tensor,      # (num_pages, page_size, KVH, D), pages sharded
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # (B, max_pages) int32, -1 = unused slot
+    seq_lens: torch.Tensor,    # (B,) valid tokens per sequence
+) -> Optional[torch.Tensor]:
+    """Decode attention over a paged pool whose pages a mesh shards: the
+    JAX package's distributed flash-decode, on pages.
+
+    The serving layout shards the pools by page over the data and model
+    axes (``distributed.sharding``: ``pages``), so a sequence's tokens lie
+    on any rank, and the paged kernel, which reads whole page tables,
+    cannot run on a shard.  Each rank takes q, the table and the lengths
+    whole (a few MB), scores the tokens of its own pages against their
+    sequence's q, and keeps per sequence the partials of an online softmax:
+    the max (combined by an all-reduce max), then the sum of the weights
+    and the weighted sum of the values under that max (two all-reduce
+    sums), all in fp32, of (B, H)- and (B, H, D)-sized tensors.  Returns
+    (B, H, D) in q's dtype, replicated; None when no mesh context is active
+    or the pools' pages are not sharded (callers take the paged kernel).
+    """
+    dims = _page_dims(k_pool)
+    if current_mesh() is None or not dims:
+        return None
+    qf, table, lens = _full(q).float(), _full(page_table).long(), _full(seq_lens).long()
+    # the local pages as (pages, KVH, slots, D) in fp32: one pass that casts
+    # and lays the products' operands out
+    kl, vl = (pool.to_local().permute(0, 2, 1, 3).to(
+        torch.float32, memory_format=torch.contiguous_format) for pool in (k_pool, v_pool))
+    n_pages, KVH, page_size, D = kl.shape
+    B, H, _ = qf.shape
+    G = H // KVH
+    # each local page's sequence and first position; slot n_pages takes the
+    # table entries that are not this rank's
+    lp = table - _first_local_page(k_pool, dims)
+    mine = (table >= 0) & (lp >= 0) & (lp < n_pages)
+    at = torch.where(mine, lp, n_pages).flatten()
+    seq_of = torch.full((n_pages + 1,), B, dtype=torch.long, device=kl.device)
+    seq_of = seq_of.scatter(0, at, torch.arange(B, device=kl.device).repeat_interleave(
+        table.shape[1]))[:n_pages]
+    pos0 = torch.zeros((n_pages + 1,), dtype=torch.long, device=kl.device)
+    pos0 = pos0.scatter(0, at, (torch.arange(table.shape[1], device=kl.device)
+                                * page_size).repeat(B))[:n_pages]
+    lens_of = torch.cat([lens, lens.new_zeros(1)])[seq_of]          # 0 for no sequence
+    valid = (pos0[:, None] + torch.arange(page_size, device=kl.device)) < lens_of[:, None]
+    q_of = torch.cat([qf, qf.new_zeros(1, H, D)])[seq_of].reshape(n_pages, KVH, G, D)
+    s = (q_of @ kl.transpose(-1, -2)) / math.sqrt(D)                # (pages, KVH, G, slots)
+    valid = valid[:, None, None, :]
+    s = torch.where(valid, s, -torch.inf)
+    mesh = k_pool.device_mesh
+
+    def all_reduce(t: torch.Tensor, op: str) -> torch.Tensor:
+        for m in dims:
+            t = funcol.all_reduce(t, op, (mesh, m))
+        return t
+
+    idx = seq_of[:, None, None].expand(n_pages, KVH, G)
+    m = torch.full((B + 1, KVH, G), -torch.inf, device=kl.device)
+    m = all_reduce(m.scatter_reduce(0, idx, s.amax(-1), "amax")[:B], "max")
+    m = torch.cat([m, m.new_zeros(1, KVH, G)])
+    p = torch.where(valid, torch.exp(s - m[seq_of][..., None]), 0.0)
+    l = torch.zeros((B + 1, KVH, G), device=kl.device).index_add(0, seq_of, p.sum(-1))
+    acc = torch.zeros((B + 1, KVH, G, D), device=kl.device).index_add(0, seq_of, p @ vl)
+    l, acc = all_reduce(l[:B], "sum"), all_reduce(acc[:B], "sum")
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).reshape(B, H, D).to(q.dtype)
+    return DTensor.from_local(out, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
 def attention_decode(
@@ -404,11 +597,30 @@ def attention_decode(
     at = cache_len.long() - 1
     page = page_table.long().gather(1, (at // page_size)[:, None])[:, 0]
     slot = at % page_size
-    k_pool[page, slot] = k[:, 0].to(k_pool.dtype)
-    v_pool[page, slot] = v[:, 0].to(v_pool.dtype)
-    out = paged_ops.paged_attention(q[:, 0].to(k_pool.dtype), k_pool, v_pool,
-                                    page_table, cache_len)
-    return _out_proj(out.to(x.dtype)[:, None], p["wo"])
+    dims = _page_dims(k_pool)
+    if dims is None:
+        k_pool[page, slot] = k[:, 0].to(k_pool.dtype)
+        v_pool[page, slot] = v[:, 0].to(v_pool.dtype)
+    else:  # each rank writes into its own shard
+        _write_local(k_pool, dims, page, slot, k[:, 0])
+        _write_local(v_pool, dims, page, slot, v[:, 0])
+    return _out_proj(_paged_core(q[:, 0].to(k_pool.dtype), k_pool, v_pool, page_table,
+                                 cache_len).to(x.dtype)[:, None], p["wo"])
+
+
+def _paged_core(q, k_pool, v_pool, page_table, seq_lens) -> torch.Tensor:
+    """The distributed flash-decode where a mesh shards the pools' pages,
+    as the JAX package wires it; the paged kernel otherwise."""
+    out = decode_attention_distributed(q, k_pool, v_pool, page_table, seq_lens)
+    if out is None:
+        if isinstance(k_pool, DTensor):  # the host's table and lengths, replicated
+            mesh = k_pool.device_mesh
+            page_table, seq_lens = (
+                t if isinstance(t, DTensor) else
+                DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+                for t in (page_table, seq_lens))
+        out = paged_ops.paged_attention(q, k_pool, v_pool, page_table, seq_lens)
+    return out
 
 
 def cross_attention_decode(
@@ -424,8 +636,7 @@ def cross_attention_decode(
     against the encoder K/V that prefill wrote into the sequence's cross
     pages, through the paged kernel.  Nothing is written."""
     q = _project_q(p, cfg, x)
-    out = paged_ops.paged_attention(q[:, 0].to(k_pool.dtype), k_pool, v_pool,
-                                    page_table, enc_len)
+    out = _paged_core(q[:, 0].to(k_pool.dtype), k_pool, v_pool, page_table, enc_len)
     return _out_proj(out.to(x.dtype)[:, None], p["wo"])
 
 

@@ -105,7 +105,10 @@ def moe_layer(
     T = B * S
     G = batch_shard_count(B)
     Tg = (B // G) * S
-    kernel_path = use_gmm_kernel and cfg.act == "swiglu" and x.is_cuda and G == 1
+    # the kernel route wherever a kernel wrapper takes it: every tensor that
+    # does not lie on the CPU (the card, and a dry-run's meta stand-ins)
+    kernel_path = (use_gmm_kernel and cfg.act == "swiglu" and x.device.type != "cpu"
+                   and G == 1)
     C = expert_capacity(Tg, E, K, mcfg.capacity_factor, align=128 if kernel_path else 8)
     x = constrain(x, ("batch", None, None))  # the sequence gathered
     xg = constrain(x.reshape(G, Tg, d), ("batch", None, None))
@@ -151,8 +154,11 @@ def moe_layer(
 
     # ---- the expert FFN ------------------------------------------------------
     if kernel_path:
-        out_buf = expert_ffn_swiglu(buf[0], p["w_gate"], p["w_up"], p["w_down"],
-                                    counts.clamp(max=C))[None]
+        sizes = counts.clamp(max=C)
+        if lay is not None:  # one group, the same on every rank: laid out as the experts
+            sizes = constrain(DTensor.from_local(sizes, lay[0], [Replicate()] * lay[0].ndim,
+                                                 run_check=False), ("experts",))
+        out_buf = expert_ffn_swiglu(buf[0], p["w_gate"], p["w_up"], p["w_down"], sizes)[None]
     else:
         if cfg.act == "swiglu":
             h = F.silu(torch.einsum("gecd,edf->gecf", buf, p["w_gate"])) * torch.einsum(

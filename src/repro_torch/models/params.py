@@ -11,7 +11,9 @@ layers stacked over periods in the leading dimension.  From one spec tree:
                             card, leaf by leaf);
   - ``params_from_numpy`` — the JAX package's own parameters, carried across
                             as numpy arrays keyed by the same paths (the
-                            layout is the same, so this is a copy).
+                            layout is the same, so this is a copy);
+  - ``abstract_params``   — meta-tensor stand-ins, the dry-run path: shapes
+                            and dtypes, nothing allocated.
 """
 
 from __future__ import annotations
@@ -23,8 +25,8 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Spec", "init_params", "params_from_numpy", "tree_map", "tree_paths",
-           "tree_leaves", "tree_unflatten"]
+__all__ = ["Spec", "init_params", "params_from_numpy", "abstract_params", "tree_bytes",
+           "tree_map", "tree_paths", "tree_leaves", "tree_unflatten"]
 
 Tree = Any
 
@@ -161,3 +163,16 @@ def params_from_numpy(
         return t.to(device=device, dtype=dtype or t.dtype)
 
     return tree_map(one, tree)
+
+
+def abstract_params(specs: Tree, dtype: Optional[torch.dtype] = None) -> Tree:
+    """Meta tensors of each spec's shape in ``dtype`` (default: the spec's
+    own): the dry-run's parameters, zero allocation."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype or s.dtype, device="meta"),
+                    specs)
+
+
+def tree_bytes(tree: Tree) -> int:
+    """Total bytes of a tree's tensors (a DTensor counts its global shape)."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))

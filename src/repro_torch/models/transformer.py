@@ -303,7 +303,7 @@ class DecoderLM:
         embeddings (``vision_embeds``, B x nv x d) take the first nv
         positions, as the JAX package's frontend stub does.  nv more than
         the sequence raises the ``ValueError`` the JAX package raises."""
-        x = params["embed"][batch["tokens"]]
+        x = F.embedding(batch["tokens"], params["embed"])
         if self.cfg.frontend == "vision" and "vision_embeds" in batch:
             vis = batch["vision_embeds"]
             nv, S = vis.shape[1], x.shape[1]

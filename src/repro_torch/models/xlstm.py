@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.context import constrain
-from .layers import rms_norm
+from .layers import flatten_heads, heads_product, rms_norm
 from .params import Spec
 from .scan_utils import chunked_scan, time_major
 from .ssm import causal_depthwise_conv
@@ -40,11 +40,6 @@ __all__ = [
 ]
 
 State = Dict[str, torch.Tensor]
-
-
-def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, S, d) @ (d, *head dims) -> (B, S, *head dims)."""
-    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
 def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -98,7 +93,7 @@ def _mlstm_scan(q, k, v, ig, fg, state: State,
         C = f_p[..., None, None] * C + i_p[..., None, None] * (
             v_t[..., :, None] * k_t[..., None, :] * scale)
         n = f_p[..., None] * n + i_p[..., None] * k_t * scale
-        num = (C @ q_t[..., None])[..., 0]                      # (B, H, dh)
+        num = (C * q_t[..., None, :]).sum(-1)  # (B, H, dh); merges no dims
         den = torch.maximum((n * q_t).sum(-1).abs(), torch.exp(-m_new))
         return (C, n, m_new), num / den[..., None]
 
@@ -129,11 +124,12 @@ def mlstm_forward(
         trim = state["conv"].shape[1]
     c = F.silu(causal_depthwise_conv(conv_in, p["conv_w"], p["conv_b"])[:, trim:])
 
-    q, k, v = _heads(c, p["wq"]), _heads(c, p["wk"]), _heads(xm, p["wv"])
+    q, k = heads_product(c, p["wq"]), heads_product(c, p["wk"])
+    v = heads_product(xm, p["wv"])
     ig = c @ p["wi"] + p["bi"]
     fg = c @ p["wf"] + p["bf"]
     h, new_inner = _mlstm_scan(q, k, v, ig, fg, state, chunk_size)
-    h = rms_norm(h, p["out_norm"]).reshape(B, S, du).to(x.dtype)
+    h = flatten_heads(rms_norm(h, p["out_norm"])).to(x.dtype)  # (B, S, du)
     out = (h * F.silu(z)) @ p["down"]
     kk = cfg.xlstm.conv_kernel - 1
     tail = xm[:, -kk:] if S >= kk else torch.cat(
@@ -188,7 +184,9 @@ def _slstm_scan(gx: torch.Tensor, wr: torch.Tensor, b: torch.Tensor, state: Stat
 
     def step(carry, x_t):
         c, n, h, m = carry  # each (B, H, dh)
-        rec = torch.einsum("bhj,ghij->bghi", h, wr_f)  # (B, 4, H, dh)
+        # (B, 4, H, dh) as a broadcast product and a sum: a batched product
+        # would merge the batch and head dims, both sharded on a mesh
+        rec = (h[:, None, :, None, :] * wr_f).sum(-1)
         g = x_t + rec + b_f
         i_t, f_t, z_t, o_t = g.unbind(1)
         logf = _log_sigmoid(f_t)
@@ -218,9 +216,12 @@ def slstm_forward(
     if state is None:
         state = slstm_init_state(cfg, B, x.device)
     x = constrain(x, ("batch", None, None))  # the sequence gathered
-    gx = _heads(x, p["wx"])  # (B, S, 4, H, dh)
+    # (B, S, 4, H, dh), the product taken over (d, H, 4, dh): flattening
+    # the heads, which a mesh shards, after the gates would lay the
+    # product's columns out strided
+    gx = heads_product(x, p["wx"].transpose(1, 2)).transpose(2, 3)
     h, new_state = _slstm_scan(gx, p["wr"], p["b"], state, chunk_size)
-    h = rms_norm(h, p["out_norm"]).reshape(B, S, d).to(x.dtype)
+    h = flatten_heads(rms_norm(h, p["out_norm"])).to(x.dtype)  # (B, S, d)
     # gated FFN (projection factor 4/3)
     y = F.silu(h @ p["ffn_gate"]) * (h @ p["ffn_up"])
     return y @ p["ffn_down"], new_state

@@ -34,6 +34,10 @@ import torch
 import torch.distributed as dist
 from jax.sharding import AbstractMesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
+from torch.distributed.tensor.placement_types import _StridedShard
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves as pytree_leaves
 
 from repro.configs import SHAPES_BY_NAME as JAX_SHAPES
 from repro.configs import get_config as jax_get_config
@@ -66,8 +70,8 @@ from repro_torch.kernels.grouped_matmul.ops import gmm
 from repro_torch.kernels.packed_attention.ops import packed_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.launch import train
-from repro_torch.models import build_model, params_from_numpy
-from repro_torch.models.params import tree_leaves, tree_paths
+from repro_torch.models import build_model, init_params, make_batch, params_from_numpy
+from repro_torch.models.params import tree_leaves, tree_map, tree_paths
 from repro_torch.training import OptimizerConfig, init_opt_state, make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -211,12 +215,17 @@ def test_cache_shardings_lay_paged_pools_out_by_page():
              "v": torch.empty((4, 4096, 16, 8, 128), device="meta"),
              "alloc": object(), "seqs": [0, 1],
              "len": torch.empty((128,), dtype=torch.int32, device="meta"),
-             "state": [{"ssm": torch.empty((2, 128, 256, 16), device="meta")}]}
+             "state": [{"ssm": torch.empty((128, 256, 16), device="meta")}],
+             "ck": torch.empty((4, 4096, 16, 8, 128), device="meta"),
+             "cross_table": torch.empty((128, 32), dtype=torch.int32, device="meta")}
     out = cache_shardings(cache, mesh, rules)
     assert out["k"].spec == (None, ("data", "model"), None, None, None)
+    assert out["ck"].spec == out["k"].spec
+    assert out["cross_table"].spec == (None, None)
     assert out["len"].spec == ("data",)
     assert out["alloc"] is None and out["seqs"] == [None, None]
-    assert out["state"][0]["ssm"].spec == (None, "data", "model", None)
+    # a recurrent layer's own state, as prefill leaves it: batch first
+    assert out["state"][0]["ssm"].spec == ("data", "model", None)
 
 
 def test_spec_nesting_against_mesh_order_raises():
@@ -631,6 +640,54 @@ def test_gmm_dtensor_rule(fake_group):
         gmm(_local_dt(x, mesh, (Replicate(), Shard(0))),
             _local_dt(w, mesh, (Shard(1), Shard(0))),
             _local_dt(gs, mesh, (Replicate(), Shard(0))))
+
+
+class _StridedWatch(TorchDispatchMode):
+    """Records every DTensor op given a ``_StridedShard`` placement (a
+    sharded dim merged with another, which torch 2.11 refuses).  It
+    declines the DTensor-level call, so DTensor dispatches as it would
+    without it."""
+
+    def __init__(self):
+        super().__init__()
+        self.strided = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            for a in pytree_leaves((args, kwargs or {})):
+                if isinstance(a, DTensor) and any(
+                        isinstance(pl, _StridedShard) for pl in a.placements):
+                    self.strided.append((str(func), tuple(a.shape), a.placements))
+            return NotImplemented
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b", "qwen3-moe-30b-a3b",
+                                  "jamba-v0.1-52b", "xlstm-125m"])
+def test_train_step_on_a_2x2_mesh_lays_nothing_out_strided(fake_group, arch):
+    """One train step at smoke size on a (2, 2) mesh (the fake backend):
+    no op sees a ``_StridedShard`` placement.  This box's torch lays such a
+    merge out strided and goes on; the card's torch 2.11 refuses it, so this
+    is where that refusal shows here."""
+    mesh = _fake_mesh(fake_group)
+    rules = make_rules(mesh)
+    cfg = get_config(arch).smoke()
+    model = build_model(cfg)
+    specs = model.param_specs()
+    params = init_params(specs, torch.Generator().manual_seed(0), torch.float32,
+                         torch.device("cpu"))
+    batch = make_batch(cfg, "train", 4, 32)
+    p_shard = param_shardings(specs, mesh, rules)
+    b_shard = batch_shardings(batch, mesh, rules)
+    dparams = tree_map(distribute, params, p_shard)
+    dbatch = {k: distribute(v, b_shard[k]) for k, v in batch.items()}
+    step = make_train_step(model, OptimizerConfig(), grad_shardings=p_shard,
+                           compute_dtype=torch.float32)
+    watch = _StridedWatch()
+    with activation_sharding(mesh, rules), implicit_replication(), watch:
+        _, _, metrics = step(dparams, init_opt_state(dparams), dbatch)
+    assert watch.strided == []
+    assert metrics["loss"].shape == ()
 
 
 # ---------------------------------------------------------------------------
