@@ -102,6 +102,16 @@ Phases, in order; any failure raises and the script exits nonzero:
    DTensor adds (step ms p50 and a profiled step's wall less device time,
    each against the plain run's); its checkpoint goes to a temporary
    directory removed after;
+11c. the dry-run (``[dryrun]`` lines): the CLI's olmo-1b ``decode_32k``
+   cell on both production meshes of a ``fake`` process group, then steps
+   counted on meta stand-ins on a (1, 1) mesh and held to the same steps
+   on the card: phase 11's train step, phase 10's ragged decode step, and
+   two prefill cells of 8 full rows of 1024 tokens (``DRYRUN_PREFILL``:
+   qwen3-8b, its write plan read from the shapes, and xlstm-125m, its
+   scans counted from one chunk of 128 steps for all 8 against
+   ``FlopCounterMode`` over the full loop): the FLOPs equal, no measured
+   step faster than its roofline, the predicted peak within
+   ``DRYRUN_MEM_TOL`` of the card's;
 12. MoE serving: ``qwen3-moe-30b-a3b`` at full width and depth in bf16
    (weights drawn on the card from a seed, after every earlier phase's
    tensors are freed), each MoE layer's experts through the grouped
@@ -126,8 +136,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    G = 7, D = 64; the grouped matmul's bf16 entry at jamba-v0.1-52b's bins,
    E = 16, top-2, C = 128 and 1280, d 4096 and 14336, gate/up and down),
    each within phase 7's, 6's or 4's limits, a second launch bitwise equal,
-   the tile census equal to its rule, and its times beside the bound and
-   the library call; then four families served: xlstm-125m (12 layers;
+   the tile census equal to its rule, phase 7's planted faults above the
+   limits at internvl2-1b's causal prefill, and its times beside the bound
+   and the library call; then four families served: xlstm-125m (12 layers;
    ``run_local``, then 8 prompts of 1024 tokens and 32 decode steps; no
    kernel launched), seamless-m4t-medium (12 + 12 layers; ``run_local``,
    then 1024 encoder frames and 64-token prompts: 36 packed launches in the
@@ -151,6 +162,24 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``seamless-m4t-medium G=1``, ``internvl2-1b G=7`` (paged) and ``jamba
    decode gate/up bf16``, ``jamba decode down bf16``, ``jamba prefill
    gate/up bf16``, ``jamba prefill down bf16`` (grouped matmul).
+
+14. the four examples (``[examples]`` lines).  First each kernel at the
+   examples' shapes against its plain version, as phase 13 holds them
+   (``EXAMPLE_PACKED``: lm-100m's packed rows of 256, D = 64; olmo-1b and
+   qwen3-8b at smoke size, D = 16, the mma.sync route; ``EXAMPLE_PAGED``:
+   qwen3-8b smoke decode over pages of 4); ``by_shape`` gains ``lm-100m
+   train stream``, ``olmo-1b smoke``, ``qwen3-8b smoke prefill`` (packed
+   forward and backward, each beside phase 7's planted faults) and
+   ``qwen3-8b smoke G=4`` (paged).  Then each example in a child
+   interpreter with its own time limit and a fresh temporary directory:
+   ``examples/torch_quickstart.py``; ``torch_train_stream.py --steps 100
+   --fail-at 60`` (lm-100m, ~130M parameters, bf16 over fp32 masters),
+   which must restart once, reach step 100 and see its loss fall;
+   ``torch_serve_microscopy.py`` and ``torch_fault_tolerance.py --backend
+   both``, each whole.  Each exits 0, and each kernel on its path (the
+   packed forward and backward in training, the packed forward and the
+   paged kernel in serving) must show launches, read from the example's
+   own ``kernel launches:`` line.
 
 Each phase prints its wall time; a failing phase raises with its name.
 The serving phases run before training, so that no ``torch.profiler``
@@ -276,6 +305,11 @@ DRYRUN_MEM_TOL = 0.05
 # the ragged decode step counted on stand-ins: phase 10's 8 sequences, its
 # 1024-page pool and 128-page tables (seq_len 2048 = 128 pages of 16)
 DRYRUN_DECODE = {"B": 8, "S": 2048}
+# two prefill cells counted on stand-ins and run on the card: 8 full rows of
+# 1024 tokens (phase 10's longest prompt) for qwen3-8b, whose write plan is
+# read from the shapes, and for xlstm-125m, whose scans the count runs for
+# one chunk of 128 steps and counts for all 8
+DRYRUN_PREFILL = {"B": 8, "S": 1024, "archs": ("qwen3-8b", "xlstm-125m")}
 # The first paged decode step against the port's prefill of prompt + token,
 # both bf16 at full width: max |dlogit| <= FIRST_STEP_TOL * max |logit|.
 # bf16 keeps 8 significant bits; the two paths round at different places
@@ -816,7 +850,7 @@ def _decode_inputs(torch, np, dtype, shape=DECODE):
     B, H, KVH, D = shape["B"], shape["H"], shape["KVH"], shape["D"]
     ps, P, maxp = shape["page_size"], shape["num_pages"], shape["max_pages"]
     rng = np.random.default_rng(13)
-    lens = rng.integers(64, 1057, size=B)
+    lens = rng.integers(*shape.get("lens", (64, 1057)), size=B)
     lens[3] = 0
     perm = rng.permutation(np.arange(1, P))
     table = np.full((B, maxp), -1, np.int32)
@@ -1662,9 +1696,10 @@ def dryrun_phase(torch, np, smi, decode_reading):
     stand-ins on the one-card (1, 1) mesh and held to the same steps on the
     card: phase 11's olmo-1b train step (run here once more from the same
     weights and batch) and phase 10's qwen3-8b ragged decode step
-    (``decode_reading``).  The FLOPs must be equal, each measured step no
-    faster than its roofline bound, the predicted peak within
-    ``DRYRUN_MEM_TOL`` of the card's."""
+    (``decode_reading``); then the two prefill cells (``_prefill_cells``).
+    The FLOPs must be equal, each measured step no faster than its
+    roofline bound, the predicted peak within ``DRYRUN_MEM_TOL`` of the
+    card's."""
     import os
 
     import torch.distributed as dist
@@ -1755,6 +1790,7 @@ def dryrun_phase(torch, np, smi, decode_reading):
                 decode_reading["device_ms"] / 1e3 / rec["roofline_step_s"])
         print(f"[dryrun] one card: {name}: " + json.dumps(readings[name]))
     print(f"[dryrun] the two counts took {count_s:.1f} s")
+    readings.update(_prefill_cells(torch, np, smi))
     checks = {"the decode_32k cell on both meshes": cell_ok}
     for name, r in readings.items():
         checks[f"{name}: FLOPs on stand-ins == on the card"] = r["flops_fake"] == r["flops_real"]
@@ -1763,6 +1799,74 @@ def dryrun_phase(torch, np, smi, decode_reading):
     print(f"[dryrun] checks: {checks}")
     if not all(checks.values()):
         raise AssertionError(f"dry-run: {checks}")
+
+
+def _prefill_cells(torch, np, smi):
+    """Phase 11c's prefill cells (``DRYRUN_PREFILL``): each counted on meta
+    stand-ins on a (1, 1) mesh, then run on the card from bf16 weights
+    drawn there, into the cache ``cache_specs`` gives the count, zeroed on
+    the card: a warm-up, one prefill under ``FlopCounterMode`` and two
+    timed.  The readings, as the train and decode steps'."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun, serve
+    from repro_torch.models import build_model, cache_specs
+
+    B, S = DRYRUN_PREFILL["B"], DRYRUN_PREFILL["S"]
+    shape = ShapeConfig(f"prefill {B} x {S}", "prefill", S, B)
+    dev = torch.device("cuda")
+    readings = {}
+    for arch in DRYRUN_PREFILL["archs"]:
+        t0 = time.perf_counter()
+        dryrun.fake_process_group(1)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+            rec = dryrun.lower_cell(arch, "prefill", mesh=mesh, shape=shape)
+        finally:
+            dist.destroy_process_group()
+        count_s = time.perf_counter() - t0
+
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        params = serve.make_params(model, 0, dev)
+        rng = np.random.default_rng(31)
+        batch = {"tokens": torch.tensor(rng.integers(1, cfg.vocab_size, size=(B, S)),
+                                        dtype=torch.int32, device=dev),
+                 "segment_ids": torch.ones((B, S), dtype=torch.int32, device=dev),
+                 "positions": torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)}
+
+        def prefill():
+            cache = cache_specs(cfg, shape, serve.DTYPE, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model.prefill(params, batch, cache)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        with torch.no_grad():
+            prefill()
+            cache = cache_specs(cfg, shape, serve.DTYPE, dev)
+            flops, peak, (logits, _) = _step_reading(
+                torch, lambda: model.prefill(params, batch, cache), (params, batch, cache))
+            finite = bool(torch.isfinite(logits).all())
+            del cache, logits
+            ms = [prefill()[1] for _ in range(2)]
+        pred = rec["memory"]["peak_memory_in_bytes"]
+        name = f"{arch} prefill {B} x {S}"
+        readings[name] = {
+            "card": smi, "flops_fake": rec["flops_per_dev"], "flops_real": flops,
+            **_roofline_reading(rec, min(ms)), "prefill_ms": ms,
+            "peak_pred_gib": pred / 2**30, "peak_card_gib": peak / 2**30,
+            "peak_rel_err": (pred - peak) / peak, "count_s": count_s,
+            "logits_finite": finite}
+        print(f"[dryrun] one card: {name}: " + json.dumps(readings[name]))
+        if not finite:
+            raise AssertionError(f"{name}: logits not finite")
+        del params, model, batch
+        torch.cuda.empty_cache()
+    return readings
 
 
 def serve_phase(torch):
@@ -2324,18 +2428,22 @@ JAMBA_FIRST_STEP_TOL = 0.1
 
 
 def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, causal,
-                        flush):
+                        flush, seg=None, tag="family"):
     """The packed kernels, forward and backward, against the autograd of
     their plain version at one of the new shapes: TOLS and relative l2 as in
     phase 7, a second launch bitwise equal, the tile census equal to
-    ``ref.tile_schedule``'s; times beside the bound and sdpa."""
+    ``ref.tile_schedule``'s (at D = 64 and 128; the D = 16 and 32 kernels
+    keep none, and must read 0); times beside the bound and sdpa.  ``seg``
+    (B, Sq), when given, is the segment ids of queries and keys alike
+    (packed rows); else every row is one segment.  Causal self-attention
+    also gets phase 7's planted faults, which must read above the limits."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.packed_attention.ref import census_rule, rel_l2, visible_mask
 
     dev = torch.device("cuda")
-    seg_q_np = np.ones((B, Sq), np.int32)
-    seg_kv_np = np.ones((B, Skv), np.int32)
+    seg_q_np = np.ones((B, Sq), np.int32) if seg is None else np.asarray(seg, np.int32)
+    seg_kv_np = np.ones((B, Skv), np.int32) if seg is None else seg_q_np.copy()
     if Sq != Skv:  # separate segment ids, each with padded tails
         seg_kv_np[1, Skv - 200:] = 0
         seg_kv_np[5, Skv - 37:] = 0
@@ -2360,7 +2468,8 @@ def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, 
     o, lse = pk.packed_flash_attention(q, k, v, seg_q, seg_kv, causal=causal)
     pk.packed_flash_attention_bwd(q, k, v, seg_q, seg_kv, o, g, lse, causal=causal)
     census = pk.tile_census(on=False)
-    rule = census_rule(seg_q, seg_kv, H, KVH, causal=causal)
+    rule = (census_rule(seg_q, seg_kv, H, KVH, causal=causal) if D >= 64 else
+            {kern: dict.fromkeys(pk.CENSUS_CLASSES, 0) for kern in pk.CENSUS_KERNELS})
     rtol, atol = PACKED_TOLS
     pad_q = seg_q == 0
     checks = {
@@ -2374,10 +2483,18 @@ def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, 
         "a second forward and backward bitwise equal": same,
         "tile census equal to ref.tile_schedule's": census == rule,
     }
-    print(f"[family] packed {name}: B={B} Sq={Sq} Skv={Skv} H={H} KVH={KVH} D={D} "
+    faults = {}
+    if causal and Sq == Skv:
+        faults = _planted_faults(torch, packed_ops, rel_l2, q, k, v, g, seg_q,
+                                 ref_out, ref_grads)
+        checks["each planted fault reads above the limits"] = all(
+            not _within(f, PACKED_REL_L2) for f in faults.values())
+    print(f"[{tag}] packed {name}: B={B} Sq={Sq} Skv={Skv} H={H} KVH={KVH} D={D} "
           f"causal={causal}; visible pairs {pairs}; max_abs_err out {err_out:.3e}, "
           f"dq/dk/dv {[f'{e:.3e}' for e in err_g]}; rel l2 (tensor/worst tile) "
-          f"{_fmt(readings)}; census {json.dumps(census)} {checks}")
+          f"{_fmt(readings)}; planted faults " + "; ".join(
+              f"{n} {_fmt(f)}" for n, f in faults.items())
+          + f"; census {json.dumps(census)} {checks}")
     if not all(checks.values()):
         raise AssertionError(f"packed kernels disagree with their plain version at "
                              f"{name}: {checks}")
@@ -2413,7 +2530,7 @@ def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, 
     del sd, hs, gt, o, lse
     fb, fb_by = _packed_bound("fwd", pairs, B, Sq, H, KVH, D, "bfloat16", Skv)
     bb, bb_by = _packed_bound("bwd", pairs, B, Sq, H, KVH, D, "bfloat16", Skv)
-    print(f"[family] packed {name}: forward {fwd_ms:.4f} ms, plain {plain_fwd_ms:.4f} ms, "
+    print(f"[{tag}] packed {name}: forward {fwd_ms:.4f} ms, plain {plain_fwd_ms:.4f} ms, "
           f"sdpa {sdpa_fwd_ms:.4f} ms, bound {fb:.4f} ms ({fb_by}); backward "
           f"{bwd_ms:.4f} ms, plain {plain_bwd_ms:.4f} ms, sdpa {sdpa_bwd_ms:.4f} ms, "
           f"bound {bb:.4f} ms ({bb_by})")
@@ -2909,6 +3026,157 @@ def families_phase(torch, np):
     return launches, readings
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the four torch examples
+# ---------------------------------------------------------------------------
+
+# The kernels at the examples' shapes, held to their plain versions before
+# the examples run: (name, B, Sq, Skv, H, KVH, D, causal, segments).
+# torch_train_stream's lm-100m (4 packed rows of 256 tokens from its own
+# stream, 10 heads of 64: the wgmma route), torch_fault_tolerance's olmo-1b
+# smoke (2 rows of 64, 4 heads of 16: the mma.sync route) and
+# torch_serve_microscopy's qwen3-8b smoke prefill (4 prompts of 12, 4 query
+# over 1 KV head of 16).  The limits are phase 7's.
+EXAMPLE_PACKED = (("lm-100m train stream", 4, 256, 256, 10, 10, 64, True, "stream"),
+                  ("olmo-1b smoke", 2, 64, 64, 4, 4, 16, True, None),
+                  ("qwen3-8b smoke prefill", 4, 12, 12, 4, 1, 16, True, None))
+# torch_serve_microscopy's decode: qwen3-8b smoke over pages of 4 tokens, 16
+# a sequence, a 64-page pool; lengths 13-60 (its 12-token prompts and 8
+# generated tokens, and past them to the table's end).  Phase 6's limits.
+EXAMPLE_PAGED = (("qwen3-8b smoke G=4", {"B": 4, "H": 4, "KVH": 1, "D": 16,
+                                         "page_size": 4, "num_pages": 64,
+                                         "max_pages": 16, "lens": (13, 61)}),)
+
+
+def _example_stream_segments(np):
+    """The segment ids of the first of torch_train_stream's packed batches
+    (its documents, seed, rows and width) in which all rows but one hold
+    two documents or more (the first three hold one long document a row)."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        from torch_train_stream import LM_100M
+    finally:
+        sys.path.pop(0)
+    from repro_torch.data import StreamingPipeline, synthetic_documents
+
+    _, B, S = EXAMPLE_PACKED[0][:3]
+    stream = StreamingPipeline(
+        synthetic_documents(LM_100M.vocab_size, mean_len=180, max_len=1024, seed=0,
+                            limit=None), seq_len=S, batch_size=B, prefetch=0)
+    for _, pb in zip(range(MULTI_SEGMENT_SEARCH), stream):
+        if (pb.segment_ids.max(axis=1) >= 2).sum() >= B - 1:
+            return pb.segment_ids
+    raise AssertionError(f"none of the train stream's first {MULTI_SEGMENT_SEARCH} "
+                         "batches holds two documents in all rows but one")
+
+
+def example_kernels(torch, np):
+    """Phase 14, part 1: the packed kernels (forward and backward) and the
+    paged kernel at the examples' shapes against their plain versions;
+    returns the by_shape records (packed forward, packed backward, paged)."""
+    from repro_torch.kernels.packed_attention import kernel as pk
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+
+    dev = torch.device("cuda")
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    fwd, bwd, paged = {}, {}, {}
+    for name, B, Sq, Skv, H, KVH, D, causal, seg in EXAMPLE_PACKED:
+        seg = _example_stream_segments(np) if seg == "stream" else None
+        fwd[name], bwd[name] = _family_packed_case(
+            torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, causal, flush,
+            seg=seg, tag="examples")
+    for key, shape in EXAMPLE_PAGED:
+        paged[key] = _paged_case(torch, np, key, shape, "bfloat16", flush)
+    del flush
+    torch.cuda.empty_cache()
+    return fwd, bwd, paged
+
+
+def _launch_line(out: str, name: str) -> dict:
+    """The kernel launches an example printed on its ``kernel launches:``
+    line, by kernel (``packed_fwd``, ``packed_bwd``, ``paged``); every such
+    line summed."""
+    import re
+
+    names = {"packed attention forward": "packed_fwd",
+             "backward": "packed_bwd", "paged decode attention": "paged"}
+    counts = {}
+    for line in out.splitlines():
+        if line.startswith("kernel launches:"):
+            for label, n in re.findall(r"([a-z ]+?) (\d+)", line.split(":", 1)[1]):
+                key = names[label.strip()]
+                counts[key] = counts.get(key, 0) + int(n)
+    if not counts:
+        raise AssertionError(f"{name} printed no kernel launches line")
+    return counts
+
+
+def examples_phase(torch):
+    """Phase 14, part 2: the four torch examples, each in a child
+    interpreter with its own time limit and a fresh temporary directory
+    (``TMPDIR``, and ``--ckpt-dir`` for the train stream); returns each
+    example's kernel launches, read from its output."""
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    runs = (
+        ("torch_quickstart", [], 120, {}),
+        ("torch_train_stream", ["--steps", "100", "--fail-at", "60"], 600,
+         {"packed_fwd", "packed_bwd"}),
+        ("torch_serve_microscopy", [], 300, {"packed_fwd", "paged"}),
+        ("torch_fault_tolerance", ["--backend", "both"], 600,
+         {"packed_fwd", "packed_bwd"}),
+    )
+    launches, checks, walls = {}, {}, {}
+    for name, argv, limit, want in runs:
+        tmp = tempfile.mkdtemp(prefix=f"{name}_")
+        if name == "torch_train_stream":
+            argv = argv + ["--ckpt-dir", os.path.join(tmp, "ckpt")]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "examples" / f"{name}.py"), *argv],
+                cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC), TMPDIR=tmp),
+                capture_output=True, text=True, timeout=limit)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        walls[name] = time.perf_counter() - t0
+        out = proc.stdout
+        print(f"[examples] {name} {' '.join(argv[:4])}: exit {proc.returncode} "
+              f"in {walls[name]:.1f} s")
+        for line in out.splitlines():
+            if line.startswith(("final step", "loss:", "run ", "generated", "page allocator",
+                                "prefill", "step time", "[", "injected", "restored",
+                                "placement", "kernel launches", "model:")):
+                print(f"[examples]   {line}")
+        if proc.returncode != 0:
+            sys.stderr.write(out[-3000:] + proc.stderr[-4000:])
+            raise RuntimeError(f"{name} exited with {proc.returncode}")
+        if want:
+            launches[name] = _launch_line(out, name)
+            for k in sorted(want):
+                checks[f"{name}: {k} launches > 0"] = launches[name].get(k, 0) > 0
+        if name == "torch_train_stream":
+            done = re.search(r"final step: (\d+)  restarts: (\d+)", out)
+            checks["torch_train_stream: final step 100, one restart"] = (
+                done is not None and done.groups() == ("100", "1"))
+            loss = re.search(r"loss: ([\d.]+) -> ([\d.]+)", out)
+            checks["torch_train_stream: the loss fell"] = (
+                loss is not None and float(loss[2]) < float(loss[1]))
+        if name == "torch_fault_tolerance":
+            checks["torch_fault_tolerance: scenario 1 restarted and finished step 12"] = (
+                "restarts: 1, completed step 12" in out)
+            checks["torch_fault_tolerance: every backend completed 80/80"] = (
+                out.count("completed 80/80") == 2)
+    print("[examples] " + json.dumps({"launches": launches, "wall_s": walls}))
+    print(f"[examples] checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"examples: {checks}")
+    return launches
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         _fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -3005,7 +3273,7 @@ def main() -> None:
     with _phase("distributed"):
         dist_launches = distributed_phase(torch, np)
 
-    # 11c. the dry-run, and its count of two steps against the card
+    # 11c. the dry-run, and its count of four steps against the card
     with _phase("dry-run"):
         dryrun_phase(torch, np, smi, decode_reading)
 
@@ -3017,6 +3285,12 @@ def main() -> None:
     with _phase("families"):
         fam_fwd, fam_bwd, fam_paged, fam_gmm = family_kernels(torch, np)
         fam_launches, _ = families_phase(torch, np)
+
+    # 14. the four torch examples, each in a child interpreter
+    with _phase("examples"):
+        ex_fwd, ex_bwd, ex_paged = example_kernels(torch, np)
+        ex_launches = examples_phase(torch)
+    ex_path = {f"example {name}": c for name, c in ex_launches.items()}
 
     print(json.dumps({"kernels": [{
         "name": "grouped_matmul",
@@ -3042,9 +3316,10 @@ def main() -> None:
                              "ragged serve": ragged_launches,
                              **{path: c["paged"] for path, c in moe_launches.items()
                                 if "paged" in c},
-                             **{path: c["paged"] for path, c in fam_launches.items()}},
+                             **{path: c["paged"] for path, c in fam_launches.items()},
+                             **{p: c["paged"] for p, c in ex_path.items() if "paged" in c}},
         **paged_record,
-        "by_shape": {**paged_records, **fam_paged},
+        "by_shape": {**paged_records, **fam_paged, **ex_paged},
     }, {
         "name": "packed_flash_attention",
         "route": "cuda",
@@ -3056,10 +3331,12 @@ def main() -> None:
                              "ragged serve": ragged_packed,
                              **{path: c["packed"] for path, c in moe_launches.items()
                                 if "packed" in c},
-                             **{path: c["packed"] for path, c in fam_launches.items()}},
+                             **{path: c["packed"] for path, c in fam_launches.items()},
+                             **{p: c["packed_fwd"] for p, c in ex_path.items()}},
         **packed_fwd_record,
         "by_shape": {**{n: fwd for n, (fwd, _) in packed_records.items()},
-                     f"{MOE_ARCH} prefill": packed_moe_record, **fam_fwd},
+                     f"{MOE_ARCH} prefill": packed_moe_record, **fam_fwd,
+                     **ex_fwd},
     }, {
         "name": "packed_flash_attention_bwd",
         "route": "cuda",
@@ -3071,9 +3348,11 @@ def main() -> None:
                              "ragged serve": 0,
                              **{path: 0 for path, c in moe_launches.items()
                                 if "packed" in c},
-                             **{path: c["packed_bwd"] for path, c in fam_launches.items()}},
+                             **{path: c["packed_bwd"] for path, c in fam_launches.items()},
+                             **{p: c.get("packed_bwd", 0) for p, c in ex_path.items()}},
         **packed_bwd_record,
-        "by_shape": {**{n: bwd for n, (_, bwd) in packed_records.items()}, **fam_bwd},
+        "by_shape": {**{n: bwd for n, (_, bwd) in packed_records.items()}, **fam_bwd,
+                     **ex_bwd},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,0 +1,182 @@
+"""Serving driver on the PyTorch port: the paper's microscopy use case on
+the IRM-scheduled continuous-batching engine, then a model served on the
+card over the First-Fit paged KV cache.
+
+The port's counterpart of ``examples/serve_microscopy.py``, with its
+printout.
+
+Part 1 replays the paper's experiment shape -- a large batch of
+variable-cost requests hitting a capped replica pool -- through the
+serving engine: First-Fit admission over (slots, pages) vector bins,
+queue-ROC replica autoscaling, profile learning across repeated runs.  It
+is numpy, as in the JAX example.
+
+Part 2 serves a real (tiny) model, qwen3-8b at smoke size: a batched
+prefill, whose attention is the packed-attention kernel on the card, then
+token-by-token greedy decode, each step's attention the paged-attention
+kernel over the First-Fit paged cache (head dim 16).  Where the JAX
+example decodes over JAX's dense cache and keeps a ``PageAllocator`` on
+the side as bookkeeping, the port decodes through the paged cache itself:
+the allocator it prints is the one that placed the K/V.  The JAX hand-off
+from prefill to decode drops the generated tokens' K/V (the dense cache is
+as long as the prompt); the port keeps them, so only the first generated
+token and the first decode step match the JAX example's, and the later
+tokens may differ.  The weights are drawn from a seeded generator (bf16
+on the card, which the packed kernel needs; fp32 with ``--device cpu``,
+the JAX example's dtype).
+
+Usage:
+  PYTHONPATH=src python examples/torch_serve_microscopy.py
+  PYTHONPATH=src python examples/torch_serve_microscopy.py --device cpu
+"""
+
+import argparse
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels.packed_attention import ops as packed_ops
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.models import build_model, init_params
+from repro_torch.scenarios import get_scenario, stream_to_requests
+from repro_torch.serving import (
+    EngineConfig,
+    PagedCacheLayout,
+    ReplicaConfig,
+    ServingEngine,
+)
+
+
+def part1_engine(n_images: int = 200) -> List[Dict[str, Any]]:
+    """The image batch served twice, the profiler kept from run 1; the two
+    engines' summaries."""
+    print("=" * 64)
+    print("1. IRM-scheduled continuous batching (paper Sec. VI-B, as serving)")
+    print("=" * 64)
+    cfg = EngineConfig(
+        replica=ReplicaConfig(max_slots=8, kv_pages=1024, page_size=16,
+                              prefill_tokens_per_s=80_000.0,
+                              decode_tokens_per_s=6_000.0,
+                              spinup_delay=5.0),
+        max_replicas=5,  # the paper's 5-worker cap
+        dt=0.1,
+    )
+    scenario = get_scenario("microscopy")
+    summaries, profiler = [], None
+    # run the "image batch" twice: the profiler persists, run 2 admits better
+    for run in (1, 2):
+        # 10-20 s image analyses -> proportional prefill/decode token counts
+        stream = scenario.make_stream(run - 1, n_images=n_images)
+        requests = [req for _, req in stream_to_requests(
+            stream, prompt_tokens_per_s=100.0, decode_tokens_per_s=12.0)]
+        eng = ServingEngine(cfg)
+        if profiler is not None:
+            eng.profiler = profiler  # kept from run 1
+        for req in requests:
+            eng.submit(req)
+        eng.run_until_drained(t_max=1200.0)
+        s = eng.summary()
+        profiler = eng.profiler
+        req_class = requests[0].req_class
+        summaries.append(s)
+        print(f"run {run}: {s['completed']} requests, "
+              f"makespan {s['makespan']:.1f}s, "
+              f"p50 latency {s['p50_latency']:.2f}s, "
+              f"p99 {s['p99_latency']:.2f}s, "
+              f"peak replicas {s['peak_replicas']}")
+    print(f"learned request-class profile: "
+          f"{profiler.estimate(req_class):.3f} "
+          f"(pages fraction, {profiler.num_observations(req_class)} obs)")
+    return summaries
+
+
+def part2_real_model(device: str = "cuda", dtype: Optional[torch.dtype] = None,
+                     params: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Prefill 4 prompts of 12 tokens and decode 8 greedy tokens over the
+    paged cache; return the prefill's and each step's logits, the tokens,
+    the allocator's counts and the kernels' launches.  ``dtype`` defaults
+    to bf16 on the card and fp32 on the CPU; ``params`` (in ``dtype``, on
+    ``device``) replace the drawn weights."""
+    print()
+    print("=" * 64)
+    print("2. Real model decode over the First-Fit paged KV cache")
+    print("=" * 64)
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card: pass --device cpu to run the plain version on the CPU")
+    dtype = dtype or (torch.bfloat16 if dev.type == "cuda" else torch.float32)
+    cfg = get_config("qwen3-8b").smoke()
+    model = build_model(cfg)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = init_params(model.param_specs(), gen, dtype, dev)
+    rng = np.random.default_rng(1)
+
+    B, prompt_len, gen_tokens = 4, 12, 8
+    prompts = torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, size=(B, prompt_len)).astype(np.int32)).to(dev)
+    batch = {
+        "tokens": prompts,
+        "segment_ids": torch.ones((B, prompt_len), dtype=torch.int32, device=dev),
+        "positions": torch.arange(prompt_len, dtype=torch.int32,
+                                  device=dev).expand(B, prompt_len),
+    }
+    # the pages the decode slots take (bins = device-memory pages)
+    layout = PagedCacheLayout(num_pages=64, page_size=4, n_kv_heads=cfg.n_kv_heads,
+                              head_dim=cfg.head_dim_, max_pages_per_seq=16)
+    packed0, paged0 = packed_ops.launches_fwd, paged_ops.launches
+    with torch.no_grad():
+        cache = model.init_paged_cache(layout, dtype, dev)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, cache)
+        prefill_logits = logits.float().cpu()  # waits for the device
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        print(f"prefilled {B} sequences of {prompt_len} tokens")
+        toks = logits.argmax(dim=-1).to(torch.int32)[:, None]
+        generated, step_logits, step_ms = [toks], [], []
+        for _ in range(gen_tokens):
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, {"tokens": toks}, cache)
+            step_logits.append(logits.float().cpu())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            toks = logits.argmax(dim=-1).to(torch.int32)[:, None]
+            generated.append(toks)
+    out = torch.cat(generated, dim=1).cpu()
+    alloc = cache["alloc"]
+    print(f"generated {gen_tokens + 1} tokens per sequence; "
+          f"first row: {out[0].tolist()}")
+    print(f"page allocator: {alloc.used_pages}/{layout.num_pages} pages, "
+          f"token utilization of allocated pages {alloc.utilization():.0%}, "
+          f"watermark {alloc.highest_used_page()} (First-Fit keeps it dense)")
+    print(f"prefill {prefill_ms:.1f} ms, decode p50 "
+          f"{sorted(step_ms)[len(step_ms) // 2]:.1f} ms a step")
+    launches = {"packed_fwd": packed_ops.launches_fwd - packed0,
+                "paged": paged_ops.launches - paged0}
+    print(f"kernel launches: packed attention forward {launches['packed_fwd']}, "
+          f"paged decode attention {launches['paged']}")
+    assert torch.isfinite(logits).all()
+    return {"prefill_logits": prefill_logits, "step_logits": step_logits,
+            "tokens": out, "used_pages": alloc.used_pages, "prefill_ms": prefill_ms,
+            "step_ms": step_ms,
+            "watermark": alloc.highest_used_page(), "launches": launches}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    args = ap.parse_args()
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card: pass --device cpu to run the plain version on the CPU")
+    part1_engine()
+    part2_real_model(args.device)
+    print("\nDone.")
+
+
+if __name__ == "__main__":
+    main()

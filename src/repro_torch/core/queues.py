@@ -47,7 +47,7 @@ class HostRequest:
     ttl: int = 3
     target_worker: Optional[int] = None
     enqueue_time: float = 0.0
-    source: str = "autoscale"  # "autoscale" | "user"
+    source: str = "autoscale"  # "autoscale" | "user" | "failover"
     req_id: int = dataclasses.field(default_factory=lambda: next(_req_ids))
     meta: dict = dataclasses.field(default_factory=dict)
 

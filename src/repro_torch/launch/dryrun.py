@@ -14,7 +14,9 @@ the card does: the kernels' operators (``kernels/custom_ops.py``) count
 their own work and allocate only their outputs.  (Fake ``cuda`` tensors
 would take the same route, but a CPU-only build of PyTorch cannot index
 them from Python.)  Decode cells serve from the port's paged cache, its
-pools sharded by page (``cache_specs``, ``decode_attention_distributed``).
+pools sharded by page (``cache_specs``, ``decode_attention_distributed``);
+prefill cells fill an empty one, each rank writing its rows' K/V into the
+pages it holds (``layers.write_rows_local``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
@@ -141,14 +143,10 @@ def lower_cell(
         step_fn = make_train_step(model, OptimizerConfig(), remat_policy=remat_policy,
                                   microbatches=microbatches, grad_shardings=p_shard)
         args = (params, opt_state, dbatch)
-    elif shape.kind == "prefill":
-        raise NotImplementedError(
-            "prefill cells: the port's prefill writes the paged cache by a plan read "
-            "from the segment ids' values, which stand-ins do not have")
-    else:
+    else:  # serving: prefill fills an empty paged cache, decode extends a full one
         cache = cache_specs(cfg, shape)
         dcache = _place_cache(cache, cache_shardings(cache, mesh, rules))
-        step_fn = model.decode_step
+        step_fn = model.prefill if shape.kind == "prefill" else model.decode_step
         args = (placed_params(torch.bfloat16), dbatch, dcache)
 
     pod = NODE_GPUS if n_chips > 1 else 10**9
@@ -178,7 +176,7 @@ def lower_cell(
         "microbatches": microbatches,
         "layout": layout,
     }
-    if shape.kind == "decode":
+    if shape.kind != "train":
         record["cache_bytes_global"] = _cache_bytes(cache)
     record.update(roofline_terms(record, shape))
     if keep_hlo:

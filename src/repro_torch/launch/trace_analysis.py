@@ -6,9 +6,9 @@ The counterpart of ``repro/launch/hlo_analysis.py``, which parses XLA's
 optimized HLO.  The port has no HLO: ``analyze_step`` runs the step under
 a dispatch mode and reads the eager dispatch stream, which holds every op
 the card would run, each loop iteration dispatched anew (layers, the
-chunked cross-entropy, the recurrent loops over time).  So it has no
-trip-count extraction (the JAX module's ``_cond_trips``): a loop's body
-counts as often as it runs.
+chunked cross-entropy), but for the recurrent loops over time, which it
+counts as the JAX module counts a loop body by its trip count
+(``_cond_trips``): one chunk, times the chunks (below).
 
 Under DTensor the mode declines the DTensor-level call (it returns
 ``NotImplemented``, as ``CommDebugMode`` does), DTensor redispatches the
@@ -42,22 +42,37 @@ is the most held at once, autograd's saved tensors included.
 The stand-ins are meta tensors (or real ones): ops dispatched while a
 ``FakeTensorMode`` is active are DTensor's own shape propagation, run on
 fake tensors of the global shapes, and are not counted.
+
+Loops over time: the recurrent layers' ``models.scan_utils.chunked_scan``
+runs its chunks one after another, each the same ops on the same shapes
+(the time axis is padded to whole chunks).  ``analyze_step`` sets
+``scan_utils.LOOP_COUNTER`` to its counter; a scan of meta stand-ins with
+no gradient to record then runs the first chunk only and asks the counter
+to count it ``n`` times (``repeated``), the counterpart of the JAX module's
+trip count: FLOPs, bytes, ops and collectives times ``n``, and the peak as
+the full loop's, whose last chunk runs with the outputs of the ``n - 1``
+before it live; those outputs are allocated, uncounted, so that what
+follows the loop sees them.  A scan of real tensors, or under autograd (a
+train step), runs every chunk.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import weakref
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 from torch.utils import flop_counter
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_leaves, tree_map_only
 
 from ..kernels.custom_ops import BYTES
+from ..models import scan_utils
 from .analysis import KINDS, collective_kind, collective_wire_bytes
 
 __all__ = ["StepCost", "analyze_step", "top_collectives"]
@@ -106,6 +121,20 @@ class StepCost:
     @property
     def coll_bytes(self) -> float:
         return self.ici_bytes + self.dcn_bytes
+
+    def add_times(self, since: "StepCost", n: int) -> None:
+        """Add ``n`` times what was counted after the snapshot ``since``
+        (every count but the memory's)."""
+        for f in ("flops", "dot_bytes", "ici_bytes", "dcn_bytes", "coll_count",
+                  "eager_bytes", "ops"):
+            setattr(self, f, getattr(self, f) + n * (getattr(self, f) - getattr(since, f)))
+        for d, d0 in ((self.coll, since.coll), (self.flops_by_op, since.flops_by_op)):
+            for k, v in list(d.items()):
+                d[k] = v + n * (v - d0.get(k, 0.0))
+        for k, row in self.collectives.items():
+            row0 = since.collectives.get(k, [0.0, 0])
+            row[0] += n * (row[0] - row0[0])
+            row[1] += n * (row[1] - row0[1])
 
 
 def _tensors(tree: Any) -> List[torch.Tensor]:
@@ -164,6 +193,8 @@ class _Counter(TorchDispatchMode):
         self.flop_registry = dict(flop_counter.flop_registry)
         self.live: Dict[int, int] = {}
         self.held = 0
+        self.window = 0       # the most held since the innermost ``repeated`` began
+        self.paused = False   # pass ops through uncounted
         self.open = True
         self._cross: Dict[str, Tuple[bool, str]] = {}
 
@@ -178,8 +209,42 @@ class _Counter(TorchDispatchMode):
         self.live[key] = n
         self.held += n
         self.cost.peak_bytes = max(self.cost.peak_bytes, self.held)
+        self.window = max(self.window, self.held)
         weakref.finalize(st, self._free, key)
         return n
+
+    # ---- loops ----------------------------------------------------------
+    @contextlib.contextmanager
+    def repeated(self, n: int) -> Iterator[Callable[[Any], List[Any]]]:
+        """Count the body of the ``with`` as ``n`` runs of it: the first of
+        ``n`` loop iterations, each the same ops on the same shapes, whose
+        outputs stay live until the loop ends, and whose carry replaces the
+        one before.  It yields ``more(outputs)``, to be called at the end of
+        the body with the iteration's outputs: it returns ``n - 1`` more,
+        allocated uncounted, for the iterations not run.
+
+        The last iteration of the full loop starts with the first's leftover
+        (``held`` after it, carry and outputs), the outputs of ``n - 2`` more,
+        and peaks as far above its start as the first did."""
+        start, window0 = self.held, self.window
+        self.window = start
+        since = copy.deepcopy(self.cost)
+        last = [0]
+
+        def more(outputs: Any) -> List[Any]:
+            out_bytes = sum(_local(t).untyped_storage().nbytes() for t in _tensors(outputs))
+            last[0] = self.held + (n - 2) * out_bytes + (self.window - start)
+            self.paused = True
+            try:
+                return [tree_map_only(torch.Tensor, torch.empty_like, outputs)
+                        for _ in range(n - 1)]
+            finally:
+                self.paused = False
+
+        yield more
+        self.cost.add_times(since, n - 1)
+        self.cost.peak_bytes = max(self.cost.peak_bytes, last[0])
+        self.window = max(window0, self.window, last[0])
 
     def _free(self, key: int) -> None:
         if self.open:
@@ -220,6 +285,11 @@ class _Counter(TorchDispatchMode):
             # DTensor's shape propagation, on fake tensors of the global
             # shapes: bookkeeping, not the device's work
             return func(*args, **kwargs)
+        if self.paused:  # ``repeated``'s stand-ins for the iterations not run
+            out = func(*args, **kwargs)
+            for t in _tensors(out):
+                self.hold(t)
+            return out
         if isinstance(func, torch._ops.HigherOrderOperator):
             return func(*args, **kwargs)
         packet = func._overloadpacket
@@ -272,6 +342,7 @@ def analyze_step(fn: Callable[..., Any], *args: Any, pod_size: int = 10**9,
         t = _local(t)
         arg_keys.add(t.untyped_storage()._cdata)
         cost.arg_bytes += counter.hold(t)
+    token = scan_utils.LOOP_COUNTER.set(counter)
     try:
         with counter:
             out = fn(*args)
@@ -281,6 +352,7 @@ def analyze_step(fn: Callable[..., Any], *args: Any, pod_size: int = 10**9,
             if _local(t).untyped_storage()._cdata not in arg_keys)
     finally:
         counter.open = False
+        scan_utils.LOOP_COUNTER.reset(token)
     return out, cost
 
 

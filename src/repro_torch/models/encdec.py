@@ -41,6 +41,7 @@ from .transformer import (
     _remat,
     chunked_cross_entropy,
     grow,
+    last_tokens,
     pad_vocab,
     write_plan,
     write_tokens,
@@ -244,13 +245,11 @@ class EncDecLM:
         enc_out = self.encode(params, batch["enc_embeds"], enc_seg, remat_policy=None)
         x = self._decoder_hidden(params, batch["tokens"], seg, batch["positions"],
                                  enc_out, enc_seg, remat_policy=None, on_layer=keep)
-        lens = plan[0]
-        last = (lens.long() - 1).clamp(min=0)
-        logits = self._logits(params, x[torch.arange(B, device=x.device), last])
+        logits = self._logits(params, last_tokens(x, plan))
         seqs = list(range(B))
         cache["cross_table"], cache["enc_len"] = page_table_from_allocator(
-            cache["cross_alloc"], seqs, seg.device)
-        cache["seqs"], cache["len"] = seqs, lens
+            cache["cross_alloc"], seqs, plan.lens.device)
+        cache["seqs"], cache["len"] = seqs, plan.lens
         return logits, cache
 
     def decode_step(

@@ -51,6 +51,7 @@ __all__ = [
     "attention_decode",
     "cross_attention_decode",
     "decode_attention_distributed",
+    "write_rows_local",
     "mlp_specs",
     "mlp",
 ]
@@ -432,12 +433,12 @@ def attention(
     # the kernels read whole rows of segment ids (as XLA gathers them)
     segment_ids = constrain(segment_ids, ("batch", None))
     segment_ids_kv = constrain(segment_ids_kv, ("batch", None))
-    k, v = _kv_heads_as_q(q, k), _kv_heads_as_q(q, v)
+    kq, vq = _kv_heads_as_q(q, k), _kv_heads_as_q(q, v)
     if x.device.type == "cpu":
-        out = flash_attention(q, k, v, segment_ids, segment_ids_kv, causal=causal,
+        out = flash_attention(q, kq, vq, segment_ids, segment_ids_kv, causal=causal,
                               window=cfg.sliding_window)
     else:  # the Hopper kernels, or a raise: never the plain version
-        out = packed_ops.packed_attention(q, k, v, segment_ids, segment_ids_kv,
+        out = packed_ops.packed_attention(q, kq, vq, segment_ids, segment_ids_kv,
                                           causal=causal, window=cfg.sliding_window)
     out = constrain(out, ("batch", None, "heads", None))
     return _out_proj(out, p["wo"]), (k, v)
@@ -498,6 +499,64 @@ def _write_local(pool: torch.Tensor, dims: list, page: torch.Tensor, slot: torch
     val = torch.where(mine[:, None, None], new,
                       torch.where(have, new.index_select(0, j), local[:1]))
     local[tgt] = val
+
+
+def write_rows_local(pool: torch.Tensor, new: torch.Tensor) -> None:
+    """Prefill's write of full rows into a DTensor pool: row b's S tokens
+    (``new``: (B, S, KVH, D), rows laid out over the batch's mesh dims, the
+    sequence whole) fill pages b P ... (b + 1) P - 1 in order (P pages a
+    row; the full-rows plan of ``transformer.write_plan``), each rank
+    writing into the pages it holds.
+
+    The rank's pages must lie among its own rows' slots.  Where ``new``'s
+    heads are sharded over a mesh dim that also splits those pages, the
+    ranks along it trade their heads of each other's slots in one
+    all-to-all: the only collective the two layouts need.  A pool every
+    rank holds whole takes every row (``new`` gathered whole first)."""
+    dims = _page_dims(pool)
+    page_size = pool.shape[1]
+    if not dims:
+        new = _full(new)
+        B, S = new.shape[:2]
+        P = -(-S // page_size)
+        flat = F.pad(new, (0, 0, 0, 0, 0, P * page_size - S)).flatten(0, 1)
+        pool.to_local().flatten(0, 1)[:flat.shape[0]].copy_(flat)
+        return
+    mesh, coord = new.device_mesh, new.device_mesh.get_coordinate()
+    row_dims, head_dims = [], []
+    for m, pl in enumerate(new.placements):
+        if isinstance(pl, Shard) and pl.dim == 0:
+            row_dims.append(m)
+        elif isinstance(pl, Shard) and pl.dim == 2:
+            head_dims.append(m)
+        elif not pl.is_replicate():
+            raise ValueError(f"K/V of placements {tuple(new.placements)}: prefill writes "
+                             f"rows sharded by batch and heads only")
+    local = new.to_local()
+    Bl, S = local.shape[:2]
+    P = -(-S // page_size)
+    row0 = 0
+    for m in row_dims:
+        row0 = row0 * mesh.size(m) + coord[m]
+    n = pool.to_local().shape[0] * page_size            # the slots this rank holds
+    off = _first_local_page(pool, dims) * page_size - row0 * Bl * P * page_size
+    if off < 0 or off + n > Bl * P * page_size:
+        raise ValueError(f"this rank's pages are not among its rows' slots: placements "
+                         f"{tuple(pool.placements)} against {tuple(new.placements)}")
+    flat = F.pad(local, (0, 0, 0, 0, 0, P * page_size - S)).flatten(0, 1)
+    if not head_dims:
+        mine = flat[off:off + n]
+    elif head_dims == dims[-1:]:  # the ranks along it hold consecutive pages
+        m = head_dims[0]
+        M, j = mesh.size(m), coord[m]
+        base = off - j * n                                # the group's first slot
+        got = funcol.all_to_all_single(flat[base:base + M * n].contiguous(), None, None,
+                                       (mesh, m))
+        # got: M blocks of this rank's slots, block i holding rank i's heads
+        mine = got.unflatten(0, (M, n)).transpose(0, 1).flatten(1, 2)
+    else:
+        raise ValueError(f"K/V heads sharded over mesh dims {head_dims}, pages over {dims}")
+    pool.to_local().flatten(0, 1).copy_(mine)
 
 
 def decode_attention_distributed(

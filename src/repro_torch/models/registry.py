@@ -65,35 +65,50 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
 
 
 def cache_specs(cfg: ArchConfig, shape: ShapeConfig,
-                dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
-    """The decode cache of one cell on meta stand-ins: the port's paged
-    cache (the JAX package's dense ``KVCache`` is not ported), its pools
-    exactly large enough for B sequences of S tokens, its First-Fit
-    allocator holding each of the B sequences at S - 1 tokens (a decode
-    step writes the S-th), and each recurrent layer's state.  An
+                dtype: torch.dtype = torch.bfloat16,
+                device: torch.device = META) -> Dict[str, Any]:
+    """The cache of one serving cell on meta stand-ins (or zeroed on
+    ``device``): the port's paged cache (the JAX package's dense
+    ``KVCache`` is not ported).
+
+    Decode: pools exactly large enough for B sequences of S tokens, the
+    First-Fit allocator holding each of the B sequences at S - 1 tokens (a
+    decode step writes the S-th), and each recurrent layer's state; an
     encoder-decoder's cross pages hold max(S / 8, 128) encoder positions a
-    sequence, as the JAX package's cache."""
+    sequence, as the JAX package's cache.
+
+    Prefill: the cache ``prefill`` fills, an argument, so its bytes count as
+    the step's arguments.  They match what the JAX package's prefill
+    returns, the dense cache it builds: pools exactly large enough for the B
+    prompts of ``input_specs`` (S tokens; an encoder-decoder's S / 2
+    decoder tokens, and its cross pools S / 2 encoder positions), an empty
+    allocator, and each recurrent layer's initial state."""
     model = build_model(cfg)
     B, S = shape.global_batch, shape.seq_len
+    prefill = shape.kind == "prefill"
+    if prefill and cfg.encdec:
+        S //= 2
     per_seq = -(-S // PAGE_SIZE)
     layout = PagedCacheLayout(num_pages=B * per_seq, page_size=PAGE_SIZE,
                               n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
                               max_pages_per_seq=per_seq)
-    cache = model.init_paged_cache(layout, dtype, META)
+    cache = model.init_paged_cache(layout, dtype, device)
     seqs = list(range(B))
+    if not cfg.encdec:
+        cache["state"] = [_INIT_STATE[c](cfg, B, device)
+                          for _ in range(cfg.n_periods) for c in cfg.pattern
+                          if c in _INIT_STATE]
+    if prefill:
+        return cache
     for b in seqs:
         cache["alloc"].allocate(b, S - 1)
     cache["seqs"] = seqs
-    cache["len"] = torch.empty((B,), dtype=torch.int32, device=META)
+    cache["len"] = torch.full((B,), S - 1, dtype=torch.int32, device=device)
     if cfg.encdec:
         for b in seqs:
             cache["cross_alloc"].allocate(b, max(S // 8, 128))
         cache["cross_table"], cache["enc_len"] = page_table_from_allocator(
-            cache["cross_alloc"], seqs, META)
-    else:
-        cache["state"] = [_INIT_STATE[c](cfg, B, META)
-                          for _ in range(cfg.n_periods) for c in cfg.pattern
-                          if c in _INIT_STATE]
+            cache["cross_alloc"], seqs, device)
     return cache
 
 

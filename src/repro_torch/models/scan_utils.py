@@ -8,11 +8,16 @@ states inside a chunk.  With no gradient to record it is the plain loop.
 
 The loop is Python over time steps, one step's tensor ops at a time: on
 the card every op of every step is its own launch (a fused scan kernel is
-later work).
+later work).  A dry-run's count (``launch.trace_analysis``) sets
+``LOOP_COUNTER``: a scan of meta stand-ins with no gradient to record then
+runs its first chunk only and has it counted for every chunk, as the JAX
+package's count multiplies a scan's body by its trips.  Stand-ins have no
+values to get wrong; real tensors always run every chunk.
 """
 
 from __future__ import annotations
 
+import contextvars
 from typing import Any, Callable, List, Tuple
 
 import torch
@@ -20,9 +25,15 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["chunked_scan", "time_major"]
+__all__ = ["LOOP_COUNTER", "chunked_scan", "time_major"]
 
 Tree = Any  # a tensor, or a tuple / list / dict of trees
+
+# The counter that may count a loop from its first iteration: an object
+# whose ``repeated(n)`` is a context manager yielding ``more(outputs)``
+# (``launch.trace_analysis._Counter``); None outside a dry-run's count.
+LOOP_COUNTER: contextvars.ContextVar[Any] = contextvars.ContextVar(
+    "loop_counter", default=None)
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -53,6 +64,10 @@ def _leaves(tree: Tree) -> List[torch.Tensor]:
     if isinstance(tree, (tuple, list)):
         return [leaf for t in tree for leaf in _leaves(t)]
     return [tree]
+
+
+def _is_meta(t: torch.Tensor) -> bool:
+    return (t._local_tensor if isinstance(t, DTensor) else t).is_meta
 
 
 def _map(fn: Callable[..., Any], tree: Tree, *rest: Tree) -> Tree:
@@ -98,6 +113,15 @@ def chunked_scan(
         xs = _map(lambda x: F.pad(x, (0, 0) * (x.dim() - 1) + (0, pad)), xs)
     remat = torch.is_grad_enabled() and any(
         t.requires_grad for t in _leaves(init) + _leaves(xs))
+    n = (L + pad) // c
+    counter = LOOP_COUNTER.get()
+    if (counter is not None and not remat and n > 1
+            and all(_is_meta(t) for t in _leaves(init) + _leaves(xs))):
+        # a dry-run's count of stand-ins: one chunk, counted n times
+        with counter.repeated(n) as more:
+            carry, ys = _scan(step, init, xs, 0, c)
+            chunks = [ys] + more(ys)
+        return carry, _map(lambda *a: torch.cat(a)[:L], *chunks)
     carry, chunks = init, []
     for start in range(0, L + pad, c):
         if remat:

@@ -33,7 +33,7 @@ update it in place and return it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,11 +56,13 @@ from .layers import (
     mlp_specs,
     norm,
     norm_specs,
+    write_rows_local,
 )
 from .moe import moe_layer, moe_specs
 from .params import Spec, tree_map
 
-__all__ = ["DecoderLM", "chunked_cross_entropy", "pad_vocab"]
+__all__ = ["DecoderLM", "WritePlan", "chunked_cross_entropy", "full_rows_plan", "pad_vocab",
+           "write_plan"]
 
 
 def pad_vocab(v: int, multiple: int = 256) -> int:
@@ -184,26 +186,95 @@ def _mixer(char: str, p: Dict[str, Any], cfg: Any, h: torch.Tensor,
     raise ValueError(f"unknown pattern char {char!r}")
 
 
-def write_plan(alloc: PageAllocator, seg: torch.Tensor):
+class WritePlan(NamedTuple):
+    """Where prefill writes each valid token (``write_plan``): the rows'
+    valid counts (B,), each valid token's row and column, its slot in a
+    pool flattened over (page, slot), and whether every row is full and
+    row b holds pages b P ... (b + 1) P - 1 (P pages a row), the layout a
+    page-sharded pool's ranks write without a plan (``layers.write_rows_local``)."""
+
+    lens: torch.Tensor
+    b_idx: torch.Tensor
+    t_idx: torch.Tensor
+    dest: torch.Tensor
+    full_rows: bool
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def write_plan(alloc: PageAllocator, seg: torch.Tensor) -> WritePlan:
     """Give row b of ``seg`` (B, S) its pages as sequence b of ``alloc``
-    (its valid tokens: ``seg > 0``), and return (lens, b_idx, t_idx, dest):
-    the rows' valid counts, each valid token's row and column, and its slot
-    in a pool flattened over (page, slot): slot ``i % page_size`` of the
-    row's page ``i // page_size``, where i counts the row's valid tokens."""
+    (its valid tokens: ``seg > 0``), and plan each valid token's slot: slot
+    ``i % page_size`` of the row's page ``i // page_size``, where i counts
+    the row's valid tokens.
+
+    The plan is read from the segment ids' values, or, for a dry-run's
+    stand-in (a meta tensor, or a DTensor of meta shards: no values), from
+    their shape: every row is full, and First-Fit gives B equal sequences
+    on an empty pool consecutive pages, which the allocator must confirm."""
+    B, S = seg.shape
+    if _local(seg).device.type == "meta":
+        plan = full_rows_plan(alloc, B, S, _local(seg).device)
+        if not plan.full_rows:
+            raise RuntimeError("a stand-in prefill needs an empty pool: its rows are "
+                               "planned on consecutive pages")
+        return plan
+    if isinstance(seg, DTensor):  # the plan is the host's: every rank's the same
+        seg = seg.full_tensor()
     valid = seg > 0
     lens = valid.sum(dim=1, dtype=torch.int32)
-    for b, n in enumerate(lens.tolist()):
+    _allocate(alloc, lens.tolist())
+    table, _ = page_table_from_allocator(alloc, list(range(B)), seg.device)
+    rank = valid.long().cumsum(dim=1) - 1  # index among the row's valid tokens
+    b_idx, t_idx = valid.nonzero(as_tuple=True)
+    full = bool(valid.all()) and _consecutive(alloc, B, S)
+    return _plan(table, alloc.layout.page_size, lens, b_idx, t_idx, rank[b_idx, t_idx], full)
+
+
+def full_rows_plan(alloc: PageAllocator, B: int, S: int, device: Any) -> WritePlan:
+    """``write_plan`` for B rows of S valid tokens, from the shapes alone:
+    the rows' pages from ``alloc``, which hands them out, and each token's
+    slot from the pages First-Fit gives B equal sequences on an empty pool
+    (row b: pages b P ... (b + 1) P - 1)."""
+    _allocate(alloc, [S] * B)
+    P = alloc.layout.pages_for(S)
+    table = torch.arange(B * P, dtype=torch.int32, device=device).view(B, P)
+    b_idx = torch.arange(B, device=device).repeat_interleave(S)
+    t_idx = torch.arange(S, device=device).repeat(B)
+    lens = torch.full((B,), S, dtype=torch.int32, device=device)
+    return _plan(table, alloc.layout.page_size, lens, b_idx, t_idx, t_idx,
+                 _consecutive(alloc, B, S))
+
+
+def _allocate(alloc: PageAllocator, lens: List[int]) -> None:
+    for b, n in enumerate(lens):
         if alloc.allocate(b, n) is None:
             raise RuntimeError(
                 f"the KV pool cannot hold sequence {b} of {n} tokens "
                 f"({alloc.free_pages} pages free)")
-    table, _ = page_table_from_allocator(alloc, list(range(seg.shape[0])), seg.device)
-    page_size = alloc.layout.page_size
-    rank = valid.long().cumsum(dim=1) - 1  # index among the row's valid tokens
-    b_idx, t_idx = valid.nonzero(as_tuple=True)
-    r = rank[b_idx, t_idx]
+
+
+def _consecutive(alloc: PageAllocator, B: int, S: int) -> bool:
+    P = alloc.layout.pages_for(S)
+    return all(alloc.seq_pages(b) == list(range(b * P, (b + 1) * P)) for b in range(B))
+
+
+def _plan(table: torch.Tensor, page_size: int, lens: torch.Tensor, b_idx: torch.Tensor,
+          t_idx: torch.Tensor, r: torch.Tensor, full_rows: bool) -> WritePlan:
     dest = table.long()[b_idx, r // page_size] * page_size + r % page_size
-    return lens, b_idx, t_idx, dest
+    return WritePlan(lens, b_idx, t_idx, dest, full_rows)
+
+
+def last_tokens(x: torch.Tensor, plan: WritePlan) -> torch.Tensor:
+    """Each row's last valid position of ``x`` (B, S, d): the last column
+    where every row is full (a slice, which a DTensor takes as it is laid
+    out), else a gather by the rows' lengths."""
+    if plan.full_rows:
+        return x[:, -1]
+    last = (plan.lens.long() - 1).clamp(min=0)
+    return x[torch.arange(x.shape[0], device=x.device), last]
 
 
 def grow(alloc: PageAllocator, seqs: List[int], device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -216,12 +287,18 @@ def grow(alloc: PageAllocator, seqs: List[int], device) -> Tuple[torch.Tensor, t
 
 
 def write_tokens(k_pool: torch.Tensor, v_pool: torch.Tensor, k: torch.Tensor,
-                 v: torch.Tensor, plan) -> None:
+                 v: torch.Tensor, plan: WritePlan) -> None:
     """Write the valid tokens' K/V (B, S, KVH, D) into one layer's pools at
-    the slots of ``plan`` (``write_plan``)."""
-    _, b_idx, t_idx, dest = plan
+    the slots of ``plan`` (``write_plan``).  A DTensor pool takes full rows
+    only, each rank writing into its own pages (``write_rows_local``)."""
     for pool, new in ((k_pool, k), (v_pool, v)):
-        pool.flatten(0, 1)[dest] = new[b_idx, t_idx].to(pool.dtype)
+        if isinstance(pool, DTensor):
+            if not plan.full_rows:
+                raise NotImplementedError(
+                    "a DTensor pool is written by full rows on consecutive pages only")
+            write_rows_local(pool, new)
+        else:
+            pool.flatten(0, 1)[plan.dest] = new[plan.b_idx, plan.t_idx].to(pool.dtype)
 
 
 def _stack_period(cfg: Any, spec_tree: Any) -> Any:
@@ -460,7 +537,6 @@ class DecoderLM:
         seg, pos_ids = batch["segment_ids"], batch["positions"]
         B = seg.shape[0]
         plan = write_plan(cache["alloc"], seg)
-        lens = plan[0]
 
         x = self._embed(params, batch)
         n_attn, states = 0, []
@@ -475,9 +551,8 @@ class DecoderLM:
                 states.append(kept)
             x, _ = self._ffn(p, x + out)
         x = norm(params["final_norm"], cfg.norm_type, x)
-        last = (lens.long() - 1).clamp(min=0)  # last valid position per row
-        logits = self._logits(params, x[torch.arange(B, device=x.device), last])
-        cache["seqs"], cache["len"], cache["state"] = list(range(B)), lens, states
+        logits = self._logits(params, last_tokens(x, plan))
+        cache["seqs"], cache["len"], cache["state"] = list(range(B)), plan.lens, states
         return logits, cache
 
     # ---- serving: decode ----------------------------------------------------

@@ -128,14 +128,22 @@ class LiveCluster:
         return self.master.queue_image_mix()
 
     def worker_scheduled_loads(self) -> List:
+        # A failed slot reports a full bin: it can never host a PE, and a
+        # placement First-Fit put there would fail until its TTL ran out
+        # (the simulator reports it empty, as an OFF slot).
         est = self.irm.profiler.estimate
         cache: Dict[str, object] = {}
+        failed = self.lifecycle.failed
+        cap = self.irm.config.allocator.capacity
         if self._multi:
             D = len(self._dims)
+            full = (cap.values if isinstance(cap, Resources)
+                    else np.full(D, float(cap)))
             vout: List[Resources] = []
             for w in self.pool.workers:
                 if w.state is WorkerState.OFF:
-                    vout.append(Resources(self._dims, np.zeros(D)))
+                    vout.append(Resources(self._dims, full if w.idx in failed
+                                          else np.zeros(D)))
                     continue
                 load = np.zeros(D)
                 for pe in w.pes:
@@ -149,7 +157,7 @@ class LiveCluster:
         out: List[float] = []
         for w in self.pool.workers:
             if w.state is WorkerState.OFF:
-                out.append(0.0)
+                out.append(float(cap) if w.idx in failed else 0.0)
                 continue
             load = 0.0
             for pe in w.pes:
@@ -203,6 +211,29 @@ async def _arrival_feed(
                 master.push_back(m)
     finally:
         master.close_arrivals()
+
+
+def _fail_over(irm: IRM, pool: WorkerPool, master: Master, t: float) -> bool:
+    """While messages a worker failure requeued wait: one PE request for
+    each image of theirs that no PE hosts and no request in the IRM's
+    queues asks for.  Returns whether any such message still waits.
+
+    A kill can take the only PE of an image whose message it requeues.  A
+    backlog that small (one message, its rate of change read across the
+    predictor's cooldown) is below every trigger of the load predictor, so
+    no PE would be asked for again: the message would wait until the run
+    gave up on it, lost to at-least-once delivery.  Checked every tick, as
+    a request can run out of TTL while a worker boots and a PE can idle
+    out first; where a PE of the image survives, nothing is asked."""
+    waiting = master.requeued_waiting()
+    if waiting:
+        hosted = {pe.image for w in pool.workers for pe in w.pes}
+        asked = {r.image for q in (irm.container_queue, irm.allocation_queue) for r in q}
+        for image in sorted(waiting - hosted - asked):
+            irm.container_queue.push(HostRequest(
+                image=image, size_estimate=irm.profiler.estimate(image),
+                ttl=irm.config.request_ttl, enqueue_time=t, source="failover"))
+    return bool(waiting)
 
 
 async def _drive(
@@ -269,6 +300,7 @@ async def _drive(
         last_report_t = -1e9
         stall_since: Optional[float] = None
         fail_at = cfg.fail_worker_at
+        failing_over = False
         while t <= cfg.t_max:
             await clock.sleep_until(t)
             # fault injection precedes boot promotion, as in the sim's
@@ -279,8 +311,10 @@ async def _drive(
                 bus.tick = t
             if fail_at is not None and t >= fail_at[1] \
                     and fail_at[0] < len(pool.workers):
-                lifecycle.kill_worker(fail_at[0])
+                failing_over = lifecycle.kill_worker(fail_at[0]) > 0
                 fail_at = None
+            if failing_over:
+                failing_over = _fail_over(irm, pool, master, t)
             pool.promote_booted(t)
             # under measurement="os" the transport feeds real per-message
             # CPU to the probes; the emulated draws are still recorded in

@@ -24,7 +24,7 @@ import asyncio
 import heapq
 from collections import deque
 from itertools import islice
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Set, Tuple
 
 from ..core.workloads import Message
 from .annotations import transition
@@ -100,6 +100,12 @@ class Master:
         self.requeued += 1
         if self.bus is not None:
             self.bus.emit("msg.requeued", msg_id=m.msg_id, image=m.image)
+
+    def requeued_waiting(self) -> Set[str]:
+        """The images whose queue holds a message a worker failure requeued
+        (each went back to its image's head, with a negative sequence
+        number)."""
+        return {img for img, dq in self._img_queues.items() if dq and dq[0][0] < 0}
 
     def close_arrivals(self) -> None:
         """No further pushes will come; enables drain detection."""

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+from torch.utils._pytree import tree_map_only
 
 from repro_torch.configs import ShapeConfig, get_config
 from repro_torch.kernels.grouped_matmul import ops as gmm_ops
@@ -608,3 +609,277 @@ def test_count_on_stand_ins_equals_the_count_on_the_card():
         step(params, init_opt_state(params), batch)
     torch.cuda.synchronize()
     assert fake.flops == fc.get_total_flops() > 0
+
+
+# ---------------------------------------------------------------------------
+# prefill cells: the write plan from shapes, every family, the FLOP oracle
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,S,page_size", [(3, 16, 4), (2, 10, 4), (4, 7, 16)])
+def test_write_plan_from_shapes_equals_the_plan_from_values(B, S, page_size):
+    """A stand-in's plan is read from its shape (every row full, row b on
+    pages b P ... (b + 1) P - 1): the plan ``write_plan`` reads from real
+    all-ones segment ids, slot for slot, and the allocator's own pages."""
+    from repro_torch.models.transformer import full_rows_plan, write_plan
+    from repro_torch.serving.kv_cache import PageAllocator, PagedCacheLayout
+
+    P = -(-S // page_size)
+    layout = PagedCacheLayout(num_pages=B * P, page_size=page_size, n_kv_heads=1,
+                              head_dim=8, max_pages_per_seq=P)
+    from_values = write_plan(PageAllocator(layout), torch.ones((B, S), dtype=torch.int32))
+    alloc = PageAllocator(layout)
+    from_shapes = full_rows_plan(alloc, B, S, "cpu")
+    for a, b in zip(from_shapes[:4], from_values[:4], strict=True):
+        assert torch.equal(a.long(), b.long())
+    assert from_shapes.full_rows and from_values.full_rows
+    assert [alloc.seq_pages(b) for b in range(B)] == [
+        list(range(b * P, (b + 1) * P)) for b in range(B)]
+    on_meta = write_plan(PageAllocator(layout), meta(B, S, dtype=torch.int32))
+    assert on_meta.full_rows and on_meta.dest.device.type == "meta"
+    assert on_meta.dest.shape == from_values.dest.shape
+
+
+def test_prefill_step_flops_match_jax():
+    """olmo-1b at smoke size, a prefill of 2 x 64 tokens counted on meta
+    stand-ins, against ``analyze_hlo_text`` of the JAX package's prefill:
+    equal but for the attention, which JAX computes dense (4 B H S^2 D a
+    layer) and the packed kernel's formula counts over the visible pairs
+    (4 H D B S (S + 1) / 2 a layer)."""
+    import jax
+
+    from repro.configs import get_config as jax_get_config
+    from repro.launch.hlo_analysis import analyze_hlo_text
+    from repro.models import build_model as jax_build_model
+    from repro.models import init_params as jax_init_params
+    from repro.models.registry import make_batch as jax_make_batch
+
+    B, S = 2, 64
+    jcfg = jax_get_config("olmo-1b").smoke()
+    jm = jax_build_model(jcfg)
+    jp = jax_init_params(jm.param_specs(), jax.random.PRNGKey(0))
+    jb = {k: v for k, v in jax_make_batch(jcfg, "prefill", B, S).items() if k != "labels"}
+    jax_flops = analyze_hlo_text(
+        jax.jit(jm.prefill).lower(jp, jb).compile().as_text()).flops
+    cfg = get_config("olmo-1b").smoke()
+    model = build_model(cfg)
+    shape = ShapeConfig("smoke", "prefill", S, B)
+    _, cost = analyze_step(model.prefill, abstract_params(model.param_specs()),
+                           input_specs(cfg, shape),
+                           cache_specs(cfg, shape, dtype=torch.float32))
+    L, H, D = cfg.n_layers, cfg.n_heads, cfg.head_dim_
+    port_attn = 4 * D * H * (B * S * (S + 1) // 2) * L
+    jax_attn = 4 * B * H * S * S * D * L
+    assert cost.flops_by_op["repro_torch.packed_attention_fwd"] == port_attn
+    assert cost.flops - port_attn == pytest.approx(jax_flops - jax_attn, rel=1e-12)
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-moe-30b-a3b", "jamba-v0.1-52b",
+                                  "xlstm-125m", "seamless-m4t-medium", "internvl2-1b"])
+def test_prefill_cell_of_each_family_counts_on_one_rank(fake_group, arch):
+    """One prefill cell of each family (dense, MoE, hybrid, recurrent,
+    encoder-decoder, vision) at full width on the one-card (1, 1) mesh of
+    stand-ins: 2 full rows of 256 tokens (two chunks of the recurrent
+    scans), the cache an argument, every attention layer through the packed
+    kernel's operator."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    fake_group(1)
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    cfg = get_config(arch)
+    shape = ShapeConfig("prefill_small", "prefill", 256, 2)
+    rec = dryrun.lower_cell(arch, "prefill_small", mesh=mesh, shape=shape, keep_hlo=True)
+    by_op = rec["_cost"].flops_by_op
+    assert rec["kind"] == "prefill" and rec["flops_per_dev"] > 0
+    assert rec["collectives"]["total"] == 0
+    assert rec["cache_bytes_global"] > 0
+    assert rec["memory"]["peak_memory_in_bytes"] >= rec["cache_bytes_global"]
+    assert rec["dominant"] in ("compute", "memory")
+    if "A" in cfg.pattern or cfg.encdec:
+        assert by_op["repro_torch.packed_attention_fwd"] > 0
+    if cfg.moe is not None:
+        assert by_op["repro_torch.gmm"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the recurrent scans counted from one chunk
+# ---------------------------------------------------------------------------
+
+_COUNTS = ("flops", "dot_bytes", "eager_bytes", "ops", "peak_bytes", "out_bytes",
+           "coll_count")
+
+
+def _scaled_and_full(fn, *args):
+    """``fn`` counted on meta stand-ins (a scan runs its first chunk and is
+    counted for all) and on CPU zeros of the same shapes (every chunk runs):
+    the count goes by shape, so the two must agree."""
+    zeros = tree_map_only(torch.Tensor, lambda t: torch.zeros(t.shape, dtype=t.dtype), args)
+    return analyze_step(fn, *args)[1], analyze_step(fn, *zeros)[1]
+
+
+@pytest.mark.parametrize("mixer", ["mamba", "mlstm", "slstm"])
+def test_scan_counted_from_one_chunk_equals_the_full_loop(mixer):
+    """The recurrent mixers' scans at L = 512 in chunks of 128, counted from
+    the first chunk (``chunked_scan`` of stand-ins under the counting mode)
+    and by running every chunk on zeros: FLOPs, bytes, ops and peak exactly
+    equal."""
+    from repro_torch.models import ssm, xlstm
+
+    arch, specs, fwd = {
+        "mamba": ("jamba-v0.1-52b", ssm.mamba_specs, ssm.mamba_forward),
+        "mlstm": ("xlstm-125m", xlstm.mlstm_specs, xlstm.mlstm_forward),
+        "slstm": ("xlstm-125m", xlstm.slstm_specs, xlstm.slstm_forward),
+    }[mixer]
+    cfg = get_config(arch).smoke()
+    scaled, full = _scaled_and_full(lambda p, x: fwd(p, cfg, x, chunk_size=128),
+                                    abstract_params(specs(cfg)), meta(2, 512, cfg.d_model))
+    for f in _COUNTS:
+        assert getattr(scaled, f) == getattr(full, f), f
+    assert scaled.flops_by_op == full.flops_by_op and scaled.flops > 0
+
+
+@pytest.mark.parametrize("L,chunk", [(64, 4), (30, 4), (512, 128)])
+def test_scan_counted_from_one_chunk_peaks_as_the_full_loop(L, chunk):
+    """A scan whose steps hold a temporary larger than the outputs, so that
+    its peak falls inside the last chunk (or after the loop, at 512 / 128):
+    the count from one chunk of stand-ins peaks where the full loop on
+    zeros does, padded steps included (L = 30)."""
+    from repro_torch.models.scan_utils import chunked_scan
+
+    def step(h, x):
+        tmp = h[:, :, None] * h[:, None, :]  # (B, 64, 64), freed each step
+        h = h + (tmp @ h[..., None])[..., 0] * x.sum(-1, keepdim=True)
+        return h, h[:, :8] * x
+
+    scaled, full = _scaled_and_full(
+        lambda h0, xs: chunked_scan(step, h0, xs, chunk_size=chunk), meta(2, 64),
+        meta(L, 2, 8))
+    for f in _COUNTS:
+        assert getattr(scaled, f) == getattr(full, f), f
+    assert scaled.flops == -(-L // chunk) * chunk * 2 * 2 * 64 * 64
+
+
+def test_scan_counted_from_one_chunk_matches_jax_trip_count():
+    """The JAX module multiplies a scan's body by its trip count; the
+    port's count of ``chunked_scan`` of the same products, run for one chunk
+    and counted for all, gives the same FLOPs."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.launch.hlo_analysis import analyze_hlo_text
+    from repro_torch.models.scan_utils import chunked_scan
+
+    def f(c, xs):
+        return jax.lax.scan(lambda c, x: (c @ x, None), c, xs)[0]
+
+    hlo = jax.jit(f).lower(jnp.zeros((64, 64)), jnp.zeros((96, 64, 64))).compile().as_text()
+    _, cost = analyze_step(
+        lambda c, xs: chunked_scan(lambda c, x: (c @ x, c[:1]), c, xs, chunk_size=32)[0],
+        meta(64, 64), meta(96, 64, 64))
+    assert cost.flops == 96 * 2 * 64 ** 3
+    assert analyze_hlo_text(hlo).flops == pytest.approx(cost.flops, rel=0.05)
+
+
+# ---------------------------------------------------------------------------
+# the page-local prefill write on four gloo ranks
+# ---------------------------------------------------------------------------
+
+_PREFILL_WORKER = textwrap.dedent('''
+    import sys
+    import numpy as np
+    import torch, torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import batch_shardings, cache_shardings, make_rules
+    from repro_torch.distributed import param_shardings
+    from repro_torch.distributed.context import activation_sharding
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving.kv_cache import PagedCacheLayout
+
+    def main(rank):
+        dist.init_process_group("gloo", init_method=sys.argv[1], rank=rank, world_size=4)
+        torch.set_num_threads(1)
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        rules = make_rules(mesh)
+        res = {}
+        for arch in ("olmo-1b", "qwen3-8b"):
+            cfg = get_config(arch).smoke()
+            model = build_model(cfg)
+            specs = model.param_specs()
+            params = init_params(specs, torch.Generator().manual_seed(0), torch.float32, "cpu")
+            a = {k: torch.from_numpy(v) for k, v in np.load(sys.argv[2]).items()}
+            layout = PagedCacheLayout(num_pages=16, page_size=4, n_kv_heads=cfg.n_kv_heads,
+                                      head_dim=cfg.head_dim_, max_pages_per_seq=4)
+            cache = model.init_paged_cache(layout, torch.float32)
+            c_shard = cache_shardings(cache, mesh, rules)
+            for key in ("k", "v"):
+                cache[key] = distribute(cache[key], c_shard[key])
+            b_shard = batch_shardings(a, mesh, rules)
+            batch = {k: distribute(v, b_shard[k]) for k, v in a.items()}
+            dparams = tree_map(distribute, params, param_shardings(specs, mesh, rules))
+            with activation_sharding(mesh, rules), implicit_replication():
+                logits, cache = model.prefill(dparams, batch, cache)
+            res[arch + "/logits"] = logits.full_tensor().numpy()
+            res[arch + "/k"] = cache["k"].full_tensor().numpy()
+            res[arch + "/v"] = cache["v"].full_tensor().numpy()
+            res[arch + "/placements"] = np.array([str(cache["k"].placements)])
+        if rank == 0:
+            np.savez(sys.argv[3], **res)
+        dist.barrier()
+        dist.destroy_process_group()
+
+    if __name__ == "__main__":
+        import torch.multiprocessing as mp
+        mp.spawn(main, nprocs=4)
+''')
+
+
+@pytest.mark.timeout(300)
+def test_prefill_on_four_ranks_writes_each_ranks_own_pages(tmp_path):
+    """Four gloo ranks on a (2, 2) mesh, 4 full rows of 16 tokens, the
+    pools' 16 pages sharded four ways by page: each rank writes the K/V of
+    its rows' tokens into the pages it holds (olmo-1b's 4 KV heads, laid
+    out over ``model``, cross in one all-to-all; qwen3-8b's one KV head is
+    on every rank).  The gathered pools and the logits equal the prefill on
+    one process, within 1e-5 of their largest values (fp32; the mesh sums
+    in another order)."""
+    import socket
+
+    from repro_torch.models import init_params
+    from repro_torch.serving.kv_cache import PagedCacheLayout
+
+    B, S = 4, 16
+    rng = np.random.default_rng(3)
+    a = {"tokens": rng.integers(1, 256, size=(B, S)).astype(np.int32),
+         "segment_ids": np.ones((B, S), np.int32),
+         "positions": np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()}
+    inputs = tmp_path / "in.npz"
+    np.savez(inputs, **a)
+    script = tmp_path / "worker.py"
+    script.write_text(_PREFILL_WORKER)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, str(script), f"tcp://localhost:{port}",
+                          str(inputs), str(tmp_path / "out.npz")],
+                         capture_output=True, text=True, timeout=270, env=env, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    got = np.load(tmp_path / "out.npz")
+    for arch in ("olmo-1b", "qwen3-8b"):
+        cfg = get_config(arch).smoke()
+        model = build_model(cfg)
+        params = init_params(model.param_specs(), torch.Generator().manual_seed(0),
+                             torch.float32, "cpu")
+        layout = PagedCacheLayout(num_pages=16, page_size=4, n_kv_heads=cfg.n_kv_heads,
+                                  head_dim=cfg.head_dim_, max_pages_per_seq=4)
+        logits, cache = model.prefill(params, {k: torch.from_numpy(v) for k, v in a.items()},
+                                      model.init_paged_cache(layout, torch.float32))
+        assert "Shard(dim=1), Shard(dim=1)" in str(got[arch + "/placements"][0])
+        for key, want in (("logits", logits), ("k", cache["k"]), ("v", cache["v"])):
+            want = want.numpy()
+            assert np.abs(got[f"{arch}/{key}"] - want).max() <= 1e-5 * np.abs(want).max()
