@@ -109,9 +109,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    two prefill cells of 8 full rows of 1024 tokens (``DRYRUN_PREFILL``:
    qwen3-8b, its write plan read from the shapes, and xlstm-125m, its
    scans counted from one chunk of 128 steps for all 8 against
-   ``FlopCounterMode`` over the full loop): the FLOPs equal, no measured
-   step faster than its roofline, the predicted peak within
-   ``DRYRUN_MEM_TOL`` of the card's;
+   ``FlopCounterMode`` over the full loop), and phase 15's xlstm-125m
+   train step (4 x 256, counted on the (1, 1) mesh, its scans' forward,
+   recompute and backward counted from one chunk of 2): the FLOPs
+   equal, no measured step faster than its roofline, the predicted peak
+   within ``DRYRUN_MEM_TOL`` of the card's;
 12. MoE serving: ``qwen3-moe-30b-a3b`` at full width and depth in bf16
    (weights drawn on the card from a seed, after every earlier phase's
    tensors are freed), each MoE layer's experts through the grouped
@@ -131,8 +133,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    against its plain version (the packed forward and backward at
    seamless-m4t-medium's encoder, 8 x 1024 over 16 heads of 64 not causal,
    and its cross attention, 64 queries against 1024 keys not causal with
-   separate, padded segment ids, and at internvl2-1b's prefill, 8 x 320 over
-   14 query and 2 KV heads of 64; the paged kernel in bf16 at G = 1 and
+   separate, padded segment ids, at internvl2-1b's prefill, 8 x 320 over
+   14 query and 2 KV heads of 64, and at seamless's decoder as phase 15
+   trains it, 4 rows of 512 tokens over 1024 frames cut into two documents
+   a side, causal self attention and cross attention; the paged kernel in
+   bf16 at G = 1 and
    G = 7, D = 64; the grouped matmul's bf16 entry at jamba-v0.1-52b's bins,
    E = 16, top-2, C = 128 and 1280, d 4096 and 14336, gate/up and down),
    each within phase 7's, 6's or 4's limits, a second launch bitwise equal,
@@ -158,7 +163,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    recurrent states or the K/V pages lost) that must read above the
    limit.  The kernels line's
    ``by_shape`` gains ``seamless-m4t-medium encoder``, ``seamless-m4t-medium
-   cross``, ``internvl2-1b prefill`` (packed forward and backward),
+   cross``, ``internvl2-1b prefill``, ``seamless-m4t-medium decoder self``,
+   ``seamless-m4t-medium decoder cross`` (packed forward and backward),
    ``seamless-m4t-medium G=1``, ``internvl2-1b G=7`` (paged) and ``jamba
    decode gate/up bf16``, ``jamba decode down bf16``, ``jamba prefill
    gate/up bf16``, ``jamba prefill down bf16`` (grouped matmul).
@@ -180,6 +186,31 @@ Phases, in order; any failure raises and the script exits nonzero:
    packed forward and backward in training, the packed forward and the
    paged kernel in serving) must show launches, read from the example's
    own ``kernel launches:`` line.
+
+15. the other families trained at full width (``[family-train]`` lines),
+   after every earlier phase's tensors are freed: xlstm-125m (12 layers, 4
+   x 256 tokens, fp32) and jamba-v0.1-52b cut to its first layer (a Mamba
+   block and a dense SwiGLU MLP, 2 x 1024) through ``launch.train.run`` on
+   its pipeline's rows, seamless-m4t-medium (12 + 12 layers, 4 x 512
+   tokens over 1024 frames) and internvl2-1b (24 layers, 4 rows of 256
+   patch rows + 256 tokens) through ``make_train_step`` on ``make_batch``
+   batches cut into two documents a row, bf16 over fp32 masters but
+   xlstm, remat "nothing", AdamW.  For each: step 1's loss and named
+   gradients, the trained route (the packed kernels; the scans in chunks
+   under checkpoints) against the plain route (the plain flash path; each
+   scan one chunk) within ``FT_LIMITS`` (``FT_LEAF_LIMITS``), beside the
+   plain route with every weight moved by one ulp and a planted fault (a
+   segment boundary dropped; the scan's carry reset at its first chunk
+   boundary) that must read above the limit; for the attention families,
+   the first layer's attention calls caught on the kernel route and their
+   dQ, dK, dV held to fp64 (``FT_FP64_LIMIT``, ``FT_ROUNDING_SLACK``) beside
+   the plain path's, sdpa's and fp64's with the kernels' roundings; the
+   packed launches a step (2 x 36 forward and 36 backward for seamless, 48
+   and 24 for internvl2, none for the recurrent two), held on the step and
+   on the main path's own run, whose count a step the kernels line
+   prints; 3 steps' ms and losses, the peak memory, and one more step
+   under ``torch.profiler``: device ms, busy share and, for the recurrent
+   ones, the scans' forward share of device time.
 
 Each phase prints its wall time; a failing phase raises with its name.
 The serving phases run before training, so that no ``torch.profiler``
@@ -1791,6 +1822,7 @@ def dryrun_phase(torch, np, smi, decode_reading):
         print(f"[dryrun] one card: {name}: " + json.dumps(readings[name]))
     print(f"[dryrun] the two counts took {count_s:.1f} s")
     readings.update(_prefill_cells(torch, np, smi))
+    readings.update(_recurrent_train_cell(torch, smi))
     checks = {"the decode_32k cell on both meshes": cell_ok}
     for name, r in readings.items():
         checks[f"{name}: FLOPs on stand-ins == on the card"] = r["flops_fake"] == r["flops_real"]
@@ -1869,6 +1901,61 @@ def _prefill_cells(torch, np, smi):
     return readings
 
 
+def _recurrent_train_cell(torch, smi):
+    """Phase 11c's recurrent train cell: phase 15's xlstm-125m step (4 x
+    256 tokens, ``FT_XLSTM``; bf16 compute over fp32 masters, remat
+    "nothing"), counted on meta stand-ins on the one-card (1, 1) mesh, its
+    scans counted from one chunk of 128 for both (forward, recompute and
+    backward), then run on the card over the full loop from weights drawn
+    there on the first rows of its pipeline: one step under
+    ``FlopCounterMode`` (the first), one timed.  The readings, as the other
+    cells'."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models import build_model
+    from repro_torch.training import OptimizerConfig, init_opt_state, make_train_step
+
+    arch, B, S = "xlstm-125m", FT_XLSTM["B"], FT_XLSTM["S"]
+    shape = ShapeConfig(f"train {B} x {S}", "train", S, B)
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    step_fn = make_train_step(model, OptimizerConfig(), remat_policy="nothing")
+    t0 = time.perf_counter()
+    dryrun.fake_process_group(1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        rec = dryrun.lower_cell(arch, "train_4k", mesh=mesh, remat_policy="nothing",
+                                shape=shape)
+    finally:
+        dist.destroy_process_group()
+    count_s = time.perf_counter() - t0
+
+    dev = torch.device("cuda")
+    params = train.make_params(model, 0, dev)
+    first = next(_token_rows(cfg.vocab_size, S, B))
+    batch = {k: torch.from_numpy(getattr(first, k)).to(dev)
+             for k in ("tokens", "labels", "segment_ids", "positions")}
+    opt_state = init_opt_state(params)
+    flops, peak, res = _step_reading(  # the first step, the warm-up too
+        torch, lambda: step_fn(params, opt_state, batch), (params, opt_state, batch))
+    del res
+    _, ms, params, opt_state = _timed_steps(torch, step_fn, params, opt_state, [batch])
+    pred = rec["memory"]["peak_memory_in_bytes"]
+    name = f"{arch} train {B} x {S}"
+    reading = {
+        "card": smi, "flops_fake": rec["flops_per_dev"], "flops_real": flops,
+        **_roofline_reading(rec, ms[0]), "step_ms": ms,
+        "peak_pred_gib": pred / 2**30, "peak_card_gib": peak / 2**30,
+        "peak_rel_err": (pred - peak) / peak, "count_s": count_s}
+    print(f"[dryrun] one card: {name}: " + json.dumps(reading))
+    del params, opt_state, batch, model
+    torch.cuda.empty_cache()
+    return {name: reading}
+
+
 def serve_phase(torch):
     """Phase 9: the serving entry point at full width; returns the paged
     kernel's launches and the packed forward's."""
@@ -1924,7 +2011,12 @@ def _device_profile(torch, step, n, step_wall_ms, ranges=()):
     """Device time per call of ``step`` by kernel, from ``torch.profiler``
     over ``n`` calls, against the unprofiled wall time of one call; and for
     each name of ``ranges`` (a ``record_function`` range inside ``step``)
-    the device time of the kernels launched inside it, and its share."""
+    the device time of the kernels launched inside it, and its share.  The
+    profiler's raw events are read, each kernel placed in a range by the op
+    that launched it: ``key_averages`` spends ~0.9 ms of host time on each
+    kernel, minutes for a step of a recurrent model."""
+    import bisect
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1933,41 +2025,60 @@ def _device_profile(torch, step, n, step_wall_ms, ranges=()):
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    kernels, inside = [], {}
-    for e in prof.key_averages():
-        if e.key in ranges:
-            if e.device_type != DeviceType.CUDA:  # the range's kernels' time
-                us = getattr(e, "device_time_total", None)
-                inside[e.key] = (us if us is not None else e.cuda_time_total) / 1e3 / n
-            continue
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        kernels.append((us / 1e3 / n, e.count / n, e.key))
-    kernels.sort(reverse=True)
-    device_ms = sum(ms for ms, _, _ in kernels)
-    paged = [(ms, k) for ms, k, key in kernels if "paged_attn_kernel" in key]
-    gmm = [(ms, k) for ms, k, key in kernels
-           if "gmm_kernel" in key or "gmm_tc_kernel" in key]
+    spans = {name: [] for name in ranges}
+    launched_at, kernels = {}, []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CPU:
+            if name in spans:
+                spans[name].append((e.start_ns(), e.end_ns()))
+            else:
+                launched_at[e.correlation_id()] = e.start_ns()
+        elif name not in spans:  # a range's own span on the device is no kernel
+            kernels.append((name, e.linked_correlation_id(), e.duration_ns()))
+    by_name = {}
+    for name, _, ns in kernels:
+        row = by_name.setdefault(name, [0, 0])
+        row[0] += ns / 1e6 / n
+        row[1] += 1 / n
+    device_ms = sum(ms for ms, _ in by_name.values())
+
+    def ms_inside(intervals):
+        intervals.sort()
+        starts = [lo for lo, _ in intervals]
+        total = 0
+        for _, corr, ns in kernels:
+            t = launched_at.get(corr)
+            i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+            if i >= 0 and t <= intervals[i][1]:
+                total += ns
+        return total / 1e6 / n
+
     extra = {}
-    for name in ranges:
-        ms = inside.get(name, 0.0)
+    for name, intervals in spans.items():
+        ms = ms_inside(intervals)
         extra[f"{name} ms per step"] = ms
         extra[f"{name} share of device time"] = ms / device_ms
+
+    def kernel(*keys):
+        rows = [row for name, row in by_name.items() if any(k in name for k in keys)]
+        return sum(ms for ms, _ in rows), sum(k for _, k in rows)
+
+    paged_ms, paged_n = kernel("paged_attn_kernel")
+    gmm_ms, gmm_n = kernel("gmm_kernel", "gmm_tc_kernel")
+    top = sorted(((ms, name) for name, (ms, _) in by_name.items()), reverse=True)[:6]
     return {
         **extra,
         "device_ms_per_step": device_ms,
         "wall_ms_per_step": step_wall_ms,
         "device_busy_share": device_ms / step_wall_ms,
-        "kernel_launches_per_step": sum(k for _, k, _ in kernels),
-        "paged_kernel_ms_per_step": paged[0][0] if paged else 0.0,
-        "paged_kernel_launches_per_step": paged[0][1] if paged else 0,
-        "gmm_kernel_ms_per_step": sum(ms for ms, _ in gmm),
-        "gmm_kernel_launches_per_step": sum(k for _, k in gmm),
-        "gmm_share_of_device_time": sum(ms for ms, _ in gmm) / device_ms,
-        "top_kernels_ms_per_step": [[key[:60], ms] for ms, _, key in kernels[:6]],
+        "kernel_launches_per_step": sum(k for _, k in by_name.values()),
+        "paged_kernel_ms_per_step": paged_ms,
+        "paged_kernel_launches_per_step": paged_n,
+        "gmm_kernel_ms_per_step": gmm_ms,
+        "gmm_kernel_launches_per_step": gmm_n,
+        "gmm_share_of_device_time": gmm_ms / device_ms,
+        "top_kernels_ms_per_step": [[name[:60], ms] for ms, name in top],
     }
 
 
@@ -2380,14 +2491,21 @@ def moe_phase(torch, np):
 # ---------------------------------------------------------------------------
 
 # The packed kernels at the new families' shapes: (name, B, Sq, Skv, H, KVH,
-# D, causal).  seamless-m4t-medium's encoder (1024 frames, 16 heads of 64,
-# not causal) and its decoder's cross attention (64 queries against the
-# 1024 frames; the frame and prompt segment ids each pad some rows), and
+# D, causal, layout).  seamless-m4t-medium's encoder (1024 frames, 16 heads
+# of 64, not causal) and its decoder's cross attention (64 queries against
+# the 1024 frames; the frame and prompt segment ids each pad some rows), and
 # internvl2-1b's prefill (256 patch rows + 64 tokens, 14 query over 2 KV
-# heads of 64: G = 7).  The limits are phase 7's.
-FAMILY_PACKED = (("seamless-m4t-medium encoder", 8, 1024, 1024, 16, 16, 64, False),
-                 ("seamless-m4t-medium cross", 8, 64, 1024, 16, 16, 64, False),
-                 ("internvl2-1b prefill", 8, 320, 320, 14, 2, 64, True))
+# heads of 64: G = 7); then seamless's decoder as phase 15 trains it (4
+# rows of 512 tokens over 1024 frames, each side cut into two documents at
+# ``_cuts``): its causal self attention and its cross attention.  The
+# limits are phase 7's.
+FAMILY_PACKED = (("seamless-m4t-medium encoder", 8, 1024, 1024, 16, 16, 64, False, None),
+                 ("seamless-m4t-medium cross", 8, 64, 1024, 16, 16, 64, False, None),
+                 ("internvl2-1b prefill", 8, 320, 320, 14, 2, 64, True, None),
+                 ("seamless-m4t-medium decoder self", 4, 512, 512, 16, 16, 64, True,
+                  "two documents"),
+                 ("seamless-m4t-medium decoder cross", 4, 512, 1024, 16, 16, 64, False,
+                  "two documents"))
 # the paged kernel at their decode shapes (phase 6's inputs and limits)
 FAMILY_PAGED = (("seamless-m4t-medium G=1", dict(DECODE, H=16, KVH=16, D=64)),
                 ("internvl2-1b G=7", dict(DECODE, H=14, KVH=2, D=64)))
@@ -2435,16 +2553,20 @@ def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, 
     ``ref.tile_schedule``'s (at D = 64 and 128; the D = 16 and 32 kernels
     keep none, and must read 0); times beside the bound and sdpa.  ``seg``
     (B, Sq), when given, is the segment ids of queries and keys alike
-    (packed rows); else every row is one segment.  Causal self-attention
-    also gets phase 7's planted faults, which must read above the limits."""
+    (packed rows), a pair of them those of the queries and of the keys;
+    else every row is one segment.  Causal self-attention also gets phase
+    7's planted faults, which must read above the limits."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.packed_attention.ref import census_rule, rel_l2, visible_mask
 
     dev = torch.device("cuda")
-    seg_q_np = np.ones((B, Sq), np.int32) if seg is None else np.asarray(seg, np.int32)
-    seg_kv_np = np.ones((B, Skv), np.int32) if seg is None else seg_q_np.copy()
-    if Sq != Skv:  # separate segment ids, each with padded tails
+    if isinstance(seg, tuple):
+        seg_q_np, seg_kv_np = (np.asarray(s, np.int32) for s in seg)
+    else:
+        seg_q_np = np.ones((B, Sq), np.int32) if seg is None else np.asarray(seg, np.int32)
+        seg_kv_np = np.ones((B, Skv), np.int32) if seg is None else seg_q_np.copy()
+    if seg is None and Sq != Skv:  # separate segment ids, each with padded tails
         seg_kv_np[1, Skv - 200:] = 0
         seg_kv_np[5, Skv - 37:] = 0
         seg_q_np[2, Sq - 9:] = 0
@@ -2544,6 +2666,21 @@ def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, 
              "census": census["dk/dv"]})
 
 
+def _cuts(n, B):
+    """Where phase 15 starts each row's second document in a side of ``n``
+    tokens or frames: row b at n (b + 1) / (B + 1)."""
+    return [n * (b + 1) // (B + 1) for b in range(B)]
+
+
+def _two_document_ids(np, B, Sq, Skv):
+    """Segment ids of ``B`` rows cut into two documents at ``_cuts``: one
+    array for self attention, (queries', keys') for Sq != Skv."""
+    seg_q, seg_kv = np.ones((B, Sq), np.int32), np.ones((B, Skv), np.int32)
+    for b, (cq, ck) in enumerate(zip(_cuts(Sq, B), _cuts(Skv, B))):
+        seg_q[b, cq:], seg_kv[b, ck:] = 2, 2
+    return seg_q if Sq == Skv else (seg_q, seg_kv)
+
+
 def family_kernels(torch, np):
     """Phase 13, part 1: each kernel at the new families' shapes against its
     plain version; returns the by_shape records (packed forward, packed
@@ -2556,9 +2693,10 @@ def family_kernels(torch, np):
     dev = torch.device("cuda")
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     fwd, bwd, paged, gmm = {}, {}, {}, {}
-    for name, B, Sq, Skv, H, KVH, D, causal in FAMILY_PACKED:
+    for name, B, Sq, Skv, H, KVH, D, causal, layout in FAMILY_PACKED:
+        seg = None if layout is None else _two_document_ids(np, B, Sq, Skv)
         fwd[name], bwd[name] = _family_packed_case(
-            torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, causal, flush)
+            torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, causal, flush, seg=seg)
     for key, shape in FAMILY_PAGED:
         paged[key] = _paged_case(torch, np, key, shape, "bfloat16", flush)
     for name, E, C, d, f, tokens in JAMBA_GMM:
@@ -3177,6 +3315,599 @@ def examples_phase(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the other families trained at full width
+# ---------------------------------------------------------------------------
+
+# xlstm-125m on 4 rows of 256 tokens (train_4k's 256 x 4096 cut for time:
+# its scans are Python loops of ~20 launches a step and layer) in fp32, as
+# phase 13 serves it; jamba-v0.1-52b cut to its first layer (one Mamba
+# block and a dense SwiGLU MLP: layer 1 is an MoE layer, and the grouped
+# matmul has no backward in either package) on 2 x 1024; both through
+# ``launch.train.run`` on its pipeline's rows.  seamless-m4t-medium on 4 x
+# 512 decoder tokens over 1024 encoder frames and internvl2-1b on 4 rows of
+# 256 patch rows + 256 tokens, through ``make_train_step`` on
+# ``make_batch`` batches, each row cut into two documents.
+FT_XLSTM = {"B": 4, "S": 256}
+FT_JAMBA = {"B": 2, "S": 1024, "layers": 1}
+FT_SEAMLESS = {"B": 4, "frames": 1024, "tokens": 512}
+FT_INTERNVL = {"B": 4, "S": 512}
+FT_STEPS = 3
+# Step 1's loss and named gradients, the trained route (the packed kernels;
+# the scans in chunks of 128 under checkpoints) against the plain route
+# (the plain flash path; each scan one chunk), by relative l2 from the same
+# weights and batch; a planted fault must read above each limit.  The
+# limits follow what can part the two routes, read on an NVIDIA H100 80GB
+# HBM3 at 700 W before they were set (PERF.md §6).  The attention
+# families' kernels take delta from the bf16 output and round P and dS to
+# bf16 for their products, where the plain path keeps them in fp32 (and
+# rounds dP): 0.8e-2 to 2.6e-2 read, against 3e-2 to 1e-1 for the plain
+# route with every weight moved by one bf16 ulp; limit 5e-2 (but
+# ``FT_LEAF_LIMITS``).  The recurrent routes run the same ops in the same
+# order, bar the sum over chunks of the gradients of weights a step closes
+# over (fp32): read 0 (bitwise) for both; limit 1e-4, under the carry
+# reset's 1.9e-2 (jamba's state forgets in a few steps) and 0.76 (xlstm).
+FT_LIMITS = {"xlstm-125m": 1e-4, "seamless-m4t-medium": 5e-2, "internvl2-1b": 5e-2,
+             "jamba-v0.1-52b": 1e-4}
+# The first layer's attention calls of step 1, the kernels' dQ, dK and dV
+# against fp64 from the same inputs (``_packed_truth``): within phase 7's
+# whole-tensor limit, and so with each segment's keys centred; dQ may also
+# read up to ``FT_ROUNDING_SLACK`` x what fp64 reads with the kernels' two
+# roundings put back (delta = rowsum(dO O) from the bf16 output, dS in
+# bf16), where that is more.  It is more in seamless's cross attention:
+# its keys (the encoder's output) hold most of their energy in their
+# segments' mean, which a row of dS (summing to zero) cancels only with
+# the output's fp32 delta; the plain path's autograd takes delta from its
+# fp32 output.  Read on an H100 80GB HBM3 at 700 W: keys 94% in their
+# mean; the kernels' dQ 0.303 from fp64, sdpa's flash backward 0.303,
+# fp64 with delta from the bf16 output 0.303 (with dS in bf16 alone
+# 3.7e-3), the plain path 6.7e-3, the kernels on centred keys 3.4e-3.  The
+# gradient of the decoder's first cross-attention wq (x^T dQ) reads 0.297
+# against the plain route, a dropped segment boundary 0.85: held at 0.4.
+FT_FP64_LIMIT = PACKED_REL_L2[0]
+FT_ROUNDING_SLACK = 1.1
+FT_LEAF_LIMITS = {"dec_blocks/cross_attn/wq[0]": 0.4}
+# The leaves held (``path[0]``: the first layer of a stacked leaf): the
+# embedding, the first attention's projections (seamless: the encoder's and
+# both of the decoder's queries) or the first mixer's, the last norm.
+FT_LEAVES = {
+    "xlstm-125m": ["embed", "blocks/0/mixer/up[0]", "blocks/0/mixer/wq[0]",
+                   "blocks/5/mixer/wr[0]", "final_norm/scale"],
+    "seamless-m4t-medium": ["embed", "enc_blocks/self_attn/wq[0]", "enc_blocks/self_attn/wk[0]",
+                            "enc_blocks/self_attn/wv[0]", "enc_blocks/self_attn/wo[0]",
+                            "dec_blocks/self_attn/wq[0]", "dec_blocks/cross_attn/wq[0]",
+                            "final_norm/scale"],
+    "internvl2-1b": ["embed", "blocks/0/mixer/wq[0]", "blocks/0/mixer/wk[0]",
+                     "blocks/0/mixer/wv[0]", "blocks/0/mixer/wo[0]", "final_norm/scale"],
+    "jamba-v0.1-52b": ["embed", "blocks/0/mixer/in_proj[0]", "blocks/0/mixer/A_log[0]",
+                       "blocks/0/mixer/out_proj[0]", "final_norm/scale"],
+}
+
+
+class _PlainPacked:
+    """Stands in for ``kernels.packed_attention.ops`` in ``models.layers``:
+    the plain chunked flash path, on the card (the plain route)."""
+
+    @staticmethod
+    def packed_attention(q, k, v, segment_ids, segment_ids_kv, *, causal, window):
+        from repro_torch.models.layers import flash_attention
+
+        return flash_attention(q, k, v, segment_ids, segment_ids_kv, causal=causal,
+                               window=window)
+
+
+class _MergedSegments:
+    """Planted fault: the kernels with each row's second document merged
+    into its first (a segment boundary dropped)."""
+
+    @staticmethod
+    def packed_attention(q, k, v, segment_ids, segment_ids_kv, **kw):
+        from repro_torch.kernels.packed_attention import ops
+
+        def merged(s):
+            return s.masked_fill(s == 2, 1)
+
+        return ops.packed_attention(q, k, v, merged(segment_ids), merged(segment_ids_kv),
+                                    **kw)
+
+
+def _one_chunk(step, init, xs, *, chunk_size):
+    """The plain route's scan: every step in one chunk."""
+    from repro_torch.models.scan_utils import chunked_scan
+
+    return chunked_scan(step, init, xs, chunk_size=1 << 30)
+
+
+def _carry_reset(step, init, xs, *, chunk_size):
+    """Planted fault: the scan's carry reset to its initial value at the
+    first chunk boundary."""
+    import torch
+
+    from repro_torch.models.scan_utils import _leaves, _map, chunked_scan
+
+    c = chunk_size
+    if _leaves(xs)[0].shape[0] <= c:
+        return chunked_scan(step, init, xs, chunk_size=c)
+    _, ys0 = chunked_scan(step, init, _map(lambda x: x[:c], xs), chunk_size=c)
+    carry, ys1 = chunked_scan(step, init, _map(lambda x: x[c:], xs), chunk_size=c)
+    return carry, _map(lambda a, b: torch.cat([a, b]), ys0, ys1)
+
+
+@contextlib.contextmanager
+def _routed(scan=None, packed=None):
+    """The mixers' scan and the layers' packed-attention entry replaced."""
+    from repro_torch.models import layers, ssm, xlstm
+
+    with contextlib.ExitStack() as stack:
+        if scan is not None:
+            stack.enter_context(_patched(ssm, "chunked_scan", scan))
+            stack.enter_context(_patched(xlstm, "chunked_scan", scan))
+        if packed is not None:
+            stack.enter_context(_patched(layers, "packed_ops", packed))
+        yield
+
+
+def _step1_grads(torch, model, params, batch, dtype, names):
+    """Step 1's loss and the gradients of ``names`` (``path[0]``: the first
+    layer of a stacked leaf), through the ``dtype`` compute copy of the
+    fp32 masters with remat "nothing", as ``make_train_step`` takes them."""
+    from repro_torch.models.params import tree_leaves, tree_paths, tree_unflatten
+    from repro_torch.training.train_step import cast_params_for_compute
+
+    leaves = [t.detach().requires_grad_(True)
+              for t in tree_leaves(cast_params_for_compute(params, dtype))]
+    with torch.enable_grad():
+        loss, _ = model.loss(tree_unflatten(params, leaves), batch, remat_policy="nothing")
+        grads = torch.autograd.grad(loss, leaves)
+    by_path = {"/".join(p): g for (p, _), g in zip(tree_paths(params), grads)}
+    out = {"loss": loss.detach().float().reshape(1)}
+    for name in names:
+        path, first = (name[:-3], True) if name.endswith("[0]") else (name, False)
+        g = by_path[path]
+        out[name] = (g[0] if first else g).float()
+    return out
+
+
+def _rel(a, b):
+    """Relative l2 of each entry of two ``_step1_grads`` readings."""
+    return {k: ((a[k] - b[k]).norm() / b[k].norm()).item() for k in b}
+
+
+def _moved(torch, params, dtype):
+    """The masters with every entry moved by about one ulp of ``dtype``, up
+    or down at random (seed 0): the plain route's noise witness."""
+    from repro_torch.models.params import tree_map
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    eps = torch.finfo(dtype).eps
+
+    def one(t):
+        sign = torch.randint(0, 2, t.shape, generator=gen, device=t.device) * 2 - 1
+        return t * (1 + eps * sign)
+
+    return tree_map(one, params)
+
+
+def _family_routes(torch, tag, model, params, batch, dtype, names, plain, fault, want):
+    """Step 1 through the trained route and the plain route from the same
+    weights and batch, the plain route's one-ulp witness and a planted
+    fault: the readings of the loss and ``names``, the trained route's
+    launches (held to ``want``)."""
+    limit = FT_LIMITS[tag]
+    _zero_counts()
+    got = _step1_grads(torch, model, params, batch, dtype, names)
+    torch.cuda.synchronize()
+    launches = _counts()
+    with _routed(**plain):
+        ref = _step1_grads(torch, model, params, batch, dtype, names)
+        witness = _step1_grads(torch, model, _moved(torch, params, dtype), batch, dtype,
+                               names)
+    with _routed(**fault):
+        planted = _step1_grads(torch, model, params, batch, dtype, names)
+    r = {"trained_vs_plain": _rel(got, ref), "plain_one_ulp_witness": _rel(witness, ref),
+         "planted": _rel(planted, ref), "limit": limit, "launches_step": launches,
+         "loss_step1": got["loss"].item()}
+    limits = {k: FT_LEAF_LIMITS.get(k, limit) for k in ["loss"] + list(names)}
+    checks = {
+        f"{tag}: trained route within {limit} of the plain route (or FT_LEAF_LIMITS)":
+            all(r["trained_vs_plain"][k] <= v for k, v in limits.items()),
+        f"{tag}: the planted fault reads above the limits":
+            any(r["planted"][k] > v for k, v in limits.items()),
+        f"{tag}: launches a step {want}": launches == want,
+        f"{tag}: loss and gradients finite": all(
+            bool(torch.isfinite(t).all()) for t in got.values()),
+    }
+    return r, checks
+
+
+def _packed_truth(torch, model, params, batch, dtype):
+    """The first layer's attention calls of step 1 on the kernel route (its
+    causal self attention and, in an encoder-decoder, its cross attention),
+    their inputs and output gradient caught: dQ, dK and dV of the kernels
+    and of the plain flash path from those inputs, each by relative l2 to
+    the same function in fp64; the kernels again with each segment's keys
+    centred (their mean subtracted: the same attention, held to its own
+    fp64); ``sdpa`` (the library's flash backward) one document at a time;
+    dQ in fp64 with either of the kernels' roundings put back (delta =
+    rowsum(dO O) from the bf16 output, dS rounded to bf16 before dS K); and
+    the share of the keys' energy in their segments' means."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.packed_attention import ops
+    from repro_torch.kernels.packed_attention.ref import visible_mask
+    from repro_torch.models.layers import flash_attention
+
+    calls, arrived = [], [0]
+
+    class Catch(torch.autograd.Function):
+        """The identity; its backward keeps the gradient and its order."""
+
+        @staticmethod
+        def forward(ctx, out, rec):
+            ctx.rec = rec
+            return out.view_as(out)
+
+        @staticmethod
+        def backward(ctx, g):
+            ctx.rec["dout"], ctx.rec["order"] = g.detach(), arrived[0]
+            arrived[0] += 1
+            return g, None
+
+    class Recorder:
+        @staticmethod
+        def packed_attention(q, k, v, segment_ids, segment_ids_kv, **kw):
+            rec = {"q": q.detach(), "k": k.detach(), "v": v.detach(), "seg_q": segment_ids,
+                   "seg_kv": segment_ids_kv, **kw}
+            calls.append(rec)
+            return Catch.apply(ops.packed_attention(q, k, v, segment_ids, segment_ids_kv,
+                                                    **kw), rec)
+
+    with _routed(packed=Recorder):
+        _step1_grads(torch, model, params, batch, dtype, [])
+    first = {}  # the backward reaches the first layer's calls last
+    for c in calls:
+        kind = ("self" if c["causal"] else
+                "cross" if c["q"].shape[1] != c["k"].shape[1] else None)
+        if kind and "dout" in c and c["order"] > first.get(kind, {"order": -1})["order"]:
+            first[kind] = c
+    del calls
+
+    def grads(fn, q, k, v, dout, dt):
+        ts = [t.detach().to(dt).clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*ts)
+        return torch.autograd.grad(out, ts, dout.to(out.dtype))
+
+    def rel(got, want):
+        return {n: ((a.double() - b).norm() / b.norm()).item()
+                for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+
+    readings = {}
+    for kind, c in first.items():
+        assert c["window"] == 0
+        q, k, v, dout, sq, skv, causal = (c[n] for n in (
+            "q", "k", "v", "dout", "seg_q", "seg_kv", "causal"))
+        mask = visible_mask(sq, skv, causal=causal)[:, None]  # (B, 1, Sq, Skv)
+        seen = mask.any(-1, keepdim=True)
+
+        def exact(q, k, v):
+            G = q.shape[2] // k.shape[2]
+            k, v = k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)
+            s = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+            s = s.masked_fill(~mask, float("-inf")).masked_fill(~seen, 0.0)
+            return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1) * mask, v)
+
+        def kernel(q, k, v):
+            return ops.packed_attention(q, k, v, sq, skv, causal=causal, window=0)
+
+        def plain(q, k, v):
+            return flash_attention(q, k, v, sq, skv, causal=causal, window=0)
+
+        def library():  # each row's documents, one sdpa call each
+            got = [torch.zeros_like(t) for t in (q, k, v)]
+            for b in range(q.shape[0]):
+                for sid in sq[b].unique().tolist():
+                    mq, mk = sq[b] == sid, skv[b] == sid
+                    ts = [t[b, m].transpose(0, 1)[None].clone().requires_grad_(True)
+                          for t, m in ((q, mq), (k, mk), (v, mk))]
+                    out = F.scaled_dot_product_attention(
+                        *ts, is_causal=causal, enable_gqa=q.shape[2] != k.shape[2])
+                    gs = torch.autograd.grad(out, ts, dout[b, mq].transpose(0, 1)[None])
+                    for dst, m, g in zip(got, (mq, mk, mk), gs):
+                        dst[b, m] = g[0].transpose(0, 1)
+            return got
+
+        def dq64(bf16_out, bf16_ds):
+            """dQ written out in fp64, with either rounding put back."""
+            G = q.shape[2] // k.shape[2]
+            q64, g64 = q.double(), dout.double()
+            k64, v64 = (t.double().repeat_interleave(G, 2) for t in (k, v))
+            scale = q.shape[-1] ** -0.5
+            sc = torch.einsum("bqhd,bkhd->bhqk", q64, k64) * scale
+            sc = sc.masked_fill(~mask, float("-inf")).masked_fill(~seen, 0.0)
+            p = torch.softmax(sc, -1) * mask
+            o = torch.einsum("bhqk,bkhd->bqhd", p, v64)
+            if bf16_out:
+                o = o.to(torch.bfloat16).double()
+            delta = (g64 * o).sum(-1).transpose(1, 2)[..., None]  # (B, H, Sq, 1)
+            ds = p * (torch.einsum("bqhd,bkhd->bhqk", g64, v64) - delta)
+            if bf16_ds:
+                ds = ds.to(torch.bfloat16).double()
+            return torch.einsum("bhqk,bkhd->bqhd", ds, k64) * scale
+
+        kc = k.float()
+        for sid in skv.unique().tolist():
+            if sid:
+                m = (skv == sid)[:, :, None, None]
+                mean = (k.float() * m).sum(1, keepdim=True) / m.sum(1, keepdim=True)
+                kc = torch.where(m, kc - mean, kc)
+        share = 1.0 - (kc.norm() / k.float().norm()).item() ** 2
+        kc = kc.to(k.dtype)
+        truth = grads(exact, q, k, v, dout, torch.float64)
+        truth_c = grads(exact, q, kc, v, dout, torch.float64)
+        roundings = {name: ((dq64(*flags) - truth[0]).norm() / truth[0].norm()).item()
+                     for name, flags in (("none (dQ written out)", (False, False)),
+                                         ("delta from the bf16 output", (True, False)),
+                                         ("dS in bf16", (False, True)),
+                                         ("both", (True, True)))}
+        readings[kind] = {
+            "shape": {"B": q.shape[0], "Sq": q.shape[1], "Skv": k.shape[1], "H": q.shape[2],
+                      "KVH": k.shape[2], "D": q.shape[3], "causal": causal,
+                      "documents": int(sq.max())},
+            "kernel_vs_fp64": rel(grads(kernel, q, k, v, dout, dtype), truth),
+            "plain_vs_fp64": rel(grads(plain, q, k, v, dout, dtype), truth),
+            "kernel_centred_keys_vs_fp64": rel(grads(kernel, q, kc, v, dout, dtype), truth_c),
+            "sdpa_by_document_vs_fp64": rel(library(), truth),
+            "fp64_dq_with_the_kernels_rounding_vs_fp64": roundings,
+            "key_mean_energy_share": share}
+        del truth, truth_c, kc, mask, seen
+    del first
+    torch.cuda.empty_cache()
+    return readings
+
+
+def _family_profile(torch, step, wall_ms, recurrent):
+    """One step under ``torch.profiler`` (``_device_profile``): device ms,
+    busy share, launches, and for a recurrent family the share of device
+    time of the kernels launched inside the scans' forward runs (the first
+    pass and both recomputes; their backward is in no range)."""
+    from repro_torch.models import scan_utils
+
+    real = scan_utils._scan
+
+    def ranged(*a, **kw):
+        with torch.autograd.profiler.record_function("scan forward"):
+            return real(*a, **kw)
+
+    with _patched(scan_utils, "_scan", ranged) if recurrent else contextlib.nullcontext():
+        prof = _device_profile(torch, step, 1, wall_ms, ("scan forward",) if recurrent else ())
+    return {k: v for k, v in prof.items() if not k.startswith(("paged", "gmm"))}
+
+
+def _token_rows(vocab, S, B):
+    """The rows ``launch.train.run``'s pipeline packs at ``S`` tokens."""
+    from repro_torch.data import StreamingPipeline, synthetic_documents
+
+    return iter(StreamingPipeline(
+        synthetic_documents(vocab, mean_len=S // 3, max_len=4 * S, seed=0),
+        seq_len=S, batch_size=B, prefetch=0))
+
+
+def _two_documents(torch, batch, cuts, frames=None):
+    """``batch`` (numpy-drawn, on the CPU) with row b cut into two documents
+    at token ``cuts[b]`` (and, for an encoder-decoder batch, at frame
+    ``frames[b]``): segment ids 1 then 2, positions restarting at the cut."""
+    out = dict(batch)
+    seg, pos = batch["segment_ids"].clone(), batch["positions"].clone()
+    for b, c in enumerate(cuts):
+        seg[b, c:] = 2
+        pos[b, c:] = torch.arange(seg.shape[1] - c, dtype=pos.dtype)
+    out["segment_ids"], out["positions"] = seg, pos
+    if frames is not None:
+        enc = batch["enc_segment_ids"].clone()
+        for b, c in enumerate(frames):
+            enc[b, c:] = 2
+        out["enc_segment_ids"] = enc
+    return out
+
+
+def _train_tokens(torch, tag, cfg, shape, dtype, names, none):
+    """A token family: step 1's routes from the drawn masters on the first
+    row batch of ``launch.train.run``'s pipeline, then ``FT_STEPS`` steps of
+    ``launch.train.run`` (--mesh none) from the same masters, and one more
+    step profiled after the run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    model = build_model(cfg)
+    params = train.make_params(model, 0, dev)
+    first = next(_token_rows(cfg.vocab_size, shape["S"], shape["B"]))
+    batch = {k: torch.from_numpy(getattr(first, k)).to(dev)
+             for k in ("tokens", "labels", "segment_ids", "positions")}
+    routes, checks = _family_routes(torch, tag, model, params, batch, dtype, names,
+                                    {"scan": _one_chunk}, {"scan": _carry_reset}, none)
+    del batch
+    seen = {}
+
+    def after_run(step_fn, p, o, batches):
+        seen["launches"] = _counts()
+        seen["step"] = (step_fn, p, o, next(batches))
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="family_train_", dir=ROOT / "build")
+    argv = ["--arch", cfg.name, "--steps", str(FT_STEPS),
+            "--seq-len", str(shape["S"]), "--batch-size", str(shape["B"]),
+            "--remat", "nothing", "--mesh", "none", "--ckpt-every", "1000",
+            "--ckpt-dir", ckpt]
+    _zero_counts()
+    try:
+        stats = train.run(train.parse_args(argv), params=params, compute_dtype=dtype,
+                          cfg=cfg, after_run=after_run)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    step_fn, p, o, nxt = seen.pop("step")
+    seen["profile"] = _family_profile(torch, lambda: step_fn(p, o, nxt),
+                                      stats["step_ms_p50"], True)
+    del step_fn, p, o, nxt
+    out = {"routes": routes, "steps": stats["steps"], "losses": stats["losses"],
+           "step_ms": stats["step_ms"], "step_ms_p50": stats["step_ms_p50"],
+           "tokens_per_s_p50_step": stats["tokens_per_s_p50_step"],
+           "peak_device_mem_gib": stats["peak_device_mem_gib"],
+           "launches_run": seen["launches"], "profile": seen["profile"]}
+    checks.update({
+        f"{tag}: {FT_STEPS} steps, losses finite": stats["steps"] == FT_STEPS and _finite(
+            stats["losses"] + stats["grad_norms"]),
+        f"{tag}: the run launched no kernel": seen["launches"] == none,
+    })
+    return out, checks
+
+
+def _finite(values) -> bool:
+    import math
+
+    return all(math.isfinite(v) for v in values)
+
+
+def _train_batches_of(torch, tag, model, batches, names, n_attn, none, kinds):
+    """An attention family through ``make_train_step`` on ``batches`` (on
+    the card), the attention projections tempered (``_tempered``): step 1's
+    routes on the first batch, its first layer's attention calls (``kinds``)
+    against fp64, ``FT_STEPS`` steps with their launches, and one more step
+    profiled."""
+    from repro_torch.launch import train
+    from repro_torch.training import OptimizerConfig, init_opt_state, make_train_step
+
+    dev = torch.device("cuda")
+    params = train.make_params(model, 0, dev)
+    per_step = dict(none, packed=2 * n_attn, packed_bwd=n_attn)
+    with _tempered(params, None) as (params, _):
+        routes, checks = _family_routes(
+            torch, tag, model, params, batches[0], torch.bfloat16, names,
+            {"packed": _PlainPacked}, {"packed": _MergedSegments}, per_step)
+        truth = _packed_truth(torch, model, params, batches[0], torch.bfloat16)
+        step_fn = make_train_step(model, OptimizerConfig(), remat_policy="nothing")
+        opt_state = init_opt_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        losses, ms, p, o = _timed_steps(torch, step_fn, params, opt_state,
+                                        batches[:FT_STEPS])
+        got = _counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        p50 = sorted(ms)[len(ms) // 2]
+        prof = _family_profile(torch, lambda: step_fn(p, o, batches[0]), p50, False)
+        del p, o, opt_state, step_fn
+    tokens = batches[0]["tokens"].numel()
+    out = {"routes": routes, "packed_vs_fp64": truth, "losses": losses, "step_ms": ms,
+           "step_ms_p50": p50,
+           "tokens_per_s_p50_step": tokens / (p50 / 1e3), "peak_device_mem_gib": peak,
+           "launches_run": got, "profile": prof}
+    checks[f"{tag}: the first layer's {kinds} attention caught"] = set(truth) == set(kinds)
+    for kind, r in truth.items():
+        rounded = FT_ROUNDING_SLACK * r["fp64_dq_with_the_kernels_rounding_vs_fp64"]["both"]
+        for n, err in r["kernel_vs_fp64"].items():
+            lim = max(FT_FP64_LIMIT, rounded) if n == "dq" else FT_FP64_LIMIT
+            checks[f"{tag}: {kind} attention {n}, kernels within {lim:.3g} of fp64"] = (
+                err <= lim)
+        checks[f"{tag}: {kind} attention, kernels on centred keys within {FT_FP64_LIMIT} "
+               "of fp64"] = max(r["kernel_centred_keys_vs_fp64"].values()) <= FT_FP64_LIMIT
+    checks.update({
+        f"{tag}: losses finite": _finite(losses),
+        f"{tag}: launches over {FT_STEPS} steps {FT_STEPS} x {per_step}": got == {
+            k: FT_STEPS * v for k, v in per_step.items()},
+    })
+    return out, checks
+
+
+def family_train_phase(torch, np, smi):
+    """Phase 15: xlstm-125m, seamless-m4t-medium, internvl2-1b and
+    jamba-v0.1-52b's first layer trained at full width (``FT_*``); returns
+    each path's packed launches a step and the readings."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, make_batch
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[family-train] {smi}; {torch.cuda.memory_allocated() / 2**30:.2f} GiB held "
+          "before the phase")
+    none = {"gmm": 0, "paged": 0, "packed": 0, "packed_bwd": 0}
+    readings, checks, launches = {}, {}, {}
+
+    def done(tag, t0, result):
+        out, ok = result
+        out["seconds"] = time.perf_counter() - t0
+        readings[tag] = out
+        checks.update(ok)
+        # a step of the main path's own run, counted from 0 just before it
+        # (held to FT_STEPS x the step's count above)
+        launches[f"{tag} train step"] = {k: v // FT_STEPS
+                                         for k, v in out["launches_run"].items()}
+        print(f"[family-train] {tag} " + json.dumps(out))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # xlstm-125m: 12 layers, d 768, in fp32; no kernel on its path
+    arch = "xlstm-125m"
+    t0 = time.perf_counter()
+    done(arch, t0, _train_tokens(
+        torch, arch, get_config(arch), FT_XLSTM, torch.float32, FT_LEAVES[arch], none))
+
+    # seamless-m4t-medium: 12 + 12 layers; 36 packed calls a forward
+    arch = "seamless-m4t-medium"
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    B, F, T = FT_SEAMLESS["B"], FT_SEAMLESS["frames"], FT_SEAMLESS["tokens"]
+    batches = []
+    for seed in range(FT_STEPS):
+        b = make_batch(cfg, "train", B, 2 * F, seed=seed)  # F frames, F tokens: cut to T
+        b = {k: (v[:, :T] if k in ("tokens", "labels", "segment_ids", "positions") else v)
+             for k, v in b.items()}
+        b = _two_documents(torch, b, _cuts(T, B), _cuts(F, B))
+        batches.append({k: v.to(dev) for k, v in b.items()})
+    done(arch, t0, _train_batches_of(
+        torch, arch, build_model(cfg), batches, FT_LEAVES[arch],
+        cfg.n_encoder_layers + 2 * cfg.n_layers, none, ("self", "cross")))
+    del batches
+
+    # internvl2-1b: 24 layers, 14 query over 2 KV heads of 64
+    arch = "internvl2-1b"
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    B, S = FT_INTERNVL["B"], FT_INTERNVL["S"]
+    text = cfg.frontend_tokens
+    batches = [{k: v.to(dev) for k, v in _two_documents(
+        torch, make_batch(cfg, "train", B, S, seed=seed),
+        [text + c for c in _cuts(S - text, B)]).items()}
+        for seed in range(FT_STEPS)]
+    done(arch, t0, _train_batches_of(
+        torch, arch, build_model(cfg), batches, FT_LEAVES[arch], cfg.n_layers, none,
+        ("self",)))
+    del batches
+
+    # jamba-v0.1-52b cut to its first layer: one Mamba block, a dense MLP
+    arch = "jamba-v0.1-52b"
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=FT_JAMBA["layers"],
+                              layer_pattern=get_config(arch).pattern[:FT_JAMBA["layers"]])
+    print(f"[family-train] {arch}: reduced n_layers 32 -> {cfg.n_layers} (pattern "
+          f"{cfg.pattern!r}, MoE layers {sum(cfg.moe.is_moe_layer(i) for i in range(cfg.n_layers))}"
+          f"; {cfg.param_counts()[0] / 1e9:.3f} B parameters)")
+    done(arch, t0, _train_tokens(
+        torch, arch, cfg, FT_JAMBA, torch.bfloat16, FT_LEAVES[arch], none))
+
+    print(f"[family-train] checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"family training: {checks}")
+    return launches, readings
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         _fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -3292,6 +4023,10 @@ def main() -> None:
         ex_launches = examples_phase(torch)
     ex_path = {f"example {name}": c for name, c in ex_launches.items()}
 
+    # 15. the other families trained at full width
+    with _phase("family train"):
+        ft_launches, _ = family_train_phase(torch, np, smi)
+
     print(json.dumps({"kernels": [{
         "name": "grouped_matmul",
         "route": "cuda",
@@ -3303,6 +4038,7 @@ def main() -> None:
             "inproc full": gmm_launches,
             **{path: c["gmm"] for path, c in moe_launches.items()},
             **{path: c["gmm"] for path, c in fam_launches.items()},
+            **{path: c["gmm"] for path, c in ft_launches.items()},
         },
         **gmm_record,
         "by_shape": {**gmm_by_shape, **fam_gmm},
@@ -3317,7 +4053,8 @@ def main() -> None:
                              **{path: c["paged"] for path, c in moe_launches.items()
                                 if "paged" in c},
                              **{path: c["paged"] for path, c in fam_launches.items()},
-                             **{p: c["paged"] for p, c in ex_path.items() if "paged" in c}},
+                             **{p: c["paged"] for p, c in ex_path.items() if "paged" in c},
+                             **{path: c["paged"] for path, c in ft_launches.items()}},
         **paged_record,
         "by_shape": {**paged_records, **fam_paged, **ex_paged},
     }, {
@@ -3332,7 +4069,8 @@ def main() -> None:
                              **{path: c["packed"] for path, c in moe_launches.items()
                                 if "packed" in c},
                              **{path: c["packed"] for path, c in fam_launches.items()},
-                             **{p: c["packed_fwd"] for p, c in ex_path.items()}},
+                             **{p: c["packed_fwd"] for p, c in ex_path.items()},
+                             **{p: c["packed"] for p, c in ft_launches.items()}},
         **packed_fwd_record,
         "by_shape": {**{n: fwd for n, (fwd, _) in packed_records.items()},
                      f"{MOE_ARCH} prefill": packed_moe_record, **fam_fwd,
@@ -3349,7 +4087,8 @@ def main() -> None:
                              **{path: 0 for path, c in moe_launches.items()
                                 if "packed" in c},
                              **{path: c["packed_bwd"] for path, c in fam_launches.items()},
-                             **{p: c.get("packed_bwd", 0) for p, c in ex_path.items()}},
+                             **{p: c.get("packed_bwd", 0) for p, c in ex_path.items()},
+                             **{p: c["packed_bwd"] for p, c in ft_launches.items()}},
         **packed_bwd_record,
         "by_shape": {**{n: bwd for n, (_, bwd) in packed_records.items()}, **fam_bwd,
                      **ex_bwd},

@@ -98,12 +98,16 @@ def expert_ffn_swiglu(
 
     On the card the three products are kernel launches, whose outputs carry
     no gradient: there, with autograd recording and an input that requires
-    grad, this raises rather than train through them silently.
+    grad, this raises rather than train through them silently.  The JAX
+    package's kernel route has no gradient either (``pallas_call`` has no
+    transpose and ``ops.gmm`` no ``custom_vjp``): ``jax.grad`` through it
+    raises ``NotImplementedError``, which ``tests/test_torch_moe.py`` pins.
     """
     if x.device.type != "cpu" and torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w_gate, w_up, w_down)):
         raise NotImplementedError(
-            "the grouped-matmul kernel has no backward: MoE training on the "
-            "card is ROADMAP queue 1 item 12")
+            "the grouped-matmul kernel has no backward, as the reference's "
+            "kernel route has none (jax.grad through ops.gmm raises): MoE "
+            "training on one card is not ported by design, ROADMAP queue 1 item 12")
     h = F.silu(gmm(x, w_gate, group_sizes)) * gmm(x, w_up, group_sizes)
     return gmm(h, w_down, group_sizes)

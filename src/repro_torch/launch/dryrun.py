@@ -266,7 +266,7 @@ def main() -> None:
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--shapes", default=None,
-                    help="comma-separated shape filter for --all")
+                    help="comma-separated shape filter for --all or --arch")
     ap.add_argument("--multi-pod", default="single",
                     choices=["single", "multi", "both"])
     ap.add_argument("--remat", default="nothing")
@@ -280,10 +280,11 @@ def main() -> None:
         cells = [(arch, shape.name) for arch in ARCH_NAMES
                  for shape in cells_for(get_config(arch))
                  if not keep or shape.name in keep]
+    elif args.arch and (args.shape or args.shapes):
+        names = [args.shape] if args.shape else args.shapes.split(",")
+        cells = [(args.arch, name) for name in names]
     else:
-        if not args.arch or not args.shape:
-            ap.error("--arch and --shape required unless --all")
-        cells = [(args.arch, args.shape)]
+        ap.error("--arch and --shape (or --shapes) required unless --all")
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.multi_pod]
 
     results = run_cells(cells, meshes, remat_policy=args.remat,

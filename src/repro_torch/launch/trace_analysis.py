@@ -46,14 +46,18 @@ fake tensors of the global shapes, and are not counted.
 Loops over time: the recurrent layers' ``models.scan_utils.chunked_scan``
 runs its chunks one after another, each the same ops on the same shapes
 (the time axis is padded to whole chunks).  ``analyze_step`` sets
-``scan_utils.LOOP_COUNTER`` to its counter; a scan of meta stand-ins with
-no gradient to record then runs the first chunk only and asks the counter
-to count it ``n`` times (``repeated``), the counterpart of the JAX module's
-trip count: FLOPs, bytes, ops and collectives times ``n``, and the peak as
-the full loop's, whose last chunk runs with the outputs of the ``n - 1``
-before it live; those outputs are allocated, uncounted, so that what
-follows the loop sees them.  A scan of real tensors, or under autograd (a
-train step), runs every chunk.
+``scan_utils.LOOP_COUNTER`` to its counter; a scan of meta stand-ins then
+hands its first chunk to the counter's ``scan``, which runs it and counts
+it ``n`` times (``repeated``), the counterpart of the JAX module's trip count: FLOPs,
+bytes, ops and collectives times ``n``, and the peak as the full loop's,
+whose last chunk runs with the outputs of the ``n - 1`` before it live;
+those outputs are allocated, uncounted, so that what follows the loop sees
+them.  Under autograd (a train step) the chunk runs under its checkpoint,
+as every chunk does, between two identities whose backwards bracket the
+chunk's backward (``_ChunkEnd``, ``_ChunkStart``): the checkpoint's
+recompute and the gradients are counted ``n`` times the same way, the peak
+that of the full loop's last backward chunk, which runs with the other
+chunks' input gradients live.  A scan of real tensors runs every chunk.
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils import flop_counter
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves, tree_map_only
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.custom_ops import BYTES
 from ..models import scan_utils
@@ -184,6 +189,69 @@ def _op_bytes(func, packet, args, kwargs, out) -> float:
     return _nbytes(ins) + _nbytes(outs)
 
 
+def _rebuild(tree: Any, leaves: Iterator[torch.Tensor]) -> Any:
+    """``tree`` with its leaves replaced, in ``scan_utils._leaves``'s order."""
+    if isinstance(tree, dict):
+        out = {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
+        return {k: out[k] for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_rebuild(t, leaves) for t in tree)
+    return next(leaves)
+
+
+class _Bracket:
+    """The backward of one chunk counted as ``n``: opened by ``_ChunkEnd``'s
+    backward, the first of the chunk's nodes the engine runs, and closed by
+    ``_ChunkStart``'s, the first after its last (the engine runs the ready
+    node created last first, so nothing else runs in between)."""
+
+    def __init__(self, counter: "_Counter", n: int):
+        self.counter, self.n = counter, n
+
+    def open(self) -> None:
+        self.cm = self.counter.repeated(self.n)
+        self.more = self.cm.__enter__()
+
+    def close(self, grads: Tuple[Any, ...]) -> None:
+        # the other chunks' input gradients, live until the inputs' split
+        self.more([g for g in grads if g is not None], backward=True)
+        self.cm.__exit__(None, None, None)
+
+
+class _ChunkStart(torch.autograd.Function):
+    """The identity on a counted chunk's inputs; its backward closes the
+    chunk's count."""
+
+    @staticmethod
+    def forward(ctx, bracket, *inputs):
+        ctx.bracket = bracket
+        return tuple(t.view_as(t) for t in inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.bracket.close(grads)
+        return (None,) + grads
+
+
+class _ChunkEnd(torch.autograd.Function):
+    """The identity on a counted chunk's outputs; its backward opens the
+    chunk's count.  It saves ``extra``, stand-ins for the carries the other
+    chunks' checkpoints save, as a checkpoint saves its inputs (an enclosing
+    checkpoint's hooks drop them), until that backward."""
+
+    @staticmethod
+    def forward(ctx, bracket, n_out, *flat):
+        ctx.bracket, ctx.n_extra = bracket, len(flat) - n_out
+        ctx.save_for_backward(*flat[n_out:])
+        return tuple(t.view_as(t) for t in flat[:n_out])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.saved_tensors  # unpacked (an enclosing checkpoint's copies freed), then freed
+        ctx.bracket.open()
+        return (None, None) + grads + (None,) * ctx.n_extra
+
+
 class _Counter(TorchDispatchMode):
     supports_higher_order_operators = True
 
@@ -225,26 +293,65 @@ class _Counter(TorchDispatchMode):
 
         The last iteration of the full loop starts with the first's leftover
         (``held`` after it, carry and outputs), the outputs of ``n - 2`` more,
-        and peaks as far above its start as the first did."""
+        and peaks as far above its start as the first did.  With
+        ``backward=True`` the body is a chunk's backward, whose outputs are
+        the chunk's input gradients: the full loop runs its chunks last to
+        first, and the last of them runs with the ``n - 1`` others'
+        gradients live throughout, so it peaks that far above the body's
+        own peak."""
         start, window0 = self.held, self.window
         self.window = start
         since = copy.deepcopy(self.cost)
         last = [0]
 
-        def more(outputs: Any) -> List[Any]:
+        def more(outputs: Any, backward: bool = False) -> List[Any]:
             out_bytes = sum(_local(t).untyped_storage().nbytes() for t in _tensors(outputs))
-            last[0] = self.held + (n - 2) * out_bytes + (self.window - start)
-            self.paused = True
-            try:
-                return [tree_map_only(torch.Tensor, torch.empty_like, outputs)
-                        for _ in range(n - 1)]
-            finally:
-                self.paused = False
+            last[0] = (self.window + (n - 1) * out_bytes if backward else
+                       self.held + (n - 2) * out_bytes + (self.window - start))
+            return self.stand_ins(outputs, n - 1)
 
         yield more
         self.cost.add_times(since, n - 1)
         self.cost.peak_bytes = max(self.cost.peak_bytes, last[0])
         self.window = max(window0, self.window, last[0])
+
+    def stand_ins(self, tree: Any, k: int) -> List[Any]:
+        """``k`` copies of ``tree``'s tensors, allocated and held, uncounted:
+        what the loop iterations not run would leave live."""
+        self.paused = True
+        try:
+            return [tree_map_only(torch.Tensor, torch.empty_like, tree) for _ in range(k)]
+        finally:
+            self.paused = False
+
+    def scan(self, step: Callable[[Any, Any], Tuple[Any, Any]], init: Any, xs: Any,
+             n: int, remat: bool) -> Tuple[Any, List[Any]]:
+        """``scan_utils.LOOP_COUNTER``'s hook: the first chunk ``xs`` of an
+        ``n``-chunk ``chunked_scan``, counted for all.  Its forward runs under
+        ``repeated(n)``; under autograd (``remat``) it runs under its
+        checkpoint, as every chunk does, between ``_ChunkStart`` and
+        ``_ChunkEnd``, whose backwards bracket its backward (the checkpoint's
+        recompute and the chunk's gradients) under another ``repeated(n)``.
+        Returns its final carry and the ``n`` chunks' outputs, the other
+        ``n - 1`` allocated uncounted."""
+        leaves, run = scan_utils._leaves, scan_utils._scan
+        if not remat:
+            with self.repeated(n) as more:
+                carry, ys = run(step, init, xs)
+                return carry, [ys] + more(ys)
+        bracket = _Bracket(self, n)
+        k = len(leaves(init))
+        with self.repeated(n) as more:
+            extra = leaves(self.stand_ins(init, n - 1))
+            flat = _ChunkStart.apply(bracket, *leaves(init), *leaves(xs))
+            carry, ys = checkpoint(run, step, _rebuild(init, iter(flat[:k])),
+                                   _rebuild(xs, iter(flat[k:])), use_reentrant=False)
+            out = leaves(carry) + leaves(ys)
+            out = _ChunkEnd.apply(bracket, len(out), *out, *extra)
+            del extra
+            carry = _rebuild(carry, iter(out[:k]))
+            ys = _rebuild(ys, iter(out[k:]))
+            return carry, [ys] + more(ys)
 
     def _free(self, key: int) -> None:
         if self.open:

@@ -93,6 +93,7 @@ def run(
     params: Optional[Dict[str, Any]] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
     after_run: Optional[Callable[..., None]] = None,
+    cfg: Any = None,
 ) -> Dict[str, Any]:
     """Train ``--steps`` steps; return the run's step times, tokens/s
     (over the whole run, checkpoints included, and at the median step),
@@ -103,7 +104,8 @@ def run(
     ``params`` (fp32, on ``--device``; the same on every rank) replaces the
     drawn initial weights;
     ``compute_dtype`` is that of the forward and backward (the kernels on
-    the card take bf16).
+    the card take bf16);
+    ``cfg`` replaces ``--arch``'s configuration (one cut in depth, say).
     ``after_run(step_fn, params, opt_state, batches)`` is called once the
     controller is done, with the trained state and the batch iterator
     (under ``--mesh``, DTensors and a step that enters the mesh context).
@@ -113,7 +115,7 @@ def run(
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA card: pass --device cpu to run the plain version on the CPU")
-    cfg = get_config(args.arch)
+    cfg = cfg or get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     model = build_model(cfg)

@@ -5,14 +5,20 @@ package's does with ``lax.scan`` and ``jax.checkpoint``: when autograd is
 recording, each chunk runs under ``torch.utils.checkpoint``, so the forward
 keeps only the carries at chunk boundaries and the backward recomputes the
 states inside a chunk.  With no gradient to record it is the plain loop.
+The inputs are taken apart once, into chunks by one ``split`` a leaf and a
+chunk into steps by one ``unbind``: their backwards write each step's
+gradient into its own rows, so the backward's traffic is linear in the
+sequence (a select a step would add a zero gradient as large as the whole
+input for every step).
 
 The loop is Python over time steps, one step's tensor ops at a time: on
 the card every op of every step is its own launch (a fused scan kernel is
 later work).  A dry-run's count (``launch.trace_analysis``) sets
-``LOOP_COUNTER``: a scan of meta stand-ins with no gradient to record then
-runs its first chunk only and has it counted for every chunk, as the JAX
-package's count multiplies a scan's body by its trips.  Stand-ins have no
-values to get wrong; real tensors always run every chunk.
+``LOOP_COUNTER``: a scan of meta stand-ins then hands its first chunk to
+the counter, which runs it and counts it for every chunk, forward and
+backward, as the JAX package's count multiplies a scan's body by its
+trips.  Stand-ins have no values to get wrong; real tensors always run
+every chunk.
 """
 
 from __future__ import annotations
@@ -25,37 +31,17 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["LOOP_COUNTER", "chunked_scan", "time_major"]
+__all__ = ["LOOP_COUNTER", "chunked_scan"]
 
 Tree = Any  # a tensor, or a tuple / list / dict of trees
 
 # The counter that may count a loop from its first iteration: an object
-# whose ``repeated(n)`` is a context manager yielding ``more(outputs)``
+# whose ``scan(step, init, xs, n, remat)`` runs the first chunk ``xs`` of an
+# ``n``-chunk scan (under its checkpoint if ``remat``), counts it for all
+# ``n`` and returns its final carry and the ``n`` chunks' outputs
 # (``launch.trace_analysis._Counter``); None outside a dry-run's count.
 LOOP_COUNTER: contextvars.ContextVar[Any] = contextvars.ContextVar(
     "loop_counter", default=None)
-
-
-class _ContiguousGrad(torch.autograd.Function):
-    """The identity, whose gradient comes back contiguous."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad.contiguous()
-
-
-def time_major(x: torch.Tensor) -> torch.Tensor:
-    """(B, S, ...) -> (S, B, ...), a view.  On a DTensor the gradient that
-    comes back through it is made contiguous: it arrives time-major, and
-    DTensor reshapes a gradient as a view of its local tensor, which the
-    transposed layout cannot give (a product's backward upstream fails)."""
-    if isinstance(x, DTensor):
-        x = _ContiguousGrad.apply(x)
-    return x.transpose(0, 1)
 
 
 def _leaves(tree: Tree) -> List[torch.Tensor]:
@@ -79,12 +65,14 @@ def _map(fn: Callable[..., Any], tree: Tree, *rest: Tree) -> Tree:
 
 
 def _scan(step: Callable[[Tree, Tree], Tuple[Tree, Tree]], carry: Tree,
-          xs: Tree, start: int, n: int) -> Tuple[Tree, Tree]:
-    """``lax.scan`` over steps ``start .. start + n - 1`` of ``xs``: the
-    final carry and the step outputs stacked along a new time dim 0."""
+          xs: Tree) -> Tuple[Tree, Tree]:
+    """``lax.scan`` over every step of ``xs`` (dim 0 of each leaf, taken
+    apart by one ``unbind``): the final carry and the step outputs stacked
+    along a new time dim 0."""
+    steps = _map(lambda x: x.unbind(0).__getitem__, xs)
     ys = []
-    for t in range(start, start + n):
-        carry, y = step(carry, _map(lambda x: x[t], xs))
+    for t in range(_leaves(xs)[0].shape[0]):
+        carry, y = step(carry, _map(lambda get: get(t), steps))
         ys.append(y)
     return carry, _map(lambda *a: torch.stack(a), *ys)
 
@@ -114,20 +102,23 @@ def chunked_scan(
     remat = torch.is_grad_enabled() and any(
         t.requires_grad for t in _leaves(init) + _leaves(xs))
     n = (L + pad) // c
+    parts = _map(lambda x: x.split(c).__getitem__, xs)
+
+    def chunk(i: int) -> Tree:
+        return _map(lambda get: get(i), parts)
+
     counter = LOOP_COUNTER.get()
-    if (counter is not None and not remat and n > 1
+    if (counter is not None and n > 1
             and all(_is_meta(t) for t in _leaves(init) + _leaves(xs))):
         # a dry-run's count of stand-ins: one chunk, counted n times
-        with counter.repeated(n) as more:
-            carry, ys = _scan(step, init, xs, 0, c)
-            chunks = [ys] + more(ys)
+        carry, chunks = counter.scan(step, init, chunk(0), n, remat)
         return carry, _map(lambda *a: torch.cat(a)[:L], *chunks)
     carry, chunks = init, []
-    for start in range(0, L + pad, c):
+    for i in range(n):
         if remat:
-            carry, ys = checkpoint(_scan, step, carry, xs, start, c, use_reentrant=False)
+            carry, ys = checkpoint(_scan, step, carry, chunk(i), use_reentrant=False)
         else:
-            carry, ys = _scan(step, carry, xs, start, c)
+            carry, ys = _scan(step, carry, chunk(i))
         chunks.append(ys)
     ys = _map(lambda *a: torch.cat(a)[:L], *chunks)
     return carry, ys

@@ -18,8 +18,9 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.context import constrain
+from ..kernels.shard_local import any_dtensor, shard_local
 from .params import Spec
-from .scan_utils import chunked_scan, time_major
+from .scan_utils import chunked_scan
 
 __all__ = ["mamba_specs", "mamba_forward", "mamba_decode_step", "mamba_init_state",
            "causal_depthwise_conv", "MambaState"]
@@ -50,7 +51,18 @@ def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
                           b: torch.Tensor) -> torch.Tensor:
     """x: (B, S, di), w: (k, di): a depthwise causal conv as k shifted
     multiply-adds, in the JAX package's order: ``w[k - 1]`` takes the
-    current token, ``w[k - 1 - i]`` the token i steps back."""
+    current token, ``w[k - 1 - i]`` the token i steps back.
+
+    On DTensors it runs on each rank's own rows and channels
+    (``kernels/shard_local.py``): it is elementwise over the batch and the
+    channels and shifts along the sequence, which is whole.  (torch 2.11's
+    DTensor gets the shifts' pad backward wrong on a (1, 1) mesh.)"""
+    if any_dtensor(x, w, b):
+        return shard_local(
+            "causal conv", causal_depthwise_conv,
+            [("x", constrain(x, ("batch", None, "mlp")), "b.c"),
+             ("w", constrain(w, (None, "mlp")), ".c"), ("b", constrain(b, ("mlp",)), "c")],
+            "b.c")
     k = w.shape[0]
     out = x * w[k - 1]
     for i in range(1, k):
@@ -65,10 +77,29 @@ def _ssm_scan(
     Bmat: torch.Tensor,  # (B, S, ds)
     Cmat: torch.Tensor,  # (B, S, ds)
     A: torch.Tensor,     # (di, ds) negative
-    h0: torch.Tensor,    # (B, di, ds)
+    h0: Optional[torch.Tensor],  # (B, di, ds); None: zeros
     chunk_size: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Selective scan: h_t = exp(dt A) h + (dt x) B_t;  y_t = h_t . C_t."""
+    """Selective scan: h_t = exp(dt A) h + (dt x) B_t;  y_t = h_t . C_t.
+
+    On DTensors it runs on each rank's own rows and channels
+    (``kernels/shard_local.py``): a step is elementwise over the batch and
+    d_inner and contracts d_state, which is never split, so each rank's
+    shard is a whole scan of its own, its state made there.  B and C are
+    first made whole over the channels' mesh dim (one reduction a layer):
+    left partial, every step reduced them again."""
+    if any_dtensor(dt, x, Bmat, Cmat, A):
+        rows, whole = ("batch", None, "mlp"), ("batch", None, None)
+        ins = [("dt", constrain(dt, rows), "b.c"), ("x", constrain(x, rows), "b.c"),
+               ("B", constrain(Bmat, whole), "b.."), ("C", constrain(Cmat, whole), "b.."),
+               ("A", constrain(A, ("mlp", None)), "c.")]
+        if h0 is not None:
+            ins.append(("h0", constrain(h0, ("batch", "mlp", None)), "bc."))
+        return shard_local(
+            "mamba scan", lambda *a: _ssm_scan(*a[:5], a[5] if h0 is not None else None,
+                                               chunk_size), ins, ("bc.", "b.c"))
+    if h0 is None:
+        h0 = dt.new_zeros((dt.shape[0], dt.shape[2], Bmat.shape[2]))
 
     def step(h, xs):
         dt_t, x_t, b_t, c_t = xs  # (B, di), (B, di), (B, ds), (B, ds)
@@ -78,7 +109,7 @@ def _ssm_scan(
         y = (h @ c_t[..., None])[..., 0]                    # (B, di)
         return h, y
 
-    xs = tuple(time_major(t) for t in (dt, x, Bmat, Cmat))
+    xs = tuple(t.transpose(0, 1) for t in (dt, x, Bmat, Cmat))  # time-major
     h, ys = chunked_scan(step, h0, xs, chunk_size=chunk_size)
     return h, ys.transpose(0, 1)  # (B, S, di)
 
@@ -102,8 +133,7 @@ def mamba_forward(
 ) -> Tuple[torch.Tensor, MambaState]:
     """Full-sequence Mamba block.  Returns (out, final_state)."""
     s = cfg.ssm
-    B, S, _ = x.shape
-    di, ds = s.inner(cfg.d_model), s.d_state
+    S = x.shape[1]
 
     x = constrain(x, ("batch", None, None))  # the sequence gathered
     xz = constrain(x @ p["in_proj"], ("batch", None, "mlp"))
@@ -112,16 +142,16 @@ def mamba_forward(
         conv_in = torch.cat([state["conv"].to(x_in.dtype), x_in], dim=1)
         conv_out = causal_depthwise_conv(conv_in, p["conv_w"], p["conv_b"])
         conv_out = conv_out[:, state["conv"].shape[1]:]
-        h0 = state["ssm"]
+        h0 = state["ssm"].float()
     else:
         conv_out = causal_depthwise_conv(x_in, p["conv_w"], p["conv_b"])
-        h0 = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
+        h0 = None
 
     xc = F.silu(conv_out)
     dt, Bmat, Cmat = _dt_b_c(p, cfg, xc)
     A = -torch.exp(p["A_log"].float())
-    h, y = _ssm_scan(dt.float(), xc.float(), Bmat.float(), Cmat.float(), A,
-                     h0.float(), chunk_size)
+    h, y = _ssm_scan(dt.float(), xc.float(), Bmat.float(), Cmat.float(), A, h0,
+                     chunk_size)
     y = (y + xc.float() * p["D"].float()).to(x.dtype)
     y = y * F.silu(z)
     out = y @ p["out_proj"]

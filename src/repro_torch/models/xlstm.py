@@ -17,15 +17,16 @@ Block structure (xLSTM paper Fig. 9/10, simplified):
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..distributed.context import constrain
+from ..kernels.shard_local import any_dtensor, shard_local
 from .layers import flatten_heads, heads_product, rms_norm
 from .params import Spec
-from .scan_utils import chunked_scan, time_major
+from .scan_utils import chunked_scan
 from .ssm import causal_depthwise_conv
 
 __all__ = [
@@ -77,10 +78,41 @@ def mlstm_specs(cfg: Any) -> Dict[str, Spec]:
     }
 
 
-def _mlstm_scan(q, k, v, ig, fg, state: State,
+def _state_inputs(state: State, names: Tuple[str, ...]) -> List[Tuple[str, Any, str]]:
+    """A carried state's recurrent leaves as ``shard_local`` inputs, laid
+    out as ``cache_shardings`` lays them: batch, then heads."""
+    return [(n, constrain(state[n], ("batch", "heads") + (None,) * (state[n].dim() - 2)),
+             "bh" + "." * (state[n].dim() - 2)) for n in names]
+
+
+def _mlstm_scan(q, k, v, ig, fg, state: Optional[State],
                 chunk_size: int) -> Tuple[torch.Tensor, State]:
-    """q, k, v: (B, S, H, dh); ig, fg: (B, S, H) raw gate logits."""
-    dh = q.shape[-1]
+    """q, k, v: (B, S, H, dh); ig, fg: (B, S, H) raw gate logits; ``state``
+    None starts from the initial state.
+
+    On DTensors it runs on each rank's own rows and heads
+    (``kernels/shard_local.py``): a step is elementwise over the batch and
+    the heads, so each rank's shard is a whole scan of its own, its state
+    made there; the inputs are laid out by batch and heads first (once a
+    layer), where a step would otherwise reduce a partial sum every step."""
+    names = ("C", "n", "m")
+    if any_dtensor(q, k, v, ig, fg):
+        bh = ("batch", None, "heads", None)
+        ins = [(n, constrain(t, bh), "b.h.") for n, t in (("q", q), ("k", k), ("v", v))]
+        ins += [(n, constrain(t, bh[:3]), "b.h") for n, t in (("ig", ig), ("fg", fg))]
+        if state is not None:
+            ins += _state_inputs(state, names)
+
+        def local(q, k, v, ig, fg, *st):
+            h, out = _mlstm_scan(q, k, v, ig, fg, dict(zip(names, st)) if st else None,
+                                 chunk_size)
+            return (h,) + tuple(out[n] for n in names)
+
+        h, *st = shard_local("mlstm scan", local, ins, ("b.h.", "bh..", "bh.", "bh"))
+        return h, dict(zip(names, st))
+    B, _, H, dh = q.shape
+    if state is None:
+        state = _mlstm_fresh(B, H, dh, q.device)
     scale = 1.0 / math.sqrt(dh)
 
     def step(carry, xs):
@@ -97,7 +129,7 @@ def _mlstm_scan(q, k, v, ig, fg, state: State,
         den = torch.maximum((n * q_t).sum(-1).abs(), torch.exp(-m_new))
         return (C, n, m_new), num / den[..., None]
 
-    xs = tuple(time_major(a.float()) for a in (q, k, v, ig, fg))
+    xs = tuple(a.float().transpose(0, 1) for a in (q, k, v, ig, fg))  # time-major
     (C, n, m), hs = chunked_scan(step, (state["C"], state["n"], state["m"]), xs,
                                  chunk_size=chunk_size)
     return hs.transpose(0, 1), {"C": C, "n": n, "m": m}  # (B, S, H, dh)
@@ -111,13 +143,11 @@ def mlstm_forward(
     state: Optional[State] = None,
     chunk_size: int = 128,
 ) -> Tuple[torch.Tensor, State]:
-    B, S, _ = x.shape
-    du, H, dh = _mlstm_dims(cfg)
+    S = x.shape[1]
     x = constrain(x, ("batch", None, None))  # the sequence gathered
     up = constrain(x @ p["up"], ("batch", None, "mlp"))
     xm, z = up.chunk(2, dim=-1)  # (B, S, du)
     if state is None:
-        state = mlstm_init_state(cfg, B, x.device)
         conv_in, trim = xm, 0
     else:
         conv_in = torch.cat([state["conv"].to(xm.dtype), xm], dim=1)
@@ -132,8 +162,12 @@ def mlstm_forward(
     h = flatten_heads(rms_norm(h, p["out_norm"])).to(x.dtype)  # (B, S, du)
     out = (h * F.silu(z)) @ p["down"]
     kk = cfg.xlstm.conv_kernel - 1
-    tail = xm[:, -kk:] if S >= kk else torch.cat(
-        [state["conv"][:, S - kk:].to(xm.dtype), xm], dim=1)
+    if S >= kk:
+        tail = xm[:, -kk:]
+    elif state is None:
+        tail = F.pad(xm, (0, 0, kk - S, 0))
+    else:
+        tail = torch.cat([state["conv"][:, S - kk:].to(xm.dtype), xm], dim=1)
     return out, dict(new_inner, conv=tail.float())
 
 
@@ -142,17 +176,19 @@ def mlstm_decode_step(p: Dict[str, torch.Tensor], cfg: Any, x: torch.Tensor,
     return mlstm_forward(p, cfg, x, state=state, chunk_size=1)
 
 
+def _mlstm_fresh(batch: int, H: int, dh: int, device: Optional[torch.device]) -> State:
+    """The mLSTM's initial recurrent state (C, n, m) in fp32."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"C": torch.zeros((batch, H, dh, dh), **f32), "n": torch.zeros((batch, H, dh), **f32),
+            "m": torch.full((batch, H), -1e30, **f32)}
+
+
 def mlstm_init_state(cfg: Any, batch: int,
                      device: Optional[torch.device] = None) -> State:
     du, H, dh = _mlstm_dims(cfg)
     kk = cfg.xlstm.conv_kernel - 1
-    f32 = dict(dtype=torch.float32, device=device)
-    return {
-        "C": torch.zeros((batch, H, dh, dh), **f32),
-        "n": torch.zeros((batch, H, dh), **f32),
-        "m": torch.full((batch, H), -1e30, **f32),
-        "conv": torch.zeros((batch, kk, du), **f32),
-    }
+    return dict(_mlstm_fresh(batch, H, dh, device),
+                conv=torch.zeros((batch, kk, du), dtype=torch.float32, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -176,10 +212,30 @@ def slstm_specs(cfg: Any) -> Dict[str, Spec]:
     }
 
 
-def _slstm_scan(gx: torch.Tensor, wr: torch.Tensor, b: torch.Tensor, state: State,
-                chunk_size: int) -> Tuple[torch.Tensor, State]:
+def _slstm_scan(gx: torch.Tensor, wr: torch.Tensor, b: torch.Tensor,
+                state: Optional[State], chunk_size: int) -> Tuple[torch.Tensor, State]:
     """gx: (B, S, 4, H, dh) input contributions to i, f, z, o; wr: (4, H,
-    dh, dh) recurrent weights; b: (4, H, dh)."""
+    dh, dh) recurrent weights; b: (4, H, dh); ``state`` None starts from
+    the initial state.  On DTensors it runs on each rank's own rows and
+    heads, as ``_mlstm_scan`` does."""
+    names = ("c", "n", "h", "m")
+    if any_dtensor(gx, wr, b):
+        ins = [("gx", constrain(gx, ("batch", None, None, "heads", None)), "b..h."),
+               ("wr", constrain(wr, (None, "heads", None, None)), ".h.."),
+               ("b", constrain(b, (None, "heads", None)), ".h.")]
+        if state is not None:
+            ins += _state_inputs(state, names)
+
+        def local(gx, wr, b, *st):
+            h, out = _slstm_scan(gx, wr, b, dict(zip(names, st)) if st else None,
+                                 chunk_size)
+            return (h,) + tuple(out[n] for n in names)
+
+        h, *st = shard_local("slstm scan", local, ins, ("b.h.",) + ("bh.",) * 4)
+        return h, dict(zip(names, st))
+    if state is None:
+        B, _, _, H, dh = gx.shape
+        state = _slstm_fresh(B, H, dh, gx.device)
     wr_f, b_f = wr.float(), b.float()
 
     def step(carry, x_t):
@@ -200,7 +256,7 @@ def _slstm_scan(gx: torch.Tensor, wr: torch.Tensor, b: torch.Tensor, state: Stat
 
     (c, n, h, m), hs = chunked_scan(
         step, (state["c"], state["n"], state["h"], state["m"]),
-        time_major(gx.float()), chunk_size=chunk_size)
+        gx.float().transpose(0, 1), chunk_size=chunk_size)
     return hs.transpose(0, 1), {"c": c, "n": n, "h": h, "m": m}
 
 
@@ -212,9 +268,6 @@ def slstm_forward(
     state: Optional[State] = None,
     chunk_size: int = 128,
 ) -> Tuple[torch.Tensor, State]:
-    B, S, d = x.shape
-    if state is None:
-        state = slstm_init_state(cfg, B, x.device)
     x = constrain(x, ("batch", None, None))  # the sequence gathered
     # (B, S, 4, H, dh), the product taken over (d, H, 4, dh): flattening
     # the heads, which a mesh shards, after the gates would lay the
@@ -232,10 +285,13 @@ def slstm_decode_step(p: Dict[str, torch.Tensor], cfg: Any, x: torch.Tensor,
     return slstm_forward(p, cfg, x, state=state, chunk_size=1)
 
 
-def slstm_init_state(cfg: Any, batch: int,
-                     device: Optional[torch.device] = None) -> State:
-    H = cfg.n_heads
-    dh = cfg.d_model // H
+def _slstm_fresh(batch: int, H: int, dh: int, device: Optional[torch.device]) -> State:
+    """The sLSTM's initial state (c, n, h, m) in fp32."""
     f32 = dict(dtype=torch.float32, device=device)
     z = torch.zeros((batch, H, dh), **f32)
     return {"c": z, "n": z, "h": z, "m": torch.full((batch, H, dh), -1e30, **f32)}
+
+
+def slstm_init_state(cfg: Any, batch: int,
+                     device: Optional[torch.device] = None) -> State:
+    return _slstm_fresh(batch, cfg.n_heads, cfg.d_model // cfg.n_heads, device)

@@ -368,3 +368,66 @@ def test_run_local_cuts_the_depth():
         ["--backend", "local", "--smoke", "--device", "cpu", "--arch", "jamba-v0.1-52b",
          "--n-layers", "8", "--requests", "2", "--gen-tokens", "2", "--pages", "8"]))
     assert stats["tokens"].shape == (2, 3) and stats["logits_finite"]
+
+
+# ---------------------------------------------------------------------------
+# three train steps, as each family trains on the card (chip_smoke phase 15)
+# ---------------------------------------------------------------------------
+
+# the losses of three driver steps, as test_torch_training.py holds them
+STEPS_RTOL = 1e-4
+
+
+def _pipeline_batches(vocab, seq_len, batch, n):
+    """The first ``n`` batches ``launch.train.run``'s pipeline packs, as
+    numpy dicts (the port's pipeline: bit for bit the JAX package's)."""
+    from repro_torch.data import StreamingPipeline, synthetic_documents
+
+    pipe = StreamingPipeline(synthetic_documents(vocab, mean_len=seq_len // 3,
+                                                 max_len=4 * seq_len, seed=0),
+                             seq_len=seq_len, batch_size=batch, prefetch=0)
+    out = []
+    for pb in pipe:
+        out.append({k: getattr(pb, k) for k in ("tokens", "labels", "segment_ids",
+                                                "positions")})
+        if len(out) == n:
+            return out
+    raise AssertionError("the stream ended early")
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_launch_train_matches_jax_over_three_steps(arch, built, tmp_path):
+    """``launch.train.run`` (no mesh, f32) from the JAX package's initial
+    weights gives the losses of JAX ``make_train_step`` over the same three
+    packed batches, as the token families train on the card."""
+    from repro_torch.launch import train
+
+    cfg, jm, jp, _, _ = built(arch)
+    stats = train.run(train.parse_args(
+        ["--arch", arch, "--smoke", "--device", "cpu", "--mesh", "none", "--steps", "3",
+         "--seq-len", "64", "--batch-size", "2", "--ckpt-dir", str(tmp_path)]),
+        params=params_from_numpy(to_np(jp)), compute_dtype=torch.float32)
+    jstep = jax.jit(jax_make_train_step(jm, JaxOptimizerConfig(decay_steps=100),
+                                        compute_dtype=jnp.float32))
+    p, o, want = jp, jax_init_opt_state(jp), []
+    for b in _pipeline_batches(cfg.vocab_size, 64, 2, 3):
+        p, o, m = jstep(p, o, to_jax(b))
+        want.append(float(m["loss"]))
+    assert stats["steps"] == 3 and stats["launches_fwd"] == stats["launches_bwd"] == 0
+    for a, b in zip(stats["losses"], want, strict=True):
+        assert rel(a, b) <= STEPS_RTOL
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-1b"])
+def test_three_train_steps_on_make_batch_match_jax(arch, built):
+    """``make_train_step`` (f32) over three ``make_batch`` batches, as the
+    JAX package's tests train the encoder-decoder and the vision model:
+    each step's loss within STEPS_RTOL of JAX's."""
+    cfg, jm, jp, tm, tp = built(arch)
+    jstep = jax.jit(jax_make_train_step(jm, JaxOptimizerConfig(), compute_dtype=jnp.float32))
+    tstep = make_train_step(tm, OptimizerConfig(), compute_dtype=torch.float32)
+    jstate, tstate = (jp, jax_init_opt_state(jp)), (tp, init_opt_state(tp))
+    for seed in range(3):
+        *jstate, jmet = jstep(*jstate, jax_make_batch(jm.cfg, "train", B, S, seed=seed))
+        *tstate, tmet = tstep(*tstate, make_batch(cfg, "train", B, S, seed=seed))
+        assert rel(tmet["loss"], jmet["loss"]) <= STEPS_RTOL, seed

@@ -1035,3 +1035,74 @@ def test_compressor_and_mesh_local_training_at_smoke_width_on_card(tmp_path):
     assert meshed["launches_fwd"] == plain["launches_fwd"] == 2 * 2 * cfg.n_layers
     assert packed.launches_fwd == fwd + 2 * 2 * 2 * cfg.n_layers
     assert abs(meshed["losses"][0] - plain["losses"][0]) <= 1e-6 * abs(plain["losses"][0])
+
+
+# ---------------------------------------------------------------------------
+# one train step of each newer family, trained route against plain route
+# ---------------------------------------------------------------------------
+
+# One train step of each family at smoke size, 2 rows of 256 tokens (two
+# chunks of the scans), each row cut into two documents as phase 15 cuts
+# them, through chip_smoke.py's own harness and limits (``_family_routes``,
+# ``FT_LIMITS``, ``FT_LEAF_LIMITS``, ``FT_LEAVES``): step 1's loss and named
+# gradients, the trained route (the packed kernels; the scans in chunks of
+# 128 under checkpoints) against the plain route (the plain flash path;
+# each scan one chunk), the attention projections tempered (``_tempered``);
+# a planted fault (a segment boundary dropped; the carry reset at the chunk
+# boundary) must read above the limits, and the launches are held.
+FAMILY_ARCHS = ("internvl2-1b", "jamba-v0.1-52b", "seamless-m4t-medium", "xlstm-125m")
+
+
+def _chip_smoke():
+    """chip_smoke.py, at the root of the checkout, as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_train_step_matches_its_plain_route_on_card(arch):
+    _need_card()
+    import contextlib
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model, make_batch
+
+    cs = _chip_smoke()
+    dev = torch.device("cuda")
+    cfg = get_config(arch).smoke()
+    if cfg.moe is not None:  # jamba: its first layer, a Mamba block and a dense MLP
+        cfg = dataclasses.replace(cfg, n_layers=1, layer_pattern=cfg.pattern[:1])
+    model = build_model(cfg)
+    params = train.make_params(model, 0, dev)
+    B, S = 2, 256
+    if cfg.encdec:  # S frames and S tokens
+        batch = cs._two_documents(torch, make_batch(cfg, "train", B, 2 * S, seed=1),
+                                  cs._cuts(S, B), cs._cuts(S, B))
+    else:
+        text = cfg.frontend_tokens if cfg.frontend == "vision" else 0
+        batch = cs._two_documents(torch, make_batch(cfg, "train", B, S, seed=1),
+                                  [text + c for c in cs._cuts(S - text, B)])
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    none = {"gmm": 0, "paged": 0, "packed": 0, "packed_bwd": 0}
+    if arch in ("xlstm-125m", "jamba-v0.1-52b"):
+        routes = ({"scan": cs._one_chunk}, {"scan": cs._carry_reset}, none)
+        tempered = contextlib.nullcontext((params, None))
+    else:
+        n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers if cfg.encdec else cfg.n_layers
+        routes = ({"packed": cs._PlainPacked}, {"packed": cs._MergedSegments},
+                  dict(none, packed=2 * n_attn, packed_bwd=n_attn))
+        tempered = cs._tempered(params, None)
+    dtype = torch.float32 if arch == "xlstm-125m" else torch.bfloat16
+    with tempered as (params, _):
+        readings, checks = cs._family_routes(torch, arch, model, params, batch, dtype,
+                                             cs.FT_LEAVES[arch], *routes)
+    assert all(checks.values()), (checks, readings)

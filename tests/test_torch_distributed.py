@@ -829,3 +829,138 @@ def test_four_gloo_ranks_reproduce_the_single_process_port(tmp_path):
     assert out["moe_drop"] == [0.0, 0.0]
     assert abs(out["moe_z"][0] - out["moe_z"][1]) <= 1e-5 * abs(out["moe_z"][1])
     assert out["moe_grad_finite"]
+
+
+# ---------------------------------------------------------------------------
+# the recurrent scans on four gloo ranks, each on its own rows and channels
+# ---------------------------------------------------------------------------
+
+_RECURRENT_WORKER = textwrap.dedent('''
+    import dataclasses, sys
+    import numpy as np
+    import torch, torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import batch_shardings, cache_shardings, make_rules
+    from repro_torch.distributed import param_shardings
+    from repro_torch.distributed.context import activation_sharding
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving.kv_cache import PagedCacheLayout
+
+    def placed(node, shard):
+        if isinstance(node, dict):
+            return {k: placed(v, shard[k]) for k, v in node.items()}
+        if isinstance(node, list):
+            return [placed(v, s) for v, s in zip(node, shard)]
+        return distribute(node, shard) if isinstance(node, torch.Tensor) else node
+
+    def config(arch):
+        cfg = get_config(arch).smoke()
+        if cfg.moe is not None:  # every bin holds its tokens, with one group or two
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+        return cfg
+
+    def main(rank):
+        dist.init_process_group("gloo", init_method=sys.argv[1], rank=rank, world_size=4)
+        torch.set_num_threads(1)
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        rules = make_rules(mesh)
+        res = {}
+        a = {k: torch.from_numpy(v) for k, v in np.load(sys.argv[2]).items()}
+        for arch in ("jamba-v0.1-52b", "xlstm-125m"):
+            cfg = config(arch)
+            model = build_model(cfg)
+            specs = model.param_specs()
+            params = init_params(specs, torch.Generator().manual_seed(0), torch.float32, "cpu")
+            layout = PagedCacheLayout(num_pages=16, page_size=4, n_kv_heads=cfg.n_kv_heads,
+                                      head_dim=cfg.head_dim_, max_pages_per_seq=4)
+            cache = model.init_paged_cache(layout, torch.float32)
+            cache = placed(cache, cache_shardings(cache, mesh, rules))
+            b_shard = batch_shardings(a, mesh, rules)
+            batch = {k: distribute(v, b_shard[k]) for k, v in a.items()}
+            dparams = tree_map(distribute, params, param_shardings(specs, mesh, rules))
+            with activation_sharding(mesh, rules), implicit_replication():
+                logits, cache = model.prefill(dparams, batch, cache)
+            res[arch + "/logits"] = logits.full_tensor().numpy()
+            for i, state in enumerate(cache["state"]):
+                for k, v in state.items():
+                    res[f"{arch}/state/{i}/{k}"] = v.full_tensor().numpy()
+        if rank == 0:
+            np.savez(sys.argv[3], **res)
+        dist.barrier()
+        dist.destroy_process_group()
+
+    if __name__ == "__main__":
+        import torch.multiprocessing as mp
+        mp.spawn(main, nprocs=4)
+''')
+
+
+RECURRENT_LOGIT_ATOL = {"jamba-v0.1-52b": 4e-4, "xlstm-125m": 6e-5}
+RECURRENT_STATE_REL = 5e-4
+
+
+@pytest.mark.timeout(300)
+def test_recurrent_prefill_on_four_ranks_matches_one_process(tmp_path):
+    """jamba-v0.1-52b and xlstm-125m at smoke size, a prefill of 4 rows of
+    16 tokens on a (2, 2) mesh of four gloo ranks: each scan runs on the
+    rank's own rows and channels (or heads), its state made there.  The
+    gathered logits and every recurrent state equal one process's: fp32,
+    the mesh summing in another order, which these random-weight models
+    amplify with depth as they amplify a rounding of their weights (the
+    noise floor of ``test_torch_archs.py``'s ``FLOOR``).  So the logits are
+    held at FLOOR's logit limits, and each state within
+    ``RECURRENT_STATE_REL`` of its largest magnitude (read: 2.4e-4 at most,
+    on the last sLSTM layer's c; jamba's states 2.5e-5); a layout fault
+    moves them by their own size."""
+    import dataclasses
+    import socket
+
+    from repro_torch.serving.kv_cache import PagedCacheLayout
+
+    B, S = 4, 16
+    rng = np.random.default_rng(6)
+    a = {"tokens": rng.integers(1, 256, size=(B, S)).astype(np.int32),
+         "segment_ids": np.ones((B, S), np.int32),
+         "positions": np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()}
+    inputs = tmp_path / "in.npz"
+    np.savez(inputs, **a)
+    script = tmp_path / "worker.py"
+    script.write_text(_RECURRENT_WORKER)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, str(script), f"tcp://localhost:{port}",
+                          str(inputs), str(tmp_path / "out.npz")],
+                         capture_output=True, text=True, timeout=270, env=env, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    got = np.load(tmp_path / "out.npz")
+    for arch in ("jamba-v0.1-52b", "xlstm-125m"):
+        cfg = get_config(arch).smoke()
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+        model = build_model(cfg)
+        params = init_params(model.param_specs(), torch.Generator().manual_seed(0),
+                             torch.float32, "cpu")
+        layout = PagedCacheLayout(num_pages=16, page_size=4, n_kv_heads=cfg.n_kv_heads,
+                                  head_dim=cfg.head_dim_, max_pages_per_seq=4)
+        logits, cache = model.prefill(params, {k: torch.from_numpy(v) for k, v in a.items()},
+                                      model.init_paged_cache(layout, torch.float32))
+        want = {"logits": logits.numpy()}
+        for i, state in enumerate(cache["state"]):
+            for k, v in state.items():
+                want[f"state/{i}/{k}"] = v.numpy()
+        assert len(want) > 1
+        for key, w in want.items():
+            g = got[f"{arch}/{key}"]
+            assert g.shape == w.shape, key
+            tol = RECURRENT_LOGIT_ATOL[arch] if key == "logits" else (
+                RECURRENT_STATE_REL * np.abs(w).max())
+            assert np.abs(g - w).max() <= tol, (arch, key)

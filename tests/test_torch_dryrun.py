@@ -883,3 +883,125 @@ def test_prefill_on_four_ranks_writes_each_ranks_own_pages(tmp_path):
         for key, want in (("logits", logits), ("k", cache["k"]), ("v", cache["v"])):
             want = want.numpy()
             assert np.abs(got[f"{arch}/{key}"] - want).max() <= 1e-5 * np.abs(want).max()
+
+
+# ---------------------------------------------------------------------------
+# the recurrent train cells counted from one chunk
+# ---------------------------------------------------------------------------
+#
+# Under autograd a scan of stand-ins runs its first chunk between two
+# identities whose backwards bracket the chunk's (trace_analysis._ChunkStart,
+# _ChunkEnd), and counts its forward and its backward (the checkpoint's
+# recompute and the gradients) once for every chunk.  The FLOPs are the
+# full loop's exactly: each chunk runs the same ops on the same shapes.  The
+# peak is modelled (the other chunks' carries and input gradients allocated
+# uncounted), so it is held within TRAIN_PEAK_TOL of the full loop's:
+# measured here within 1.6% (xlstm, 12 layers at 512 tokens, -1.6%; the
+# mixers alone within +0.6%).
+
+TRAIN_PEAK_TOL = 0.03
+TRAIN_CHUNK = 16  # the mixers' scans in chunks of 16: 4 chunks of 64 tokens
+
+
+def _small_chunks(monkeypatch):
+    """The recurrent mixers with their scans in chunks of ``TRAIN_CHUNK``."""
+    import functools
+
+    from repro_torch.models import ssm, transformer, xlstm
+
+    fns = {"M": ssm.mamba_forward, "l": xlstm.mlstm_forward, "s": xlstm.slstm_forward}
+    monkeypatch.setattr(transformer, "_RECURRENT", {
+        c: (functools.partial(fns[c], chunk_size=TRAIN_CHUNK), step)
+        for c, (_, step) in transformer._RECURRENT.items()})
+
+
+def _one_period(arch):
+    import dataclasses
+
+    cfg = get_config(arch).smoke()
+    return dataclasses.replace(cfg, n_layers=len(cfg.pattern))
+
+
+def _configs(monkeypatch, cfg):
+    """``lower_cell`` (and its roofline terms) building ``cfg``."""
+    monkeypatch.setattr(dryrun, "get_config", lambda arch: cfg)
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-125m"])
+def test_train_cell_counted_from_one_chunk_equals_the_full_loop(fake_group, monkeypatch,
+                                                                  arch):
+    """The smoke train_4k cell (one period of the pattern, 2 rows of 64
+    tokens, scans in 4 chunks of 16) on a (2, 1) mesh of a fake group, so
+    that jamba's MoE layers dispatch two groups through the einsum (one
+    group takes the kernel route, which has no backward): counted from one
+    chunk, and with every chunk run (stand-ins taken for real tensors):
+    FLOPs, collectives and their count equal, the peak within
+    TRAIN_PEAK_TOL."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models import scan_utils
+
+    _small_chunks(monkeypatch)
+    _configs(monkeypatch, _one_period(arch))
+    shape = ShapeConfig("train_4k", "train", 64, 2)
+    costs = []
+    for full_loop in (False, True):
+        if full_loop:
+            monkeypatch.setattr(scan_utils, "_is_meta", lambda t: False)
+        fake_group(2)
+        mesh = init_device_mesh("cuda", (2, 1), mesh_dim_names=("data", "model"))
+        costs.append(dryrun.lower_cell(arch, "train_4k", mesh=mesh, shape=shape,
+                                       keep_hlo=True)["_cost"])
+        dist.destroy_process_group()
+    scaled, full = costs
+    assert scaled.flops == full.flops > 0
+    assert scaled.flops_by_op == full.flops_by_op
+    assert scaled.coll_count == full.coll_count and scaled.coll == full.coll
+    assert abs(scaled.peak_bytes - full.peak_bytes) <= TRAIN_PEAK_TOL * full.peak_bytes
+
+
+def test_train_step_counted_from_one_chunk_equals_flop_counter_mode(monkeypatch):
+    """xlstm-125m's smoke train step (one period, 2 x 64 tokens, 4 chunks
+    of 16) on meta stand-ins, its scans counted from one chunk, against
+    ``FlopCounterMode`` over the full loop run on CPU zeros."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import init_params
+    from repro_torch.models.registry import make_batch
+    from repro_torch.training import init_opt_state
+
+    _small_chunks(monkeypatch)
+    cfg = _one_period("xlstm-125m")
+    model = build_model(cfg)
+    specs = model.param_specs()
+    step = make_train_step(model, OptimizerConfig(), remat_policy="nothing")
+    _, scaled = analyze_step(step, abstract_params(specs),
+                             {"m": abstract_params(specs), "v": abstract_params(specs),
+                              "step": meta(dtype=torch.int32)},
+                             input_specs(cfg, ShapeConfig("s", "train", 64, 2)))
+    params = init_params(specs, torch.Generator().manual_seed(0))
+    with FlopCounterMode(display=False) as fc:
+        step(params, init_opt_state(params), make_batch(cfg, "train", 2, 64))
+    assert scaled.flops == fc.get_total_flops() > 0
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-125m"])
+def test_prefill_collectives_do_not_scale_with_the_sequence(fake_group, monkeypatch, arch):
+    """A prefill of the smoke model on a (2, 2) mesh of a fake group, its
+    scans on each rank's own rows and channels: the same collective calls
+    at S and at 2S tokens (a scan step that moved data would add calls
+    with every token)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    _configs(monkeypatch, get_config(arch).smoke())
+    counts = []
+    for S in (16, 32):
+        fake_group(4)
+        mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+        rec = dryrun.lower_cell(arch, "prefill", mesh=mesh,
+                                shape=ShapeConfig("prefill", "prefill", S, 4))
+        dist.destroy_process_group()
+        counts.append(rec["collectives"]["count"])
+    assert counts[0] == counts[1]

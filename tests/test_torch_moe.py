@@ -129,6 +129,28 @@ def test_expert_ffn_swiglu_plain_matches_the_pallas_kernel():
     assert (got[1, 37:] == 0).all() and (got[2] == 0).all()
 
 
+def test_jax_kernel_route_has_no_gradient():
+    """The reference-side behaviour the port keeps: ``jax.grad`` through the
+    JAX package's grouped matmul on its kernel route (``pallas_call``, here
+    in interpret mode) raises ``NotImplementedError``, since ``pallas_call``
+    has no transpose and ``ops.gmm`` no ``custom_vjp``.  So the JAX package
+    trains no MoE layer on one TPU either (``moe.py`` takes the kernel route
+    where G == 1), and the port's kernel route raises under autograd on the
+    card (ROADMAP queue 1 item 12, not ported by design)."""
+    from repro.kernels.grouped_matmul.ops import gmm as jax_gmm
+
+    rng = np.random.default_rng(5)
+    E, C, d, f = 2, 128, 64, 128
+    x = jnp.asarray(rng.normal(size=(E, C, d)).astype(np.float32))
+    w = jnp.asarray(rng.normal(size=(E, d, f)).astype(np.float32))
+    gs = jnp.asarray(np.array([128, 40], np.int32))
+    with pytest.raises(NotImplementedError):
+        jax.grad(lambda w: jax_gmm(x, w, gs, use_kernel=True, interpret=True).sum())(w)
+    # the reference route it trains through instead has one
+    g = jax.grad(lambda w: jax_gmm(x, w, gs, use_kernel=False).sum())(w)
+    assert np.isfinite(np.asarray(g)).all()
+
+
 @pytest.mark.parametrize("factor", [1.25, 0.5], ids=["fits", "overflows"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_moe_layer_matches_jax(arch, factor):

@@ -242,3 +242,114 @@ def test_xlstm_decode_step_matches_jax(kind):
     full, _ = tfwd(tp, cfg, xt)
     np.testing.assert_allclose(got[:, 0].numpy(), full[:, -1].numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the scans' inputs taken apart once: the forward as before, the backward
+# linear in the sequence
+# ---------------------------------------------------------------------------
+
+SCANS = {
+    "mamba": ("jamba-v0.1-52b", jax_ssm.mamba_specs, jax_ssm.mamba_forward,
+              ssm.mamba_forward, ssm),
+    "mlstm": ("xlstm-125m", jax_xlstm.mlstm_specs, jax_xlstm.mlstm_forward,
+              xlstm.mlstm_forward, xlstm),
+    "slstm": ("xlstm-125m", jax_xlstm.slstm_specs, jax_xlstm.slstm_forward,
+              xlstm.slstm_forward, xlstm),
+}
+
+
+def _select_scan(step, init, xs, *, chunk_size):
+    """``chunked_scan`` as it read its inputs before: step t selected
+    ``x[t]`` from the whole padded input, and each chunk's checkpoint took
+    the whole input, so that every select's backward added a zero gradient
+    as large as the input."""
+    import torch.nn.functional as F
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models.scan_utils import _leaves, _map
+
+    L = _leaves(xs)[0].shape[0]
+    c = min(chunk_size, L)
+    pad = (-L) % c
+    if pad:
+        xs = _map(lambda x: F.pad(x, (0, 0) * (x.dim() - 1) + (0, pad)), xs)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in _leaves(init) + _leaves(xs))
+
+    def scan(step, carry, xs, start, n):
+        ys = []
+        for t in range(start, start + n):
+            carry, y = step(carry, _map(lambda x: x[t], xs))
+            ys.append(y)
+        return carry, _map(lambda *a: torch.stack(a), *ys)
+
+    carry, chunks = init, []
+    for start in range(0, L + pad, c):
+        if remat:
+            carry, ys = checkpoint(scan, step, carry, xs, start, c, use_reentrant=False)
+        else:
+            carry, ys = scan(step, carry, xs, start, c)
+        chunks.append(ys)
+    return carry, _map(lambda *a: torch.cat(a)[:L], *chunks)
+
+
+def _mixer_grads(fwd, cfg, tp, xt, w):
+    """(output, gradients of x and every weight) of ``sum(out * w)``."""
+    leaves = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    x = xt.clone().requires_grad_(True)
+    out, _ = fwd(leaves, cfg, x, chunk_size=16)
+    grads = torch.autograd.grad((out * w).sum(), [x] + list(leaves.values()))
+    return out.detach(), dict(zip(["x"] + list(leaves), grads))
+
+
+@pytest.mark.parametrize("kind", sorted(SCANS))
+def test_scan_forward_as_before_and_gradients_match_jax(kind, monkeypatch):
+    """Each mixer over 70 tokens in chunks of 16 (the last padded): the
+    output bitwise the select-a-step loop's, and the gradients of the input
+    and every weight those of ``jax.grad`` of the JAX package's mixer within
+    1e-4 of the largest gradient entry (the 1e-4 of
+    ``test_chunked_scan_matches_jax``, on the scale of the whole gradient:
+    the mLSTM gate biases' gradients cancel to ~1e-6, where the two
+    packages' summation orders part)."""
+    arch, specs, jfwd, tfwd, module = SCANS[kind]
+    jcfg = jax_get_config(arch).smoke()
+    cfg, jp, tp = block(arch, specs)
+    x, xt = inputs(cfg.d_model, n=70)
+    w = np.random.default_rng(9).normal(size=(B, 70, cfg.d_model)).astype(np.float32)
+    out, grads = _mixer_grads(tfwd, cfg, tp, xt, torch.from_numpy(w))
+    monkeypatch.setattr(module, "chunked_scan", _select_scan)
+    before, _ = _mixer_grads(tfwd, cfg, tp, xt, torch.from_numpy(w))
+    assert torch.equal(out, before)
+
+    def jloss(p, x):
+        return (jfwd(p, jcfg, x, chunk_size=16)[0] * w).sum()
+
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x))
+    want = dict(to_np(jgp), x=np.asarray(jgx))
+    assert sorted(grads) == sorted(want)
+    scale = max(np.abs(v).max() for v in want.values())
+    for k, g in grads.items():
+        assert np.abs(g.numpy() - want[k]).max() <= 1e-4 * scale, k
+
+
+def test_scan_backward_traffic_is_linear_in_the_sequence(monkeypatch):
+    """The bytes a Mamba block's forward and backward move (counted op by
+    op, ``launch.trace_analysis``) at 256 tokens are at most 2.1x those at
+    128 (chunks of 16); the select-a-step loop's grew about as the square."""
+    from repro_torch.launch.trace_analysis import analyze_step
+
+    cfg, _, tp = block("jamba-v0.1-52b", jax_ssm.mamba_specs)
+
+    def traffic():
+        out = []
+        for n in (128, 256):
+            xt = torch.zeros(B, n, cfg.d_model)
+            out.append(analyze_step(
+                lambda p, x: _mixer_grads(ssm.mamba_forward, cfg, p, x, 1.0), tp,
+                xt)[1].eager_bytes)
+        return out[1] / out[0]
+
+    assert traffic() <= 2.1
+    monkeypatch.setattr(ssm, "chunked_scan", _select_scan)
+    assert traffic() > 3.0
