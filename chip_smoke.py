@@ -58,12 +58,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    64-row tile of one head, beside the readings of two planted faults (a
    key tile hidden, delta = 0 in dQ) that must exceed the limits; at the
    train shape a second forward and backward must give the same bits; the
+   forward writes its output's residual (the training forward)
+   and must write the same output as without it (the serving forward); the
    tile pairs each kernel skipped, computed masked and computed unmasked,
    counted by the kernels themselves (``kernel.tile_census``), must equal
    ``ref.tile_schedule``'s count (the same rule in PyTorch) times the heads,
    and their shares are printed per shape; the kernels', the plain version's and
    ``scaled_dot_product_attention``'s (causal, forward and backward) times
-   stand beside the bounds, and each shape's record goes into the kernels
+   stand beside the bounds (the forward's with and without the residual),
+   and each shape's record goes into the kernels
    line under ``by_shape``; then the forward alone at ``qwen3-moe-30b-a3b``'s
    prefill shape (8 x 1024, 32 query over 4 KV heads);
 8. the attention block at full width: the first layer's
@@ -198,13 +201,16 @@ Phases, in order; any failure raises and the script exits nonzero:
    xlstm, remat "nothing", AdamW.  For each: step 1's loss and named
    gradients, the trained route (the packed kernels; the scans in chunks
    under checkpoints) against the plain route (the plain flash path; each
-   scan one chunk) within ``FT_LIMITS`` (``FT_LEAF_LIMITS``), beside the
+   scan one chunk) within ``FT_LIMITS``, beside the
    plain route with every weight moved by one ulp and a planted fault (a
    segment boundary dropped; the scan's carry reset at its first chunk
    boundary) that must read above the limit; for the attention families,
    the first layer's attention calls caught on the kernel route and their
-   dQ, dK, dV held to fp64 (``FT_FP64_LIMIT``, ``FT_ROUNDING_SLACK``) beside
-   the plain path's, sdpa's and fp64's with the kernels' roundings; the
+   dQ, dK, dV held to fp64 (``FT_FP64_LIMIT``) beside the plain path's,
+   sdpa's and fp64's with the kernels' roundings, and in a cross attention
+   a planted fault (the forward's residual zeroed: delta from the
+   bf16 output) above that limit; seamless's plain route also runs the 3
+   steps, its losses beside the kernels'; the
    packed launches a step (2 x 36 forward and 36 backward for seamless, 48
    and 24 for internvl2, none for the recurrent two), held on the step and
    on the main path's own run, whose count a step the kernels line
@@ -1037,21 +1043,22 @@ def _visible_pairs(np, seg):
     return pairs
 
 
-def _packed_bound(kind, pairs, B, S, H, KVH, D, dtype, Skv=None):
+def _packed_bound(kind, pairs, B, S, H, KVH, D, dtype, Skv=None, residual=False):
     """(bound ms, what bounds it) for the forward (``fwd``: S = QK^T and
     P.V, 4 D flops per visible pair and head) or the backward (``bwd``: S
     recomputed, dP, dV, dK, dQ, 10 D), each input read once and each output
-    written once."""
+    written once: the forward writes the output's residual too
+    when ``residual`` (a training forward), the backward always reads it."""
     item = 4 if dtype == "float32" else 2
     Skv = S if Skv is None else Skv  # S is the queries' length
     q_el, kv_el = B * S * H * D, B * Skv * KVH * D
     seg_b, lse_b = (B * S + B * Skv) * 4, B * H * S * 4
     if kind == "fwd":
         flops = 4.0 * D * H * pairs
-        nbytes = (2 * q_el + 2 * kv_el) * item + seg_b + lse_b
+        nbytes = ((3 if residual else 2) * q_el + 2 * kv_el) * item + seg_b + lse_b
     else:
         flops = 10.0 * D * H * pairs
-        nbytes = (4 * q_el + 4 * kv_el) * item + seg_b + lse_b
+        nbytes = (5 * q_el + 4 * kv_el) * item + seg_b + lse_b
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -1202,27 +1209,33 @@ def packed_kernel_phase(torch, np):
         del out, grads, ref_out, ref_grads
         torch.cuda.empty_cache()
         # the tiles each kernel classed, counted by the kernels, against the
-        # rule in PyTorch once per head (per KV head in dK/dV)
+        # rule in PyTorch once per head (per KV head in dK/dV), with the
+        # training forward's residual; the serving forward (no residual)
+        # writes the same output
         pk.tile_census(on=True)
-        o, lse = pk.packed_flash_attention(q, k, v, seg, seg)
-        pk.packed_flash_attention_bwd(q, k, v, seg, seg, o, g, lse)
+        o, lse, lo = pk.packed_flash_attention(q, k, v, seg, seg, residual=True)
+        pk.packed_flash_attention_bwd(q, k, v, seg, seg, o, lo, g, lse)
         census = pk.tile_census(on=False)
         rule = census_rule(seg, seg, H, KVH)
         tiles = {kern: tile_shares(census[kern]) for kern in census}
+        same_out = torch.equal(o, pk.packed_flash_attention(q, k, v, seg, seg)[0])
         print(f"[packed] {shape_name}: tile pairs in range skipped/full/masked, counted "
               f"by the kernels (tile census) " + "; ".join(
                   f"{kern} {x['skipped']:.3f}/{x['full']:.3f}/{x['masked']:.3f} of "
                   f"{x['tiles']}" for kern, x in tiles.items())
-              + f"; equal to ref.tile_schedule's x heads: {census == rule}")
-        if census != rule:
+              + f"; equal to ref.tile_schedule's x heads: {census == rule}; the forward "
+              f"without the residual bitwise the same output: {same_out}")
+        if census != rule or not same_out:
             raise AssertionError(f"the kernels' tile census {census} differs from "
-                                 f"ref.tile_schedule's {rule} at the {shape_name} shape")
-        # times, bounds and the library yardstick
+                                 f"ref.tile_schedule's {rule} at the {shape_name} shape, "
+                                 f"or the residual changed the output ({same_out})")
+        # times, bounds and the library yardstick: the training forward
+        # (with the residual), and the serving forward beside it
         reps = 5
-        fwd_ms = _time_ms(torch, lambda: pk.packed_flash_attention(q, k, v, seg, seg),
-                          reps, flush)
+        fwd_ms = _time_ms(torch, lambda: pk.packed_flash_attention(
+            q, k, v, seg, seg, residual=True), reps, flush)
         bwd_ms = _time_ms(torch, lambda: pk.packed_flash_attention_bwd(
-            q, k, v, seg, seg, o, g, lse), reps, flush)
+            q, k, v, seg, seg, o, lo, g, lse), reps, flush)
         ps = [t.clone().requires_grad_(True) for t in (q, k, v)]
         with torch.no_grad():
             plain_fwd_ms = _time_ms(torch, lambda: packed_ops.packed_attention_plain(
@@ -1244,22 +1257,26 @@ def packed_kernel_phase(torch, np):
         sd = sdpa()
         sdpa_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
             sd, hs, gt, retain_graph=True), reps, flush)
-        fwd_again = _time_ms(torch, lambda: pk.packed_flash_attention(q, k, v, seg, seg),
-                             reps, flush)
-        del sd, hs, o, lse
-        fb, fb_by = _packed_bound("fwd", pairs, B, S, H, KVH, D, "bfloat16")
+        fwd_again = _time_ms(torch, lambda: pk.packed_flash_attention(
+            q, k, v, seg, seg, residual=True), reps, flush)
+        serve_ms = _time_ms(torch, lambda: pk.packed_flash_attention(q, k, v, seg, seg),
+                            reps, flush)
+        del sd, hs, o, lse, lo
+        fb, fb_by = _packed_bound("fwd", pairs, B, S, H, KVH, D, "bfloat16", residual=True)
+        sb, sb_by = _packed_bound("fwd", pairs, B, S, H, KVH, D, "bfloat16")
         bb, bb_by = _packed_bound("bwd", pairs, B, S, H, KVH, D, "bfloat16")
         useful = 4.0 * D * H * pairs
-        print(f"[packed] {shape_name} bf16: forward {fwd_ms:.4f} ms (again "
-              f"{fwd_again:.4f}; {useful / fwd_ms / 1e9:.1f} TFLOP/s of visible "
+        print(f"[packed] {shape_name} bf16: forward with the residual {fwd_ms:.4f} ms "
+              f"(again {fwd_again:.4f}; {useful / fwd_ms / 1e9:.1f} TFLOP/s of visible "
               f"work), plain {plain_fwd_ms:.4f} ms, sdpa causal {sdpa_fwd_ms:.4f} ms, "
-              f"bound {fb:.4f} ms ({fb_by}); backward {bwd_ms:.4f} ms "
+              f"bound {fb:.4f} ms ({fb_by}); without the residual {serve_ms:.4f} ms, "
+              f"bound {sb:.4f} ms ({sb_by}); backward {bwd_ms:.4f} ms "
               f"({2.5 * useful / bwd_ms / 1e9:.1f} TFLOP/s), plain {plain_bwd_ms:.4f} ms, "
               f"sdpa causal {sdpa_bwd_ms:.4f} ms, bound {bb:.4f} ms ({bb_by})")
         records[shape_name] = (
             {"max_abs_err": err_out, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
              "bound_ms": fb, "bound_by": fb_by, "library_ms": sdpa_fwd_ms,
-             "tiles": tiles["forward"]},
+             "no_residual_ms": serve_ms, "tiles": tiles["forward"]},
             {"max_abs_err": max(err_g), "ms": bwd_ms, "plain_ms": plain_bwd_ms,
              "bound_ms": bb, "bound_by": bb_by, "library_ms": sdpa_bwd_ms,
              "tiles": tiles["dk/dv"]},
@@ -2505,7 +2522,7 @@ FAMILY_PACKED = (("seamless-m4t-medium encoder", 8, 1024, 1024, 16, 16, 64, Fals
                  ("seamless-m4t-medium decoder self", 4, 512, 512, 16, 16, 64, True,
                   "two documents"),
                  ("seamless-m4t-medium decoder cross", 4, 512, 1024, 16, 16, 64, False,
-                  "two documents"))
+                  "two documents"))  # the last two trained: forward timed with the residual
 # the paged kernel at their decode shapes (phase 6's inputs and limits)
 FAMILY_PAGED = (("seamless-m4t-medium G=1", dict(DECODE, H=16, KVH=16, D=64)),
                 ("internvl2-1b G=7", dict(DECODE, H=14, KVH=2, D=64)))
@@ -2546,12 +2563,14 @@ JAMBA_FIRST_STEP_TOL = 0.1
 
 
 def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, causal,
-                        flush, seg=None, tag="family"):
+                        flush, trained, seg=None, tag="family"):
     """The packed kernels, forward and backward, against the autograd of
     their plain version at one of the new shapes: TOLS and relative l2 as in
     phase 7, a second launch bitwise equal, the tile census equal to
     ``ref.tile_schedule``'s (at D = 64 and 128; the D = 16 and 32 kernels
-    keep none, and must read 0); times beside the bound and sdpa.  ``seg``
+    keep none, and must read 0); times beside the bound and sdpa, the
+    forward's with the residual where the shape is ``trained`` (the
+    training forward), without it where it is served, both printed.  ``seg``
     (B, Sq), when given, is the segment ids of queries and keys alike
     (packed rows), a pair of them those of the queries and of the keys;
     else every row is one segment.  Causal self-attention also gets phase
@@ -2587,8 +2606,9 @@ def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, 
     readings = {n: rel_l2(a, b) for n, a, b in zip(
         ("out", "dq", "dk", "dv"), (out, *grads), (ref_out, *ref_grads))}
     pk.tile_census(on=True)
-    o, lse = pk.packed_flash_attention(q, k, v, seg_q, seg_kv, causal=causal)
-    pk.packed_flash_attention_bwd(q, k, v, seg_q, seg_kv, o, g, lse, causal=causal)
+    o, lse, lo = pk.packed_flash_attention(q, k, v, seg_q, seg_kv, causal=causal,
+                                           residual=True)
+    pk.packed_flash_attention_bwd(q, k, v, seg_q, seg_kv, o, lo, g, lse, causal=causal)
     census = pk.tile_census(on=False)
     rule = (census_rule(seg_q, seg_kv, H, KVH, causal=causal) if D >= 64 else
             {kern: dict.fromkeys(pk.CENSUS_CLASSES, 0) for kern in pk.CENSUS_KERNELS})
@@ -2623,10 +2643,11 @@ def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, 
     del out, grads, ref_out, ref_grads
     torch.cuda.empty_cache()
     reps = 5
-    fwd_ms = _time_ms(torch, lambda: pk.packed_flash_attention(
-        q, k, v, seg_q, seg_kv, causal=causal), reps, flush)
+    fwd_ms = {res: _time_ms(torch, lambda: pk.packed_flash_attention(
+        q, k, v, seg_q, seg_kv, causal=causal, residual=res), reps, flush)
+        for res in (True, False)}
     bwd_ms = _time_ms(torch, lambda: pk.packed_flash_attention_bwd(
-        q, k, v, seg_q, seg_kv, o, g, lse, causal=causal), reps, flush)
+        q, k, v, seg_q, seg_kv, o, lo, g, lse, causal=causal), reps, flush)
     ps = [t.clone().requires_grad_(True) for t in (q, k, v)]
     with torch.no_grad():
         plain_fwd_ms = _time_ms(torch, lambda: packed_ops.packed_attention_plain(
@@ -2649,17 +2670,20 @@ def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, 
     sd = sdpa()
     sdpa_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
         sd, hs, gt, retain_graph=True), reps, flush)
-    del sd, hs, gt, o, lse
-    fb, fb_by = _packed_bound("fwd", pairs, B, Sq, H, KVH, D, "bfloat16", Skv)
+    del sd, hs, gt, o, lse, lo
+    fb, fb_by = _packed_bound("fwd", pairs, B, Sq, H, KVH, D, "bfloat16", Skv, trained)
     bb, bb_by = _packed_bound("bwd", pairs, B, Sq, H, KVH, D, "bfloat16", Skv)
-    print(f"[{tag}] packed {name}: forward {fwd_ms:.4f} ms, plain {plain_fwd_ms:.4f} ms, "
+    other = "without" if trained else "with"
+    print(f"[{tag}] packed {name}: forward {fwd_ms[trained]:.4f} ms ({other} the "
+          f"residual {fwd_ms[not trained]:.4f}), plain {plain_fwd_ms:.4f} ms, "
           f"sdpa {sdpa_fwd_ms:.4f} ms, bound {fb:.4f} ms ({fb_by}); backward "
           f"{bwd_ms:.4f} ms, plain {plain_bwd_ms:.4f} ms, sdpa {sdpa_bwd_ms:.4f} ms, "
           f"bound {bb:.4f} ms ({bb_by})")
     del q, k, v, g
     torch.cuda.empty_cache()
-    return ({"max_abs_err": err_out, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+    return ({"max_abs_err": err_out, "ms": fwd_ms[trained], "plain_ms": plain_fwd_ms,
              "bound_ms": fb, "bound_by": fb_by, "library_ms": sdpa_fwd_ms,
+             "residual": trained, f"{other}_residual_ms": fwd_ms[not trained],
              "rel_l2": readings["out"], "census": census["forward"]},
             {"max_abs_err": max(err_g), "ms": bwd_ms, "plain_ms": plain_bwd_ms,
              "bound_ms": bb, "bound_by": bb_by, "library_ms": sdpa_bwd_ms,
@@ -2696,7 +2720,8 @@ def family_kernels(torch, np):
     for name, B, Sq, Skv, H, KVH, D, causal, layout in FAMILY_PACKED:
         seg = None if layout is None else _two_document_ids(np, B, Sq, Skv)
         fwd[name], bwd[name] = _family_packed_case(
-            torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, causal, flush, seg=seg)
+            torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, causal, flush,
+            trained=layout is not None, seg=seg)
     for key, shape in FAMILY_PAGED:
         paged[key] = _paged_case(torch, np, key, shape, "bfloat16", flush)
     for name, E, C, d, f, tokens in JAMBA_GMM:
@@ -3169,7 +3194,9 @@ def families_phase(torch, np):
 # ---------------------------------------------------------------------------
 
 # The kernels at the examples' shapes, held to their plain versions before
-# the examples run: (name, B, Sq, Skv, H, KVH, D, causal, segments).
+# the examples run: (name, B, Sq, Skv, H, KVH, D, causal, segments); the
+# first two are trained (the forward timed with the residual), the last
+# served.
 # torch_train_stream's lm-100m (4 packed rows of 256 tokens from its own
 # stream, 10 heads of 64: the wgmma route), torch_fault_tolerance's olmo-1b
 # smoke (2 rows of 64, 4 heads of 16: the mma.sync route) and
@@ -3222,7 +3249,7 @@ def example_kernels(torch, np):
         seg = _example_stream_segments(np) if seg == "stream" else None
         fwd[name], bwd[name] = _family_packed_case(
             torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, causal, flush,
-            seg=seg, tag="examples")
+            trained="prefill" not in name, seg=seg, tag="examples")
     for key, shape in EXAMPLE_PAGED:
         paged[key] = _paged_case(torch, np, key, shape, "bfloat16", flush)
     del flush
@@ -3339,34 +3366,33 @@ FT_STEPS = 3
 # weights and batch; a planted fault must read above each limit.  The
 # limits follow what can part the two routes, read on an NVIDIA H100 80GB
 # HBM3 at 700 W before they were set (PERF.md §6).  The attention
-# families' kernels take delta from the bf16 output and round P and dS to
-# bf16 for their products, where the plain path keeps them in fp32 (and
-# rounds dP): 0.8e-2 to 2.6e-2 read, against 3e-2 to 1e-1 for the plain
-# route with every weight moved by one bf16 ulp; limit 5e-2 (but
-# ``FT_LEAF_LIMITS``).  The recurrent routes run the same ops in the same
-# order, bar the sum over chunks of the gradients of weights a step closes
+# families' kernels round P and dS to bf16 for their products, where the
+# plain path keeps dS in fp32 (and rounds dP): 0.8e-2 to 2.6e-2 read,
+# against 3e-2 to 1e-1 for the plain route with every weight moved by one
+# bf16 ulp; limit 5e-2, every leaf.  The recurrent routes run the same ops
+# in the same order, bar the sum over chunks of the gradients of weights a step closes
 # over (fp32): read 0 (bitwise) for both; limit 1e-4, under the carry
 # reset's 1.9e-2 (jamba's state forgets in a few steps) and 0.76 (xlstm).
 FT_LIMITS = {"xlstm-125m": 1e-4, "seamless-m4t-medium": 5e-2, "internvl2-1b": 5e-2,
              "jamba-v0.1-52b": 1e-4}
 # The first layer's attention calls of step 1, the kernels' dQ, dK and dV
 # against fp64 from the same inputs (``_packed_truth``): within phase 7's
-# whole-tensor limit, and so with each segment's keys centred; dQ may also
-# read up to ``FT_ROUNDING_SLACK`` x what fp64 reads with the kernels' two
-# roundings put back (delta = rowsum(dO O) from the bf16 output, dS in
-# bf16), where that is more.  It is more in seamless's cross attention:
-# its keys (the encoder's output) hold most of their energy in their
-# segments' mean, which a row of dS (summing to zero) cancels only with
-# the output's fp32 delta; the plain path's autograd takes delta from its
-# fp32 output.  Read on an H100 80GB HBM3 at 700 W: keys 94% in their
-# mean; the kernels' dQ 0.303 from fp64, sdpa's flash backward 0.303,
-# fp64 with delta from the bf16 output 0.303 (with dS in bf16 alone
-# 3.7e-3), the plain path 6.7e-3, the kernels on centred keys 3.4e-3.  The
-# gradient of the decoder's first cross-attention wq (x^T dQ) reads 0.297
-# against the plain route, a dropped segment boundary 0.85: held at 0.4.
+# whole-tensor limit, and so with each segment's keys centred.  Seamless's
+# cross attention is where delta matters: its keys (the encoder's output)
+# hold most of their energy in their segments' mean, which a row of dS
+# (summing to zero) cancels only with a delta as exact as the output's
+# fp32 one.  With delta from the bf16 output alone (before the forward
+# wrote its residual) it read, on an H100 80GB HBM3 at 700 W:
+# keys 94% in their mean, the kernels' dQ 0.303 from fp64 (fp64 with delta
+# from the bf16 output 0.303, with dS in bf16 alone 3.7e-3, the plain path
+# 6.7e-3), and the gradient of the decoder's first cross-attention wq
+# 0.297 against the plain route.  That arithmetic stays as a planted
+# fault (the residual zeroed), which must read above the limit there.
+# The residual makes out + out_lo the fp32 output with P's rounded weights
+# renormalised to sum to one (``csrc/packed_attention.cu``): the fp32
+# output itself, which rounding P moves by the values' mean times the sum
+# of P's rounding errors, read 1.46e-2 there.
 FT_FP64_LIMIT = PACKED_REL_L2[0]
-FT_ROUNDING_SLACK = 1.1
-FT_LEAF_LIMITS = {"dec_blocks/cross_attn/wq[0]": 0.4}
 # The leaves held (``path[0]``: the first layer of a stacked leaf): the
 # embedding, the first attention's projections (seamless: the encoder's and
 # both of the decoder's queries) or the first mixer's, the last norm.
@@ -3507,12 +3533,11 @@ def _family_routes(torch, tag, model, params, batch, dtype, names, plain, fault,
     r = {"trained_vs_plain": _rel(got, ref), "plain_one_ulp_witness": _rel(witness, ref),
          "planted": _rel(planted, ref), "limit": limit, "launches_step": launches,
          "loss_step1": got["loss"].item()}
-    limits = {k: FT_LEAF_LIMITS.get(k, limit) for k in ["loss"] + list(names)}
     checks = {
-        f"{tag}: trained route within {limit} of the plain route (or FT_LEAF_LIMITS)":
-            all(r["trained_vs_plain"][k] <= v for k, v in limits.items()),
-        f"{tag}: the planted fault reads above the limits":
-            any(r["planted"][k] > v for k, v in limits.items()),
+        f"{tag}: trained route within {limit} of the plain route":
+            max(r["trained_vs_plain"].values()) <= limit,
+        f"{tag}: the planted fault reads above the limit":
+            max(r["planted"].values()) > limit,
         f"{tag}: launches a step {want}": launches == want,
         f"{tag}: loss and gradients finite": all(
             bool(torch.isfinite(t).all()) for t in got.values()),
@@ -3527,12 +3552,15 @@ def _packed_truth(torch, model, params, batch, dtype):
     and of the plain flash path from those inputs, each by relative l2 to
     the same function in fp64; the kernels again with each segment's keys
     centred (their mean subtracted: the same attention, held to its own
-    fp64); ``sdpa`` (the library's flash backward) one document at a time;
-    dQ in fp64 with either of the kernels' roundings put back (delta =
-    rowsum(dO O) from the bf16 output, dS rounded to bf16 before dS K); and
-    the share of the keys' energy in their segments' means."""
+    fp64); the kernels with the forward's residual zeroed (delta
+    from the bf16 output: a planted fault); ``sdpa`` (the library's flash
+    backward) one document at a time; dQ in fp64 with the kernels'
+    roundings put back (delta = rowsum(dO O) from the bf16 output, or from
+    it and its rounding residual; dS rounded to bf16 before dS K); and the
+    share of the keys' energy in their segments' means."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.packed_attention import kernel as pk
     from repro_torch.kernels.packed_attention import ops
     from repro_torch.kernels.packed_attention.ref import visible_mask
     from repro_torch.models.layers import flash_attention
@@ -3602,6 +3630,13 @@ def _packed_truth(torch, model, params, batch, dtype):
         def plain(q, k, v):
             return flash_attention(q, k, v, sq, skv, causal=causal, window=0)
 
+        def bf16_delta():  # the kernels, delta from the bf16 output alone
+            args = [t.contiguous() for t in (q, k, v)] + [
+                t.to(torch.int32).contiguous() for t in (sq, skv)]
+            out, lse, lo = pk.packed_flash_attention(*args, causal=causal, residual=True)
+            return pk.packed_flash_attention_bwd(*args, out, torch.zeros_like(lo),
+                                                 dout.contiguous(), lse, causal=causal)
+
         def library():  # each row's documents, one sdpa call each
             got = [torch.zeros_like(t) for t in (q, k, v)]
             for b in range(q.shape[0]):
@@ -3617,7 +3652,9 @@ def _packed_truth(torch, model, params, batch, dtype):
             return got
 
         def dq64(bf16_out, bf16_ds):
-            """dQ written out in fp64, with either rounding put back."""
+            """dQ written out in fp64, with the roundings put back: the
+            output for delta rounded to bf16 (``bf16_out`` "hi") or to bf16
+            and its rounding residual ("hi+lo"), dS to bf16."""
             G = q.shape[2] // k.shape[2]
             q64, g64 = q.double(), dout.double()
             k64, v64 = (t.double().repeat_interleave(G, 2) for t in (k, v))
@@ -3627,7 +3664,8 @@ def _packed_truth(torch, model, params, batch, dtype):
             p = torch.softmax(sc, -1) * mask
             o = torch.einsum("bhqk,bkhd->bqhd", p, v64)
             if bf16_out:
-                o = o.to(torch.bfloat16).double()
+                hi = o.to(torch.bfloat16).double()
+                o = hi + (o - hi).to(torch.bfloat16).double() if bf16_out == "hi+lo" else hi
             delta = (g64 * o).sum(-1).transpose(1, 2)[..., None]  # (B, H, Sq, 1)
             ds = p * (torch.einsum("bqhd,bkhd->bhqk", g64, v64) - delta)
             if bf16_ds:
@@ -3645,10 +3683,12 @@ def _packed_truth(torch, model, params, batch, dtype):
         truth = grads(exact, q, k, v, dout, torch.float64)
         truth_c = grads(exact, q, kc, v, dout, torch.float64)
         roundings = {name: ((dq64(*flags) - truth[0]).norm() / truth[0].norm()).item()
-                     for name, flags in (("none (dQ written out)", (False, False)),
-                                         ("delta from the bf16 output", (True, False)),
-                                         ("dS in bf16", (False, True)),
-                                         ("both", (True, True)))}
+                     for name, flags in (("none (dQ written out)", (None, False)),
+                                         ("delta from the bf16 output", ("hi", False)),
+                                         ("dS in bf16", (None, True)),
+                                         ("both", ("hi", True)),
+                                         ("delta from the bf16 output and its residual, "
+                                          "dS in bf16", ("hi+lo", True)))}
         readings[kind] = {
             "shape": {"B": q.shape[0], "Sq": q.shape[1], "Skv": k.shape[1], "H": q.shape[2],
                       "KVH": k.shape[2], "D": q.shape[3], "causal": causal,
@@ -3656,6 +3696,7 @@ def _packed_truth(torch, model, params, batch, dtype):
             "kernel_vs_fp64": rel(grads(kernel, q, k, v, dout, dtype), truth),
             "plain_vs_fp64": rel(grads(plain, q, k, v, dout, dtype), truth),
             "kernel_centred_keys_vs_fp64": rel(grads(kernel, q, kc, v, dout, dtype), truth_c),
+            "planted_kernel_delta_from_the_bf16_output_vs_fp64": rel(bf16_delta(), truth),
             "sdpa_by_document_vs_fp64": rel(library(), truth),
             "fp64_dq_with_the_kernels_rounding_vs_fp64": roundings,
             "key_mean_energy_share": share}
@@ -3771,12 +3812,14 @@ def _finite(values) -> bool:
     return all(math.isfinite(v) for v in values)
 
 
-def _train_batches_of(torch, tag, model, batches, names, n_attn, none, kinds):
+def _train_batches_of(torch, tag, model, batches, names, n_attn, none, kinds,
+                      plain_curve=False):
     """An attention family through ``make_train_step`` on ``batches`` (on
     the card), the attention projections tempered (``_tempered``): step 1's
     routes on the first batch, its first layer's attention calls (``kinds``)
     against fp64, ``FT_STEPS`` steps with their launches, and one more step
-    profiled."""
+    profiled; with ``plain_curve``, the same steps from the same weights on
+    the plain route too (its losses beside the kernels')."""
     from repro_torch.launch import train
     from repro_torch.training import OptimizerConfig, init_opt_state, make_train_step
 
@@ -3799,21 +3842,34 @@ def _train_batches_of(torch, tag, model, batches, names, n_attn, none, kinds):
         peak = torch.cuda.max_memory_allocated() / 2**30
         p50 = sorted(ms)[len(ms) // 2]
         prof = _family_profile(torch, lambda: step_fn(p, o, batches[0]), p50, False)
-        del p, o, opt_state, step_fn
+        del p, o
+        plain_losses = None
+        if plain_curve:
+            with _routed(packed=_PlainPacked):
+                plain_losses, _, p, o = _timed_steps(torch, step_fn, params,
+                                                     init_opt_state(params),
+                                                     batches[:FT_STEPS])
+            del p, o
+            print(f"[family-train] {tag}: losses over {FT_STEPS} steps, kernels {losses}, "
+                  f"plain route {plain_losses}")
+        del opt_state, step_fn
     tokens = batches[0]["tokens"].numel()
-    out = {"routes": routes, "packed_vs_fp64": truth, "losses": losses, "step_ms": ms,
+    out = {"routes": routes, "packed_vs_fp64": truth, "losses": losses,
+           "losses_plain_route": plain_losses, "step_ms": ms,
            "step_ms_p50": p50,
            "tokens_per_s_p50_step": tokens / (p50 / 1e3), "peak_device_mem_gib": peak,
            "launches_run": got, "profile": prof}
     checks[f"{tag}: the first layer's {kinds} attention caught"] = set(truth) == set(kinds)
     for kind, r in truth.items():
-        rounded = FT_ROUNDING_SLACK * r["fp64_dq_with_the_kernels_rounding_vs_fp64"]["both"]
         for n, err in r["kernel_vs_fp64"].items():
-            lim = max(FT_FP64_LIMIT, rounded) if n == "dq" else FT_FP64_LIMIT
-            checks[f"{tag}: {kind} attention {n}, kernels within {lim:.3g} of fp64"] = (
-                err <= lim)
+            checks[f"{tag}: {kind} attention {n}, kernels within {FT_FP64_LIMIT} of "
+                   "fp64"] = err <= FT_FP64_LIMIT
         checks[f"{tag}: {kind} attention, kernels on centred keys within {FT_FP64_LIMIT} "
                "of fp64"] = max(r["kernel_centred_keys_vs_fp64"].values()) <= FT_FP64_LIMIT
+        if kind == "cross":
+            checks[f"{tag}: cross attention dq with delta from the bf16 output (planted) "
+                   f"above {FT_FP64_LIMIT} of fp64"] = (
+                r["planted_kernel_delta_from_the_bf16_output_vs_fp64"]["dq"] > FT_FP64_LIMIT)
     checks.update({
         f"{tag}: losses finite": _finite(losses),
         f"{tag}: launches over {FT_STEPS} steps {FT_STEPS} x {per_step}": got == {
@@ -3873,7 +3929,7 @@ def family_train_phase(torch, np, smi):
         batches.append({k: v.to(dev) for k, v in b.items()})
     done(arch, t0, _train_batches_of(
         torch, arch, build_model(cfg), batches, FT_LEAVES[arch],
-        cfg.n_encoder_layers + 2 * cfg.n_layers, none, ("self", "cross")))
+        cfg.n_encoder_layers + 2 * cfg.n_layers, none, ("self", "cross"), plain_curve=True))
     del batches
 
     # internvl2-1b: 24 layers, 14 query over 2 KV heads of 64

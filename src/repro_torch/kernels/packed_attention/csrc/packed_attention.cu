@@ -22,6 +22,18 @@
 //     scores are -0.7 x FLT_MAX, as in the Pallas kernel;
 //   - ragged lengths need no padding: rows past Sq or Skv read as zeros of
 //     segment 0 and are never written;
+//   - the output is rounded once to bf16; when a backward will follow, the
+//     forward also writes out_lo = bf16(o' - float(out)), o' = (sum_j
+//     bf16(p_j) v_j) / (sum_j bf16(p_j)), and the backward takes delta =
+//     rowsum(dO * (out + out_lo)).  A row of dS sums to (exact delta -
+//     delta used), which dQ carries times the keys' mean: where keys share
+//     most of their energy, delta from the bf16 output alone parts dQ far
+//     from the exact gradient (jax.grad takes delta from its fp32 output).
+//     o' is that fp32 output but with the weights P.V used (P rounded)
+//     summing to one: rounding P moves the fp32 output by (the values'
+//     mean) x (the sum of P's rounding errors), and o' moves by the values'
+//     spread about their mean only.  Where P is not rounded (the plain
+//     twin, ref.packed_attention_bwd_ref, in fp32) o' is the fp32 output;
 //   - the backward is deterministic: no atomics in any sum, a fixed order
 //     of sums (the tile census below counts tiles apart from them).
 //
@@ -66,7 +78,8 @@
 //     Blocks take the query tiles last to first, so the longest causal
 //     rows start first.
 //   - Backward (FlashAttention-2's recomputation): a small kernel takes
-//     delta = rowsum(dO * O) in fp32; one block per (128 keys, KV head, row)
+//     delta = rowsum(dO * (O + O_lo)) in fp32; one block per (128 keys, KV
+//     head, row)
 //     keeps K and V in shared memory, streams Q and dO tiles of 64 queries
 //     for every kept query tile and each of the G heads, and accumulates dV
 //     += P^T dO and dK += dS^T Q in registers (S^T = K Q^T and dP^T = V dO^T
@@ -190,6 +203,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The output's epilogue: (a, b) rounded to a bf16 pair at out[at], and,
+// where out_lo is not null, (a2, b2) less that pair (in bf16) at
+// out_lo[at]: a2, b2 are the entries of o' (the header's semantics).
+__device__ __forceinline__ void store_out(__nv_bfloat16* out, __nv_bfloat16* out_lo, long at,
+                                          float a, float b, float a2, float b2) {
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
+    *reinterpret_cast<__nv_bfloat162*>(out + at) = hi;
+    if (out_lo != nullptr) {
+        const float2 back = __bfloat1622float2(hi);
+        *reinterpret_cast<uint32_t*>(out_lo + at) = pack_bf16(a2 - back.x, b2 - back.y);
+    }
+}
+
+// A float rounded to bf16, back in a float.
+__device__ __forceinline__ float round_bf16(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // The A fragment (rows r0 .. r0 + 15, columns c0 .. c0 + 15) of a row-major
 // (rows, LD) bf16 tile.
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* T, int LD,
@@ -274,7 +305,8 @@ packed_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
                            const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
-                           __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                           __nv_bfloat16* __restrict__ out,
+                           __nv_bfloat16* __restrict__ out_lo, float* __restrict__ lse,
                            int Sq, int Skv, int H, int KVH, int causal, int window,
                            float scale) {
     constexpr int LD = D + 8, NT = D / 8;
@@ -302,7 +334,8 @@ packed_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int segrow[2] = {segq_s[r0 + g], segq_s[r0 + g + 8]};
     const int qi[2] = {q0 + r0 + g, q0 + r0 + g + 8};
 
-    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    // l: the row sums of p; lt: of p as P.V takes it, rounded to bf16
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, lt[2] = {0.f, 0.f};
     float acc[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
@@ -340,7 +373,7 @@ packed_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                 s[j][e] = ok ? s[j][e] * scale : NEG_INF;
                 mx[hr] = fmaxf(mx[hr], s[j][e]);
             }
-        float alpha[2], sum[2] = {0.f, 0.f}, m_new[2];
+        float alpha[2], sum[2] = {0.f, 0.f}, sum_r[2] = {0.f, 0.f}, m_new[2];
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
             float x = mx[hr];
@@ -355,15 +388,19 @@ packed_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                 const int hr = e >> 1;
                 const float p = (okbits >> (4 * j + e)) & 1u ? expf(s[j][e] - m_new[hr]) : 0.f;
                 sum[hr] += p;
-                s[j][e] = p;
+                s[j][e] = round_bf16(p);  // as mix_mma takes it
+                sum_r[hr] += s[j][e];
             }
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
-            float x = sum[hr];
+            float x = sum[hr], xr = sum_r[hr];
             x += __shfl_xor_sync(0xffffffffu, x, 1);
             x += __shfl_xor_sync(0xffffffffu, x, 2);
+            xr += __shfl_xor_sync(0xffffffffu, xr, 1);
+            xr += __shfl_xor_sync(0xffffffffu, xr, 2);
             alpha[hr] = expf(m[hr] - m_new[hr]);
             l[hr] = alpha[hr] * l[hr] + x;
+            lt[hr] = alpha[hr] * lt[hr] + xr;
             m[hr] = m_new[hr];
         }
 #pragma unroll
@@ -376,16 +413,17 @@ packed_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         mix_mma<D>(acc, s, Vs);
     }
 
-    __nv_bfloat16* ob = out + (long)b * Sq * q_rs + (long)h * D;
+    const long o0 = (long)b * Sq * q_rs + (long)h * D;
+    __nv_bfloat16* ob = out + o0;
+    __nv_bfloat16* ob_lo = out_lo == nullptr ? nullptr : out_lo + o0;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
         if (qi[hr] >= Sq) continue;
-        const float lm = fmaxf(l[hr], 1e-30f);
+        const float lm = fmaxf(l[hr], 1e-30f), ltm = fmaxf(lt[hr], 1e-30f);
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-            *reinterpret_cast<uint32_t*>(ob + (long)qi[hr] * q_rs + 8 * n + 2 * t) =
-                pack_bf16(acc[n][2 * hr] / lm, acc[n][2 * hr + 1] / lm);
-        }
+        for (int n = 0; n < NT; ++n)
+            store_out(ob, ob_lo, (long)qi[hr] * q_rs + 8 * n + 2 * t, acc[n][2 * hr] / lm,
+                      acc[n][2 * hr + 1] / lm, acc[n][2 * hr] / ltm, acc[n][2 * hr + 1] / ltm);
         if (t == 0)
             lse[((long)b * H + h) * Sq + qi[hr]] = l[hr] > 0.f ? m[hr] + logf(l[hr]) : INFINITY;
     }
@@ -393,19 +431,23 @@ packed_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 // Backward: delta for every head dim; dK/dV and dQ for head dims 16 and 32
 
-// delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d] in fp32; a warp per row.
+// delta[b, h, i] = sum_d dO[b, i, h, d] * (O + O_lo)[b, i, h, d] in fp32, O_lo
+// the forward's out_lo; a warp per row.
 __global__ void __launch_bounds__(DELTA_THREADS)
 packed_attn_delta_kernel(const __nv_bfloat16* __restrict__ o,
+                         const __nv_bfloat16* __restrict__ o_lo,
                          const __nv_bfloat16* __restrict__ dout,
                          float* __restrict__ delta, int B, int Sq, int H, int D) {
     const long row = (long)blockIdx.x * (DELTA_THREADS / 32) + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (row >= (long)B * Sq * H) return;
     const __nv_bfloat16* ob = o + row * D;
+    const __nv_bfloat16* lb = o_lo + row * D;
     const __nv_bfloat16* gb = dout + row * D;
     float s = 0.f;
     for (int d = lane; d < D; d += 32)
-        s = fmaf(__bfloat162float(gb[d]), __bfloat162float(ob[d]), s);
+        s = fmaf(__bfloat162float(gb[d]), __bfloat162float(ob[d]) + __bfloat162float(lb[d]),
+                 s);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
     if (lane == 0) {
@@ -886,6 +928,17 @@ __device__ __forceinline__ void to_frags(uint32_t (&a)[N / 16][4], const float (
     }
 }
 
+// The sums over a thread's columns of each of its two rows (hr) of the bf16
+// values to_frags packed: a[kk][e] holds row e & 1.
+template <int N>
+__device__ __forceinline__ void frag_row_sums(const uint32_t (&a)[N / 16][4], float (&rs)[2]) {
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            rs[e & 1] += __uint_as_float(a[kk][e] << 16) + __uint_as_float(a[kk][e] & 0xffff0000u);
+}
+
 // ---------------------------------------------------------------------------
 // The tile schedule
 // ---------------------------------------------------------------------------
@@ -1105,14 +1158,16 @@ struct FwdLayout {
 
 // One block per (128 queries, head, row).  K and V tiles have barriers of
 // their own: K_i is released once S_i = Q K_i^T is in, V_i once P_i V_i is,
-// so that K_{i+1} streams in while P_{i-1} V_{i-1} still holds its V.
-template <int D>
+// so that K_{i+1} streams in while P_{i-1} V_{i-1} still holds its V.  RES:
+// out_lo is written (its row sums of the rounded P kept only then).
+template <int D, bool RES>
 __global__ void __launch_bounds__(HOP_THREADS, 1)
 packed_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
-                             __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Sq,
+                             __nv_bfloat16* __restrict__ out,
+                             __nv_bfloat16* __restrict__ out_lo, float* __restrict__ lse, int Sq,
                              int Skv, int H, int KVH, int causal, int window, float scale) {
     using L = FwdLayout<D>;
     constexpr int BQ_ = L::BQ, BK_ = L::BK, ST = L::STAGES;
@@ -1204,7 +1259,8 @@ packed_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             sq[hr] = qi[hr] < Sq ? __ldg(sq_row + qi[hr]) : 0;
         }
         const float scale2 = scale * LOG2E;
-        float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+        // l: the row sums of p; lt: of p as P.V takes it, rounded (RES)
+        float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, lt[2] = {0.f, 0.f};
         float o[D / 2];
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
@@ -1235,6 +1291,12 @@ packed_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             if ((tid & 31) == 0) mbar_arrive(&k_empty[r.stage]);  // K_i and its ids are read
             uint32_t pf[BK_ / 16][4];  // P_{i-1}, bf16
             to_frags<BK_>(pf, s);
+            if constexpr (RES) {
+                float rs[2] = {0.f, 0.f};
+                frag_row_sums<BK_>(pf, rs);
+                lt[0] = alpha[0] * lt[0] + rs[0];
+                lt[1] = alpha[1] * lt[1] + rs[1];
+            }
             int prev = r.stage;  // the stage of V_{i-1}
             uint32_t prev_phase = r.phase;
             r.next<ST>();
@@ -1263,6 +1325,12 @@ packed_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
                 for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
                 to_frags<BK_>(pf, s);  // p rounded to bf16 for P.V
+                if constexpr (RES) {
+                    float rs[2] = {0.f, 0.f};
+                    frag_row_sums<BK_>(pf, rs);
+                    lt[0] = alpha[0] * lt[0] + rs[0];
+                    lt[1] = alpha[1] * lt[1] + rs[1];
+                }
                 prev = r.stage;
                 prev_phase = r.phase;
                 r.next<ST>();
@@ -1280,19 +1348,25 @@ packed_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         }
         turns_end(c);
 
-        const long q_rs = (long)H * D;
-        __nv_bfloat16* ob = out + (long)b * Sq * q_rs + (long)h * D;
+        const long q_rs = (long)H * D, o0 = (long)b * Sq * q_rs + (long)h * D;
+        __nv_bfloat16* ob = out + o0;
+        __nv_bfloat16* ob_lo = out_lo == nullptr ? nullptr : out_lo + o0;
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
-            float x = l[hr];
+            float x = l[hr], xt = lt[hr];
             x += __shfl_xor_sync(0xffffffffu, x, 1);
             x += __shfl_xor_sync(0xffffffffu, x, 2);
+            if constexpr (RES) {
+                xt += __shfl_xor_sync(0xffffffffu, xt, 1);
+                xt += __shfl_xor_sync(0xffffffffu, xt, 2);
+            }
             if (qi[hr] >= Sq) continue;
-            const float lm = fmaxf(x, 1e-30f);
+            const float lm = fmaxf(x, 1e-30f), ltm = fmaxf(xt, 1e-30f);
 #pragma unroll
             for (int j = 0; j < D / 8; ++j)
-                *reinterpret_cast<uint32_t*>(ob + (long)qi[hr] * q_rs + 8 * j + 2 * t) =
-                    pack_bf16(o[4 * j + 2 * hr] / lm, o[4 * j + 2 * hr + 1] / lm);
+                store_out(ob, RES ? ob_lo : nullptr, (long)qi[hr] * q_rs + 8 * j + 2 * t,
+                          o[4 * j + 2 * hr] / lm, o[4 * j + 2 * hr + 1] / lm,
+                          o[4 * j + 2 * hr] / ltm, o[4 * j + 2 * hr + 1] / ltm);
             if (t == 0)
                 lse[((long)b * H + h) * Sq + qi[hr]] =
                     x > 0.f ? (m[hr] + log2f(x)) / LOG2E : INFINITY;
@@ -1709,8 +1783,9 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 // Head dims 16 and 32: the mma.sync kernels.
 template <int D>
 int launch_fwd_mma(const void* q, const void* k, const void* v, const void* seg_q,
-                   const void* seg_kv, void* out, void* lse, int B, int Sq, int Skv, int H,
-                   int KVH, int causal, int window, float scale, cudaStream_t st) {
+                   const void* seg_kv, void* out, void* out_lo, void* lse, int B, int Sq,
+                   int Skv, int H, int KVH, int causal, int window, float scale,
+                   cudaStream_t st) {
     const dim3 grid((Sq + BQ - 1) / BQ, H, B);
     auto kernel = packed_attn_fwd_mma_kernel<D>;
     cudaError_t err = allow_smem(kernel, fwd_mma_smem<D>());
@@ -1718,7 +1793,7 @@ int launch_fwd_mma(const void* q, const void* k, const void* v, const void* seg_
     kernel<<<grid, MMA_THREADS, fwd_mma_smem<D>(), st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const int*>(seg_q),
-        static_cast<const int*>(seg_kv), static_cast<bf16*>(out),
+        static_cast<const int*>(seg_kv), static_cast<bf16*>(out), static_cast<bf16*>(out_lo),
         static_cast<float*>(lse), Sq, Skv, H, KVH, causal, window, scale);
     return static_cast<int>(cudaGetLastError());
 }
@@ -1813,8 +1888,9 @@ size_t schedule_smem(int tiles) {
 
 template <int D>
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, const void* seg_q,
-                     const void* seg_kv, void* out, void* lse, int B, int Sq, int Skv, int H,
-                     int KVH, int causal, int window, float scale, cudaStream_t st) {
+                     const void* seg_kv, void* out, void* out_lo, void* lse, int B, int Sq,
+                     int Skv, int H, int KVH, int causal, int window, float scale,
+                     cudaStream_t st) {
     using L = FwdLayout<D>;
     const size_t smem = schedule_smem<L>((Skv + L::BK - 1) / L::BK);
     if (smem == 0) return ERR_TOO_LONG;
@@ -1823,14 +1899,15 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, const void* se
         !make_kv_map(&tk, k, q, B, Sq, Skv, H, KVH, D, L::BK) ||
         !make_kv_map(&tv, v, q, B, Sq, Skv, H, KVH, D, L::BK))
         return ERR_TENSOR_MAP;
-    auto kernel = packed_attn_fwd_wgmma_kernel<D>;
+    auto kernel = out_lo != nullptr ? packed_attn_fwd_wgmma_kernel<D, true>
+                                    : packed_attn_fwd_wgmma_kernel<D, false>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((Sq + L::BQ - 1) / L::BQ, H, B);
     kernel<<<grid, HOP_THREADS, smem, st>>>(
         tq, tk, tv, static_cast<const int*>(seg_q), static_cast<const int*>(seg_kv),
-        static_cast<bf16*>(out), static_cast<float*>(lse), Sq, Skv, H, KVH, causal, window,
-        scale);
+        static_cast<bf16*>(out), static_cast<bf16*>(out_lo), static_cast<float*>(lse), Sq, Skv,
+        H, KVH, causal, window, scale);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -1872,13 +1949,13 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* se
     return static_cast<int>(cudaGetLastError());
 }
 
-int launch_delta(const void* out, const void* dout, void* delta, int B, int Sq, int H, int D,
-                 cudaStream_t st) {
+int launch_delta(const void* out, const void* out_lo, const void* dout, void* delta, int B,
+                 int Sq, int H, int D, cudaStream_t st) {
     const long rows = (long)B * Sq * H;
     const int warps = DELTA_THREADS / 32;
     packed_attn_delta_kernel<<<(unsigned)((rows + warps - 1) / warps), DELTA_THREADS, 0, st>>>(
-        static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
-        static_cast<float*>(delta), B, Sq, H, D);
+        static_cast<const bf16*>(out), static_cast<const bf16*>(out_lo),
+        static_cast<const bf16*>(dout), static_cast<float*>(delta), B, Sq, H, D);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -1887,28 +1964,34 @@ int launch_delta(const void* out, const void* dout, void* delta, int B, int Sq, 
 // Plain C entry points (bound with ctypes), bf16 tensors.  Each launches on
 // `stream`, does not synchronise, and returns cudaGetLastError() after its
 // launches, or a negative code of its own (packed_attn_error_string).
+// packed_attn_fwd writes out_lo (the header's semantics) when `residual` is
+// set (out_lo is then a tensor of out's shape), and nothing more when it is
+// not; packed_attn_bwd takes delta from out + out_lo.
 extern "C" int packed_attn_fwd(const void* q, const void* k, const void* v,
                                const void* seg_q, const void* seg_kv, void* out,
-                               void* lse, int B, int Sq, int Skv, int H, int KVH, int D,
-                               int causal, int window, float scale, void* stream) {
+                               void* out_lo, void* lse, int B, int Sq, int Skv, int H,
+                               int KVH, int D, int causal, int window, int residual,
+                               float scale, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (!residual) out_lo = nullptr;
     switch (D) {
-        case 16: return launch_fwd_mma<16>(q, k, v, seg_q, seg_kv, out, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
-        case 32: return launch_fwd_mma<32>(q, k, v, seg_q, seg_kv, out, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
-        case 64: return launch_fwd_wgmma<64>(q, k, v, seg_q, seg_kv, out, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
-        case 128: return launch_fwd_wgmma<128>(q, k, v, seg_q, seg_kv, out, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        case 16: return launch_fwd_mma<16>(q, k, v, seg_q, seg_kv, out, out_lo, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        case 32: return launch_fwd_mma<32>(q, k, v, seg_q, seg_kv, out, out_lo, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        case 64: return launch_fwd_wgmma<64>(q, k, v, seg_q, seg_kv, out, out_lo, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        case 128: return launch_fwd_wgmma<128>(q, k, v, seg_q, seg_kv, out, out_lo, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
         default: return ERR_UNSUPPORTED;
     }
 }
 
 extern "C" int packed_attn_bwd(const void* q, const void* k, const void* v,
                                const void* seg_q, const void* seg_kv, const void* out,
-                               const void* dout, const void* lse, void* delta, void* dq,
+                               const void* out_lo, const void* dout, const void* lse,
+                               void* delta, void* dq,
                                void* dk, void* dv, int B, int Sq, int Skv, int H, int KVH,
                                int D, int causal, int window, float scale, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (D != 16 && D != 32 && D != 64 && D != 128) return ERR_UNSUPPORTED;
-    const int err = launch_delta(out, dout, delta, B, Sq, H, D, st);
+    const int err = launch_delta(out, out_lo, dout, delta, B, Sq, H, D, st);
     if (err != 0) return err;
     switch (D) {
         case 16: return launch_bwd_mma<16>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KVH, causal, window, scale, st);

@@ -1,6 +1,13 @@
 """Build and bind the Hopper packed-flash-attention kernels
 (``csrc/packed_attention.cu``): the forward, and the backward that computes
-dQ, dK and dV from the forward's output and row logsumexps.  They take
+dQ, dK and dV from the forward's output, its residual and row
+logsumexps.  The forward writes that residual (``out_lo``, in bf16) only
+when asked (``residual``: a backward will follow), and the backward
+takes its delta = rowsum(dO * O) from ``out + out_lo``, which holds the
+fp32 output to about 2^-16 of it, as the JAX package's gradient takes
+delta from its fp32 output.  (The fp32 output there is the one whose
+weights, P rounded to bf16 for P.V, are renormalised to sum to one:
+``csrc/packed_attention.cu``'s header says why.)  They take
 bf16 tensors (the training and serving dtype), with the softmax and every
 sum in fp32; any other dtype raises.  At head dims 64 and 128 they are
 warp-specialised: a producer warpgroup streams tiles by TMA into a ring of
@@ -62,9 +69,9 @@ def _library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.packed_attn_fwd.argtypes = [ptr] * 7 + [i32] * 8 + [ctypes.c_float, ptr]
+            lib.packed_attn_fwd.argtypes = [ptr] * 8 + [i32] * 9 + [ctypes.c_float, ptr]
             lib.packed_attn_fwd.restype = i32
-            lib.packed_attn_bwd.argtypes = [ptr] * 12 + [i32] * 8 + [ctypes.c_float, ptr]
+            lib.packed_attn_bwd.argtypes = [ptr] * 13 + [i32] * 8 + [ctypes.c_float, ptr]
             lib.packed_attn_bwd.restype = i32
             lib.packed_attn_tile_census.argtypes = [i32, ptr]
             lib.packed_attn_tile_census.restype = i32
@@ -145,28 +152,33 @@ def packed_flash_attention(
     *,
     causal: bool = True,
     window: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    residual: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """Launch the forward on the current stream.
 
     Returns ``out`` (B, Sq, H, D) in q's dtype and ``lse`` (B, H, Sq) fp32,
     each row's logsumexp of its scaled visible scores (+inf for a row that
-    sees no key).  Raises on any input it does not take and on a launch the
-    driver refuses; it never falls back to the plain version.
+    sees no key); with ``residual``, also ``out_lo`` (B, Sq, H, D) in q's
+    dtype, the fp32 output less ``out`` (rounded), which the backward
+    takes.  Without it the launch writes nothing more.
+    Raises on any input it does not take and on a launch CUDA refuses;
+    it never falls back to the plain version.
     """
     B, Sq, Skv, H, KVH, D = _check(q, k, v, segment_ids_q, segment_ids_kv)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return out, lse
-    lib = _library()
-    with torch.cuda.device(q.device):
-        code = lib.packed_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            segment_ids_q.data_ptr(), segment_ids_kv.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, Sq, Skv, H, KVH, D, int(causal), int(window),
-            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
-    _raise_on(code, "forward")
-    return out, lse
+    out_lo = torch.empty_like(q) if residual else None
+    if out.numel():
+        lib = _library()
+        with torch.cuda.device(q.device):
+            code = lib.packed_attn_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                segment_ids_q.data_ptr(), segment_ids_kv.data_ptr(), out.data_ptr(),
+                out_lo.data_ptr() if residual else None, lse.data_ptr(), B, Sq, Skv, H,
+                KVH, D, int(causal), int(window), int(residual), 1.0 / math.sqrt(D),
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(code, "forward")
+    return (out, lse, out_lo) if residual else (out, lse)
 
 
 def packed_flash_attention_bwd(
@@ -176,6 +188,7 @@ def packed_flash_attention_bwd(
     segment_ids_q: torch.Tensor,
     segment_ids_kv: torch.Tensor,
     out: torch.Tensor,             # the forward's output
+    out_lo: torch.Tensor,          # its residual (``residual=True``)
     dout: torch.Tensor,            # the gradient of the loss by out
     lse: torch.Tensor,             # the forward's (B, H, Sq) logsumexps
     *,
@@ -183,13 +196,16 @@ def packed_flash_attention_bwd(
     window: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward on the current stream: (dq, dk, dv) in the
-    inputs' dtype and layouts.  Three kernels run: delta = rowsum(dO * O),
-    then dK/dV and dQ."""
+    inputs' dtype and layouts.  Three kernels run: delta = rowsum(dO *
+    (out + out_lo)) in fp32, then dK/dV and dQ.  (An ``out_lo`` of zeros
+    takes delta from the bf16 output alone.)"""
     B, Sq, Skv, H, KVH, D = _check(q, k, v, segment_ids_q, segment_ids_kv,
-                                   out=out, dout=dout, lse=lse)
-    if out.shape != q.shape or dout.shape != q.shape or tuple(lse.shape) != (B, H, Sq):
-        raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)} and lse "
-                         f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
+                                   out=out, out_lo=out_lo, dout=dout, lse=lse)
+    if (out.shape != q.shape or out_lo.shape != q.shape or dout.shape != q.shape
+            or tuple(lse.shape) != (B, H, Sq)):
+        raise ValueError(f"out {tuple(out.shape)}, out_lo {tuple(out_lo.shape)}, dout "
+                         f"{tuple(dout.shape)} and lse {tuple(lse.shape)} do not match "
+                         f"q {tuple(q.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
@@ -199,7 +215,7 @@ def packed_flash_attention_bwd(
         code = lib.packed_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             segment_ids_q.data_ptr(), segment_ids_kv.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            out_lo.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KVH, D, int(causal),
             int(window), 1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
     _raise_on(code, "backward")

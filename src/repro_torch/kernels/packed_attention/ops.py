@@ -5,9 +5,14 @@ the plain PyTorch version for CPU tensors, both differentiable.
 heads, in the argument order of the JAX package's wrapper.  On a CUDA
 tensor it is a ``torch.autograd.Function`` whose forward launches the
 forward kernel and saves each row's logsumexp, and whose backward launches
-the backward kernels.  The JAX wrapper pads to block multiples with segment
-0 and repeats the KV heads; the kernels mask ragged tails and index KV head
-``h // (H // KVH)`` themselves, so the result is the same with neither.
+the backward kernels.  When a backward will follow (grad mode on and an
+input that requires a gradient) the forward also writes and saves the
+output's residual (the fp32 output less the bf16 one), from which the
+backward takes its delta = rowsum(dO * O) as the fp32 output gives it;
+serving's forward writes none.  The JAX wrapper pads to block multiples
+with segment 0 and repeats the KV heads; the kernels mask ragged tails and
+index KV head ``h // (H // KVH)`` themselves, so the result is the same
+with neither.
 
 On DTensors it runs shard-locally when only the batch and head dims are
 sharded (``kernels/shard_local.py``; q's heads and the KV heads over the
@@ -15,8 +20,11 @@ same mesh dims) and raises on any other layout.
 
 A tensor that does not lie on the CPU goes through the operators
 ``repro_torch::packed_attention_fwd`` and ``_bwd``
-(``kernels/custom_ops.py``): the kernels on the card, fakes that do no work
-on meta stand-ins.  Their FLOPs are the PERF.md bounds' (4 D per visible
+(``kernels/custom_ops.py``): the kernels on the card, the kernels'
+arithmetic in plain PyTorch on the CPU (``ref.packed_attention_bwd_ref``),
+fakes that do no work on meta stand-ins.  The forward's ``residual``
+argument asks for the residual (its third output; an empty tensor
+without it).  Their FLOPs are the PERF.md bounds' (4 D per visible
 (query, key) pair and head forward, 10 D backward) over the pairs that the
 causal flag and the window leave visible in one segment a row: the
 formulas see shapes, not the segment ids that make the kernels skip tiles.
@@ -37,7 +45,7 @@ import torch
 from ..custom_ops import define, nbytes
 from ..shard_local import any_dtensor, shard_local
 from .kernel import packed_flash_attention, packed_flash_attention_bwd
-from .ref import packed_attention_ref, visible_mask
+from .ref import packed_attention_bwd_ref, packed_attention_ref, visible_mask
 
 __all__ = ["packed_attention", "packed_attention_plain", "launches_fwd",
            "launches_bwd"]
@@ -54,69 +62,57 @@ def _count(fwd: int = 0, bwd: int = 0) -> None:
         launches_bwd += bwd
 
 
-def _fwd_launch(q, k, v, seg_q, seg_kv, causal: bool, window: int):
-    out, lse = packed_flash_attention(q, k, v, seg_q, seg_kv, causal=causal,
-                                      window=window)
+def _fwd_launch(q, k, v, seg_q, seg_kv, causal: bool, window: int, residual: bool):
+    out, lse, *lo = packed_flash_attention(q, k, v, seg_q, seg_kv, causal=causal,
+                                           window=window, residual=residual)
     if out.numel():  # an empty output launches nothing
         _count(fwd=1)
-    return out, lse
+    return out, lse, lo[0] if residual else q.new_empty(0)
 
 
-def _bwd_launch(q, k, v, seg_q, seg_kv, out, dout, lse, causal: bool, window: int):
-    dq, dk, dv = packed_flash_attention_bwd(q, k, v, seg_q, seg_kv, out, dout, lse,
+def _bwd_launch(q, k, v, seg_q, seg_kv, out, out_lo, dout, lse, causal: bool, window: int):
+    dq, dk, dv = packed_flash_attention_bwd(q, k, v, seg_q, seg_kv, out, out_lo, dout, lse,
                                             causal=causal, window=window)
     if dq.numel() and dk.numel():
         _count(bwd=1)
     return dq, dk, dv
 
 
-def _fwd_plain(q, k, v, seg_q, seg_kv, causal: bool, window: int):
-    """The forward's outputs in plain PyTorch: ``packed_attention_plain``
-    and each row's logsumexp of its scaled visible scores (+inf for a row
-    that sees no key, as the kernel writes it)."""
+def _fwd_plain(q, k, v, seg_q, seg_kv, causal: bool, window: int, residual: bool):
+    """The forward's outputs in plain PyTorch: ``packed_attention_plain``,
+    each row's logsumexp of its scaled visible scores (+inf for a row that
+    sees no key, as the kernel writes it) and, with ``residual``, the fp32
+    output less the rounded one, in q's dtype (zeros for fp32 inputs)."""
     rep = q.shape[2] // k.shape[2]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                      k.repeat_interleave(rep, dim=2).float()) / math.sqrt(q.shape[3])
     mask = visible_mask(seg_q, seg_kv, causal=causal, window=window)[:, None]
     lse = torch.logsumexp(s.masked_fill(~mask, -torch.inf), dim=-1)
     lse = torch.where(mask.any(-1), lse, torch.inf)
-    out = packed_attention_plain(q, k, v, seg_q, seg_kv, causal=causal, window=window)
-    return out.contiguous(), lse
+    o32 = packed_attention_plain(q.float(), k.float(), v.float(), seg_q, seg_kv,
+                                 causal=causal, window=window)
+    out = o32.to(q.dtype)
+    out_lo = (o32 - out.float()).to(q.dtype) if residual else q.new_empty(0)
+    return out.contiguous(), lse, out_lo.contiguous()
 
 
-def _bwd_plain(q, k, v, seg_q, seg_kv, out, dout, lse, causal: bool, window: int):
-    """(dq, dk, dv) of the plain version in fp32, written out (an operator's
-    kernel runs below autograd): dV = P^T dO, dS = P (dO V^T - rowsum(dO V^T
-    P)), dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D), each KV head's summed
-    over its query heads."""
-    B, Sq, H, D = q.shape
-    KVH = k.shape[2]
-    G = H // KVH
-    scale = 1.0 / math.sqrt(D)
-    qf = q.float().transpose(1, 2)                                  # (B, H, Sq, D)
-    kf, vf = (t.float().repeat_interleave(G, dim=2).transpose(1, 2) for t in (k, v))
-    mask = visible_mask(seg_q, seg_kv, causal=causal, window=window)[:, None]
-    p = torch.softmax((qf @ kf.transpose(-1, -2) * scale).masked_fill(~mask, -torch.inf), -1)
-    p = torch.where(torch.isnan(p), 0.0, p)
-    do = dout.float().transpose(1, 2)
-    dp = do @ vf.transpose(-1, -2)
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    dq = ds @ kf * scale
-    dk, dv = ds.transpose(-1, -2) @ qf * scale, p.transpose(-1, -2) @ do
-
-    def per_kv_head(g: torch.Tensor) -> torch.Tensor:  # (B, H, S, D) -> (B, S, KVH, D)
-        return g.unflatten(1, (KVH, G)).sum(2).transpose(1, 2)
-
-    return (dq.transpose(1, 2).to(q.dtype).contiguous(),
-            per_kv_head(dk).to(k.dtype).contiguous(), per_kv_head(dv).to(v.dtype).contiguous())
+def _bwd_plain(q, k, v, seg_q, seg_kv, out, out_lo, dout, lse, causal: bool, window: int):
+    """(dq, dk, dv) written out as the kernels compute them
+    (``ref.packed_attention_bwd_ref``; an operator's kernel runs below
+    autograd), in the inputs' dtypes."""
+    dq, dk, dv = packed_attention_bwd_ref(q, k, v, seg_q, seg_kv, out, out_lo, dout, lse,
+                                          causal=causal, window=window)
+    return (dq.to(q.dtype).contiguous(), dk.to(k.dtype).contiguous(),
+            dv.to(v.dtype).contiguous())
 
 
-def _fwd_fake(q, k, v, seg_q, seg_kv, causal: bool, window: int):
+def _fwd_fake(q, k, v, seg_q, seg_kv, causal: bool, window: int, residual: bool):
     B, Sq, H, _ = q.shape
-    return torch.empty_like(q), q.new_empty((B, H, Sq), dtype=torch.float32)
+    return (torch.empty_like(q), q.new_empty((B, H, Sq), dtype=torch.float32),
+            torch.empty_like(q) if residual else q.new_empty(0))
 
 
-def _bwd_fake(q, k, v, seg_q, seg_kv, out, dout, lse, causal: bool, window: int):
+def _bwd_fake(q, k, v, seg_q, seg_kv, out, out_lo, dout, lse, causal: bool, window: int):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
@@ -141,46 +137,51 @@ def _fwd_flops(q_shape, k_shape, v_shape, sq_shape, skv_shape, causal, window,
     return _pairs_flops(4, q_shape, k_shape, causal, window)  # QK^T and P.V
 
 
-def _bwd_flops(q_shape, k_shape, v_shape, sq_shape, skv_shape, out_shape_, dout_shape,
-               lse_shape, causal, window, *args, out_shape=None, **kwargs) -> int:
+def _bwd_flops(q_shape, k_shape, v_shape, sq_shape, skv_shape, out_shape_, out_lo_shape,
+               dout_shape, lse_shape, causal, window, *args, out_shape=None,
+               **kwargs) -> int:
     return _pairs_flops(10, q_shape, k_shape, causal, window)  # S, dP, dV, dK, dQ
 
 
-def _fwd_moved(q, k, v, seg_q, seg_kv, causal, window, out) -> float:
-    return nbytes(q, k, v, seg_q, seg_kv, *out)
+def _fwd_moved(q, k, v, seg_q, seg_kv, causal, window, residual, out) -> float:
+    return nbytes(q, k, v, seg_q, seg_kv, *out)  # out_lo: empty without the residual
 
 
-def _bwd_moved(q, k, v, seg_q, seg_kv, out, dout, lse, causal, window, grads) -> float:
-    return nbytes(q, k, v, seg_q, seg_kv, out, dout, lse, *grads)
+def _bwd_moved(q, k, v, seg_q, seg_kv, out, out_lo, dout, lse, causal, window,
+               grads) -> float:
+    return nbytes(q, k, v, seg_q, seg_kv, out, out_lo, dout, lse, *grads)
 
 
 _FWD = define(
     "packed_attention_fwd",
     "(Tensor q, Tensor k, Tensor v, Tensor segment_ids_q, Tensor segment_ids_kv, "
-    "bool causal, int window) -> (Tensor, Tensor)",
+    "bool causal, int window, bool residual) -> (Tensor, Tensor, Tensor)",
     cuda=_fwd_launch, cpu=_fwd_plain, fake=_fwd_fake, flops=_fwd_flops, moved=_fwd_moved)
 _BWD = define(
     "packed_attention_bwd",
     "(Tensor q, Tensor k, Tensor v, Tensor segment_ids_q, Tensor segment_ids_kv, "
-    "Tensor out, Tensor dout, Tensor lse, bool causal, int window) "
+    "Tensor out, Tensor out_lo, Tensor dout, Tensor lse, bool causal, int window) "
     "-> (Tensor, Tensor, Tensor)",
     cuda=_bwd_launch, cpu=_bwd_plain, fake=_bwd_fake, flops=_bwd_flops, moved=_bwd_moved)
 
 
 class _PackedAttention(torch.autograd.Function):
+    """``residual`` is decided by the caller: grad mode is off in here."""
+
     @staticmethod
-    def forward(ctx, q, k, v, seg_q, seg_kv, causal: bool, window: int):
-        out, lse = _FWD(q, k, v, seg_q, seg_kv, causal, window)
-        ctx.save_for_backward(q, k, v, seg_q, seg_kv, out, lse)
+    def forward(ctx, q, k, v, seg_q, seg_kv, causal: bool, window: int, residual: bool):
+        out, lse, out_lo = _FWD(q, k, v, seg_q, seg_kv, causal, window, residual)
+        if residual:
+            ctx.save_for_backward(q, k, v, seg_q, seg_kv, out, out_lo, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, seg_q, seg_kv, out, lse = ctx.saved_tensors
-        dq, dk, dv = _BWD(q, k, v, seg_q, seg_kv, out, dout.contiguous(), lse,
+        q, k, v, seg_q, seg_kv, out, out_lo, lse = ctx.saved_tensors
+        dq, dk, dv = _BWD(q, k, v, seg_q, seg_kv, out, out_lo, dout.contiguous(), lse,
                           ctx.causal, ctx.window)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def packed_attention_plain(q, k, v, segment_ids_q, segment_ids_kv, *,
@@ -223,7 +224,8 @@ def packed_attention(
     if q.device.type == "cpu":
         return packed_attention_plain(q, k, v, segment_ids_q, segment_ids_kv,
                                       causal=causal, window=window)
+    residual = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     return _PackedAttention.apply(
         q.contiguous(), k.contiguous(), v.contiguous(),
         segment_ids_q.to(torch.int32).contiguous(),
-        segment_ids_kv.to(torch.int32).contiguous(), bool(causal), int(window))
+        segment_ids_kv.to(torch.int32).contiguous(), bool(causal), int(window), residual)

@@ -2,7 +2,10 @@
 
 Dense masked attention in fp32: the CPU path of ``ops.packed_attention``
 and the oracle the Hopper kernels are held to on the card.  Its autograd is
-the plain version of the backward kernel.  ``rel_l2`` is the error measure
+the plain version of the backward kernel; ``packed_attention_bwd_ref`` is
+the backward kernels' own arithmetic (P from the forward's logsumexps,
+delta from its output and residual), written out in fp32, which
+the operators' CPU route runs.  ``rel_l2`` is the error measure
 the kernels are held to by it.  ``tile_schedule`` is the kernels' rule for
 which (query tile, key tile) pairs they compute and which of those need a
 mask, in plain PyTorch; ``census_rule`` is what the kernels' own count of
@@ -15,8 +18,8 @@ import math
 
 import torch
 
-__all__ = ["KERNEL_TILES", "census_rule", "packed_attention_ref", "rel_l2", "tile_counts",
-           "tile_schedule", "tile_shares", "visible_mask"]
+__all__ = ["KERNEL_TILES", "census_rule", "packed_attention_bwd_ref", "packed_attention_ref",
+           "rel_l2", "tile_counts", "tile_schedule", "tile_shares", "visible_mask"]
 
 FULL, MASKED = "full", "masked"
 # each D = 64/128 kernel's (query, key) tiles, by its name in the tile census
@@ -57,6 +60,48 @@ def packed_attention_ref(
     p = torch.where(torch.isnan(p), 0.0, p)  # fully-masked rows -> zero output
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return out.to(q.dtype)
+
+
+def packed_attention_bwd_ref(
+    q: torch.Tensor,               # (B, Sq, H, D)
+    k: torch.Tensor,               # (B, Skv, KVH, D)
+    v: torch.Tensor,               # (B, Skv, KVH, D)
+    segment_ids_q: torch.Tensor,   # (B, Sq)
+    segment_ids_kv: torch.Tensor,  # (B, Skv)
+    out: torch.Tensor,             # (B, Sq, H, D) the forward's output
+    out_lo: torch.Tensor,          # (B, Sq, H, D) the fp32 output less out
+    dout: torch.Tensor,            # (B, Sq, H, D)
+    lse: torch.Tensor,             # (B, H, Sq) the forward's logsumexps
+    *,
+    causal: bool = True,
+    window: int = 0,
+):
+    """(dq, dk, dv) in fp32 and model layout, computed as the backward
+    kernels compute them: P = exp(S / sqrt(D) - lse) on the visible pairs,
+    dP = dO V^T, delta = rowsum(dO * (out + out_lo)), dS = P (dP - delta),
+    dV = P^T dO, dK = dS^T Q / sqrt(D), dQ = dS K / sqrt(D), each KV head's
+    summed over its G = H / KVH query heads.  With ``out_lo`` zero, delta
+    comes from the rounded output alone."""
+    B, Sq, H, D = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float().transpose(1, 2)                                  # (B, H, Sq, D)
+    kf, vf = (t.float().repeat_interleave(G, dim=2).transpose(1, 2) for t in (k, v))
+    mask = visible_mask(segment_ids_q, segment_ids_kv, causal=causal, window=window)[:, None]
+    s = qf @ kf.transpose(-1, -2) * scale
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
+    do = dout.float().transpose(1, 2)
+    o = (out.float() + out_lo.float()).transpose(1, 2)
+    delta = (do * o).sum(-1, keepdim=True)
+    ds = p * (do @ vf.transpose(-1, -2) - delta)
+    dq = ds @ kf * scale
+    dk, dv = ds.transpose(-1, -2) @ qf * scale, p.transpose(-1, -2) @ do
+
+    def per_kv_head(g: torch.Tensor) -> torch.Tensor:  # (B, H, S, D) -> (B, S, KVH, D)
+        return g.unflatten(1, (KVH, G)).sum(2).transpose(1, 2)
+
+    return dq.transpose(1, 2), per_kv_head(dk), per_kv_head(dv)
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor, block: int = 64):

@@ -491,10 +491,67 @@ def test_packed_kernels_with_separate_key_lengths_on_card(case):
     assert (grads[1][pad_kv] == 0).all() and (grads[2][pad_kv] == 0).all()
     assert (out[seg_q == 0] == 0).all()
     pk.tile_census(on=True)
-    o, lse = pk.packed_flash_attention(q, k, v, seg_q, seg_kv, causal=causal)
-    pk.packed_flash_attention_bwd(q, k, v, seg_q, seg_kv, o, g, lse, causal=causal)
+    o, lse, lo = pk.packed_flash_attention(q, k, v, seg_q, seg_kv, causal=causal,
+                                           residual=True)
+    pk.packed_flash_attention_bwd(q, k, v, seg_q, seg_kv, o, lo, g, lse, causal=causal)
     census = pk.tile_census(on=False)
     assert census == census_rule(seg_q.cpu(), seg_kv.cpu(), H, KVH, causal=causal)
+
+
+@pytest.mark.cuda
+def test_packed_backward_takes_delta_from_the_unrounded_output_on_card():
+    """seamless-m4t-medium's decoder cross-attention shape (512 tokens over
+    1024 frames, two documents a side, 16 heads of 64), its keys and values
+    each with one mean per document and its queries tempered by 2^-3, as
+    phase 15 of chip_smoke.py trains it: the kernels' dQ, dK and dV within
+    1e-2 of fp64 (relative l2); with the forward's residual zeroed
+    (delta from the bf16 output) dQ reads above 5e-2.  The forward writes
+    the same output with the residual as without it, and the residual
+    within a few ulps of it."""
+    _need_card()
+    from repro_torch.kernels.packed_attention import kernel as pk
+    from repro_torch.kernels.packed_attention.ref import visible_mask
+
+    B, Sq, Skv, H, D = 2, 512, 1024, 16, 64
+    rng = np.random.default_rng(24)
+    seg_q_np, seg_kv_np = np.ones((B, Sq), np.int32), np.ones((B, Skv), np.int32)
+    for b in range(B):
+        seg_q_np[b, Sq * (b + 1) // (B + 1):] = 2
+        seg_kv_np[b, Skv * (b + 1) // (B + 1):] = 2
+    q = rng.normal(size=(B, Sq, H, D)) * 2.0 ** -3
+    k, v = rng.normal(size=(B, Skv, H, D)), rng.normal(size=(B, Skv, H, D))
+    for b in range(B):
+        for sid in (1, 2):
+            m = seg_kv_np[b] == sid
+            k[b, m] += 2.0 * rng.normal(size=(1, H, D))
+            v[b, m] += 1.5 * rng.normal(size=(1, H, D))
+    g = rng.normal(size=(B, Sq, H, D))
+    q, k, v, g = (torch.tensor(x, device="cuda").to(torch.bfloat16) for x in (q, k, v, g))
+    seg_q, seg_kv = (torch.tensor(a, device="cuda") for a in (seg_q_np, seg_kv_np))
+
+    out, lse, lo = pk.packed_flash_attention(q, k, v, seg_q, seg_kv, causal=False,
+                                             residual=True)
+    out_alone, _ = pk.packed_flash_attention(q, k, v, seg_q, seg_kv, causal=False)
+    assert torch.equal(out, out_alone)
+    assert lo.abs().max() > 0 and (lo.float().abs() <= out.float().abs() * 2.0 ** -6).all()
+    grads = pk.packed_flash_attention_bwd(q, k, v, seg_q, seg_kv, out, lo, g, lse,
+                                          causal=False)
+    dq_bf16_delta, _, _ = pk.packed_flash_attention_bwd(
+        q, k, v, seg_q, seg_kv, out, torch.zeros_like(lo), g, lse, causal=False)
+
+    mask = visible_mask(seg_q, seg_kv, causal=False)[:, None]
+    ts = [t.double().requires_grad_(True) for t in (q, k, v)]
+    s = torch.einsum("bqhd,bkhd->bhqk", ts[0], ts[1]) / D ** 0.5
+    exact = torch.einsum("bhqk,bkhd->bqhd",
+                         torch.softmax(s.masked_fill(~mask, float("-inf")), -1), ts[2])
+    truth = torch.autograd.grad(exact, ts, g.double())
+
+    def rel(a, b):
+        return ((a.double() - b).norm() / b.norm()).item()
+
+    readings = [rel(a, b) for a, b in zip(grads, truth, strict=True)]
+    assert max(readings) <= 1e-2, readings
+    assert rel(dq_bf16_delta, truth[0]) > 5e-2, (readings, rel(dq_bf16_delta, truth[0]))
 
 
 # (S, H, KVH, D, window, causal): skipped, full and masked tiles, GQA, a
@@ -527,8 +584,8 @@ def test_packed_tile_census_matches_tile_schedule(case):
     seg = torch.tensor(seg_np, device="cuda")
     kw = dict(causal=causal, window=window)
     pk.tile_census(on=True)
-    out, lse = pk.packed_flash_attention(q, k, v, seg, seg, **kw)
-    pk.packed_flash_attention_bwd(q, k, v, seg, seg, out, g, lse, **kw)
+    out, lse, lo = pk.packed_flash_attention(q, k, v, seg, seg, residual=True, **kw)
+    pk.packed_flash_attention_bwd(q, k, v, seg, seg, out, lo, g, lse, **kw)
     census = pk.tile_census(on=False)
     assert census == census_rule(torch.tensor(seg_np), torch.tensor(seg_np), H, KVH, **kw)
     assert census["forward"]["masked"] > 0
@@ -1044,7 +1101,7 @@ def test_compressor_and_mesh_local_training_at_smoke_width_on_card(tmp_path):
 # One train step of each family at smoke size, 2 rows of 256 tokens (two
 # chunks of the scans), each row cut into two documents as phase 15 cuts
 # them, through chip_smoke.py's own harness and limits (``_family_routes``,
-# ``FT_LIMITS``, ``FT_LEAF_LIMITS``, ``FT_LEAVES``): step 1's loss and named
+# ``FT_LIMITS``, ``FT_LEAVES``): step 1's loss and named
 # gradients, the trained route (the packed kernels; the scans in chunks of
 # 128 under checkpoints) against the plain route (the plain flash path;
 # each scan one chunk), the attention projections tempered (``_tempered``);

@@ -525,15 +525,21 @@ def test_packed_operators_fake_match_their_plain_versions():
     seg = torch.ones(B, S, dtype=torch.int32)
     seg[1, 20:] = 2
     seg[0, 28:] = 0
-    _opcheck(torch.ops.repro_torch.packed_attention_fwd.default, (q, k, v, seg, seg, True, 0))
-    out, lse = torch.ops.repro_torch.packed_attention_fwd(q, k, v, seg, seg, True, 0)
+    for residual in (False, True):
+        _opcheck(torch.ops.repro_torch.packed_attention_fwd.default,
+                 (q, k, v, seg, seg, True, 0, residual))
+    _, _, none = torch.ops.repro_torch.packed_attention_fwd(q, k, v, seg, seg, True, 0, False)
+    assert none.numel() == 0  # no residual unless asked for
+    out, lse, out_lo = torch.ops.repro_torch.packed_attention_fwd(q, k, v, seg, seg, True, 0,
+                                                                  True)
     assert torch.equal(out, packed_ops.packed_attention(q, k, v, seg, seg))
+    assert out_lo.shape == out.shape and out_lo.dtype == out.dtype
     assert torch.isinf(lse[0, :, 28:]).all() and torch.isfinite(lse[0, :, :28]).all()
     dout = torch.randn(B, S, H, D, generator=g).bfloat16()
     _opcheck(torch.ops.repro_torch.packed_attention_bwd.default,
-             (q, k, v, seg, seg, out, dout, lse, True, 0))
-    dq, dk, dv = torch.ops.repro_torch.packed_attention_bwd(q, k, v, seg, seg, out, dout,
-                                                            lse, True, 0)
+             (q, k, v, seg, seg, out, out_lo, dout, lse, True, 0))
+    dq, dk, dv = torch.ops.repro_torch.packed_attention_bwd(q, k, v, seg, seg, out, out_lo,
+                                                            dout, lse, True, 0)
     # against autograd of the plain version: the same fp32 arithmetic summed
     # in another order, each rounded once to bf16 (2^-8 of a value)
     qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]

@@ -6,8 +6,10 @@ The port's plain version (``ref.packed_attention_ref`` and the model-layout
 grid of ``tests/test_kernels.py`` with its tolerances (``TOLS``: 2e-5 in
 f32, 2e-2 in bf16).  Its gradient, which the Hopper backward kernel is held
 to on the card, is held to ``jax.grad`` of the JAX package's chunked flash
-path, the gradient the JAX train step takes.  Inputs are made with numpy
-from a seed and handed to both packages.
+path, the gradient the JAX train step takes, as is the operators' CPU
+route, the kernels' arithmetic in plain PyTorch (``ref.packed_attention_bwd_ref``:
+delta from the bf16 output and its rounding residual).  Inputs are made
+with numpy from a seed and handed to both packages.
 
 The Hopper kernels themselves run only on a card (``tests/test_torch_cuda.py``);
 their rule for which tiles they skip and which they compute unmasked,
@@ -34,6 +36,7 @@ from repro.models.layers import flash_attention as jax_flash
 from repro_torch.kernels.packed_attention import kernel, ops
 from repro_torch.kernels.packed_attention.ref import (
     FULL,
+    packed_attention_bwd_ref,
     packed_attention_ref,
     tile_counts,
     tile_schedule,
@@ -217,26 +220,101 @@ def _jax_grads(q, k, v, seg, g, window):
     return jax.grad(f, argnums=(0, 1, 2))(jx(q), jx(k), jx(v))
 
 
-@pytest.mark.parametrize("plain", ["ops", "flash"])
+@pytest.mark.parametrize("plain", ["ops", "flash", "operator"])
 @pytest.mark.parametrize("case", GRAD_CASES, ids=lambda c: "x".join(map(str, c)))
 def test_gradient_matches_jax_grad_of_flash(case, plain):
+    """``operator``: the CPU route of ``repro_torch::packed_attention_fwd``
+    (with the residual) and ``_bwd``, the kernels' arithmetic."""
     q, k, v, seg, g, window = _grad_inputs(case, seed=sum(case))
     ts = [tt(x).requires_grad_(True) for x in (q, k, v)]
     st = torch.from_numpy(seg)
-    if plain == "ops":
-        out = ops.packed_attention(*ts, st, st, window=window)
+    if plain == "operator":
+        out, lse, out_lo = torch.ops.repro_torch.packed_attention_fwd(
+            *(t.detach() for t in ts), st, st, True, window, True)
+        grads = torch.ops.repro_torch.packed_attention_bwd(
+            *(t.detach() for t in ts), st, st, out, out_lo, tt(g), lse, True, window)
     else:
-        out = flash_attention(*ts, st, st, window=window, chunk_q=64, chunk_kv=64)
-    out.backward(tt(g))
+        if plain == "ops":
+            out = ops.packed_attention(*ts, st, st, window=window)
+        else:
+            out = flash_attention(*ts, st, st, window=window, chunk_q=64, chunk_kv=64)
+        out.backward(tt(g))
+        grads = [t.grad for t in ts]
     want = _jax_grads(q, k, v, seg, g, window)
-    for name, t, w in zip(("dq", "dk", "dv"), ts, want, strict=True):
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want, strict=True):
         w = f32(w)
-        err = np.abs(f32(t.grad) - w).max()
+        err = np.abs(f32(got) - w).max()
         assert err <= GRAD_REL * np.abs(w).max(), (name, err, np.abs(w).max())
     # the padded row gets no gradient, and neither do keys of segment 0
     pad = seg == 0
-    for t in ts:
-        assert (t.grad[torch.from_numpy(pad)] == 0).all()
+    for got in grads:
+        assert (got[torch.from_numpy(pad)] == 0).all()
+
+
+# Cross attention like seamless-m4t-medium's decoder over its encoder (Sq !=
+# Skv, two documents a side) with keys that hold nearly all their energy in
+# one mean per document (ratio ~64 to the noise: share >= 0.999), bf16
+# inputs.  A row of dS sums to delta_exact - delta_used, so dQ carries
+# scale x that x the keys' mean: the kernels' arithmetic holds to jax.grad
+# (delta from its fp32 output) with the forward's rounding residual, and
+# reads far from it with delta from the bf16 output alone.
+MEAN_HEAVY = {"B": 2, "Sq": 96, "Skv": 160, "H": 4, "D": 64, "ratio": 64.0}
+MEAN_HEAVY_REL = 1e-3     # relative l2 of dQ, dK, dV with the residual
+MEAN_HEAVY_FAULT = 5e-2   # dQ must read above this with out_lo = 0
+
+
+def _mean_heavy_inputs(KVH, seed):
+    B, Sq, Skv, H, D = (MEAN_HEAVY[n] for n in ("B", "Sq", "Skv", "H", "D"))
+    rng = np.random.default_rng(seed)
+    seg_q, seg_kv = np.ones((B, Sq), np.int32), np.ones((B, Skv), np.int32)
+    for b in range(B):
+        seg_q[b, Sq * (b + 1) // (B + 2) + 10:] = 2
+        seg_kv[b, Skv * (b + 1) // (B + 2) + 20:] = 2
+    q, k, v = (rng.normal(size=shape) for shape in ((B, Sq, H, D), (B, Skv, KVH, D),
+                                                     (B, Skv, KVH, D)))
+    for b in range(B):
+        for sid in (1, 2):
+            k[b, seg_kv[b] == sid] += MEAN_HEAVY["ratio"] * rng.normal(size=(1, KVH, D))
+    g = rng.normal(size=(B, Sq, H, D))
+    # every input rounded to bf16 once: both packages take these values
+    return [f32(tt(x, "bfloat16")) for x in (q, k, v, g)], seg_q, seg_kv
+
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("KVH", [1, 4])
+def test_bwd_ref_takes_delta_from_the_unrounded_output(KVH, causal):
+    (q, k, v, g), seg_q, seg_kv = _mean_heavy_inputs(KVH, seed=11 + KVH + int(causal))
+    kf = k.astype(np.float64)
+    centred = kf.copy()
+    for b in range(kf.shape[0]):
+        for sid in (1, 2):
+            m = seg_kv[b] == sid
+            centred[b, m] -= kf[b, m].mean(axis=0)
+    assert 1.0 - (np.linalg.norm(centred) / np.linalg.norm(kf)) ** 2 >= 0.999
+
+    def f(q_, k_, v_):
+        out = jax_flash(q_, k_, v_, jnp.asarray(seg_q), jnp.asarray(seg_kv), causal=causal,
+                        chunk_q=64, chunk_kv=64)
+        return jnp.sum(out * jnp.asarray(g))
+
+    want = jax.grad(f, argnums=(0, 1, 2))(jx(q), jx(k), jx(v))
+    qb, kb, vb, gb = (tt(x, "bfloat16") for x in (q, k, v, g))
+    sq, skv = torch.from_numpy(seg_q), torch.from_numpy(seg_kv)
+    out, lse, out_lo = torch.ops.repro_torch.packed_attention_fwd(qb, kb, vb, sq, skv, causal,
+                                                                  0, True)
+    assert out_lo.abs().max() > 0
+    readings = {}
+    for name, lo in (("residual", out_lo), ("bf16 output", torch.zeros_like(out_lo))):
+        got = packed_attention_bwd_ref(qb, kb, vb, sq, skv, out, lo, gb, lse, causal=causal)
+        readings[name] = [float(_rel_l2(f32(a), w)) for a, w in zip(got, want, strict=True)]
+    assert max(readings["residual"]) <= MEAN_HEAVY_REL, readings
+    # the fault the residual repairs, pinned: delta from the bf16 output
+    assert readings["bf16 output"][0] > MEAN_HEAVY_FAULT, readings
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +339,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernel.packed_flash_attention(q, q, q, seg, seg)
     with pytest.raises(ValueError, match="CUDA"):
-        kernel.packed_flash_attention_bwd(q, q, q, seg, seg, q, q, lse)
+        kernel.packed_flash_attention(q, q, q, seg, seg, residual=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.packed_flash_attention_bwd(q, q, q, seg, seg, q, q, q, lse)
 
 
 def test_kernel_source_is_built_for_sm90a():
@@ -360,3 +440,17 @@ def test_ab_tool_resolves_the_chip_smoke_names_it_uses():
     assert {"_time_ms", "_packed_bound", "train_phase", "TRAIN"} <= names
     chip_smoke = _load(ROOT / "chip_smoke.py")
     assert not [n for n in sorted(names) if not hasattr(chip_smoke, n)]
+
+
+def test_delta_rounding_probe_orders_the_choices_of_delta():
+    """``tools/delta_rounding_probe.py``, the fp64 model behind what the
+    forward's residual carries: at a small cross attention whose keys hold
+    most of their energy in one mean per document, delta from the bf16
+    output parts dQ from the exact gradient far more than delta from the
+    fp32 output does, and the fp32 output with P's rounded weights
+    renormalised (the kernels' choice) less than that."""
+    probe = _load(ROOT / "tools" / "delta_rounding_probe.py")
+    got = probe.probe(B=1, Sq=64, Skv=256, H=2, D=32, seed=0)
+    r = got["dq_rel_l2"]
+    assert got["key_mean_energy_share"] > 0.9
+    assert r["exact"] < r["renormalised"] < r["fp32 output"] < r["bf16 output"] / 5, r

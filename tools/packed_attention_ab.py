@@ -13,7 +13,9 @@ and the backward at ``chip_smoke.py``'s phase-7 shapes (the train shape,
 the first train batch with two documents or more in every row, the prefill
 shape) with ``chip_smoke._time_ms`` (median of CUDA events, L2 flushed),
 beside ``scaled_dot_product_attention`` (causal, forward and backward).
-The sides run other, this, this, other for each round.  Each run prints one
+A side whose backward takes the forward's rounding residual (``out_lo``)
+times the training forward, which writes it; an older side, its forward
+alone.  The sides run other, this, this, other for each round.  Each run prints one
 JSON line; then a line of the medians per side.  With ``--train`` each
 side then runs its own ``chip_smoke.train_phase`` (olmo-1b, 8 steps at full
 width) in the same turns, its ``[train]`` lines are printed, and the last
@@ -23,6 +25,7 @@ line holds each side's step p50s and profiled device ms with their medians.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
@@ -61,11 +64,13 @@ def child(src: Path) -> None:
         q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
                       for shape in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D),
                                     (B, S, H, D)))
-        o, lse = pk.packed_flash_attention(q, k, v, seg, seg)
-        fwd = cs._time_ms(torch, lambda: pk.packed_flash_attention(q, k, v, seg, seg),
+        residual = "out_lo" in inspect.signature(pk.packed_flash_attention_bwd).parameters
+        kw = {"residual": True} if residual else {}
+        o, lse, *lo = pk.packed_flash_attention(q, k, v, seg, seg, **kw)
+        fwd = cs._time_ms(torch, lambda: pk.packed_flash_attention(q, k, v, seg, seg, **kw),
                           REPS, flush)
         bwd = cs._time_ms(torch, lambda: pk.packed_flash_attention_bwd(
-            q, k, v, seg, seg, o, g, lse), REPS, flush)
+            q, k, v, seg, seg, o, *lo, g, lse), REPS, flush)
         hs = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
         gt = g.transpose(1, 2).contiguous()
 
@@ -79,13 +84,15 @@ def child(src: Path) -> None:
             sd, hs, gt, retain_graph=True), REPS, flush)
         pairs = cs._visible_pairs(np, seg_np)
         result[name] = {
+            "residual": residual,
             "fwd_ms": fwd, "bwd_ms": bwd, "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
-            "fwd_bound_ms": cs._packed_bound("fwd", pairs, B, S, H, KVH, D, "bfloat16")[0],
+            "fwd_bound_ms": cs._packed_bound("fwd", pairs, B, S, H, KVH, D, "bfloat16",
+                                             residual=residual)[0],
             "bwd_bound_ms": cs._packed_bound("bwd", pairs, B, S, H, KVH, D, "bfloat16")[0],
             "fwd_tflops": 4.0 * D * H * pairs / fwd / 1e9,
             "bwd_tflops": 10.0 * D * H * pairs / bwd / 1e9,
         }
-        del q, k, v, g, o, lse, hs, gt, sd
+        del q, k, v, g, o, lse, lo, hs, gt, sd
         torch.cuda.empty_cache()
     print(json.dumps({"src": str(src), "card": torch.cuda.get_device_name(0),
                       "shapes": result}))
