@@ -46,10 +46,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    bitwise equal to it (the split counters reset), with the kernel's, the
    plain version's and ``scaled_dot_product_attention``'s times beside the
    bound; then bf16 at ``qwen3-moe-30b-a3b``'s decode shape (32 query over
-   4 KV heads, G = 8);
+   4 KV heads, G = 8); then qwen3-8b's decode shape with a sliding window
+   of 256 tokens in bf16 and f32 (phase 10b's), NaN in every page wholly
+   before a window unread, timed beside the same call without the window;
 7. the packed-attention kernels, forward and backward, against the
-   autograd of their plain version in bf16 (float32 on the card must raise
-   and launch nothing), at the train shape (the segment ids of the first
+   autograd of their plain version in bf16 (float32 beside bf16 on the card
+   must raise and launch nothing), at the train shape (the segment ids of the first
    batch the ``StreamingPipeline`` packs at 4096 tokens, 4 rows, plus one
    fully padded row; 16 heads of 128), at the first later batch of that
    stream whose rows each hold two documents or more, and at the serving
@@ -69,6 +71,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    and each shape's record goes into the kernels
    line under ``by_shape``; then the forward alone at ``qwen3-moe-30b-a3b``'s
    prefill shape (8 x 1024, 32 query over 4 KV heads);
+7b. the packed kernels' float32 instances (SIMT, fp32 throughout, no
+   residual), forward and backward, against the autograd of their plain
+   version in fp32 (``PACKED_F32_TOLS``, ``PACKED_F32_REL_L2``, phase 7's
+   planted faults above them, a second launch bitwise equal, the tile
+   census equal to ``ref.tile_schedule``'s at every head dim): olmo-1b's
+   train shape cut to the 2 rows phase 11d trains, the serving prefill
+   shape, then D = 16, 32, 64 and 128 at 2 x 1024; times beside the bound
+   (fp32 on the CUDA cores, 67 TFLOP/s) and sdpa in fp32 with TF32 off;
 8. the attention block at full width: the first layer's
    ``layers.attention`` of ``olmo-1b`` and of ``qwen3-8b`` on that
    multi-document batch, output and gradients of its input and its four
@@ -79,16 +89,36 @@ Phases, in order; any failure raises and the script exits nonzero:
    prompts and 16 decode steps over a 1024-page First-Fit paged cache,
    with the paged kernel's launches held to 36 layers x 16 steps and the
    packed forward's to 36 in the prefill;
+9b. the same in float32 (``run_local(dtype=torch.float32)``, the JAX
+   package's serving dtype: 32.8 GB of weights) through the kernels'
+   float32 instances, then on the plain route (the plain flash path and the
+   plain paged version on the card): the launches held as in phase 9 (none
+   on the plain route), the prefill's logits within ``F32_SERVE_TOL`` of
+   max |logit| and all 17 greedy tokens of each sequence equal;
 10. ragged serving: 8 prompts of 64-1024 tokens through ``prefill`` (36
    packed-forward launches) and 32 paged decode steps (launches held to
    36 x 32), the First-Fit watermark, and the first decode step's logits
    held to the port's own prefill of prompt + token, then two more decode
    steps under ``torch.profiler`` (one paged launch per layer and step);
+10b. the same prompts and weights with ``sliding_window`` set to 256 by
+   ``dataclasses.replace`` (a check of the semantics: no config sets one):
+   the prefill (36 packed launches, the kernel's window) and 8 decode steps
+   (36 paged launches a step, the paged kernel's window), the first step
+   held to the port's windowed prefill of prompt + token within
+   ``FIRST_STEP_TOL``, and read further from the unwindowed prefill;
 11. training: ``launch.train.run`` on ``olmo-1b`` at full width and depth,
    ``train_4k`` rows of 4096 tokens, batch 4, 8 steps, remat ``"nothing"``,
    bf16 compute over fp32 masters, checkpointing into a temporary directory
    it removes after; the packed kernels' launches held to 8 x 16 x 2
    forward and 8 x 16 backward, then one more step under ``torch.profiler``;
+11d. float32 training (``[train-f32]`` lines, run after 11): olmo-1b at full
+   width and depth in float32 compute over fp32 masters, 2 train_4k rows,
+   remat "nothing", TF32 off (printed): step 1's loss and named gradients
+   on the kernels' float32 instances against the plain route (loss within
+   ``F32_LOSS_REL``, gradients within ``F32_GRAD_REL``) beside the plain
+   route's one-ulp witness and a planted fault (documents merged), then 3
+   steps of ``launch.train.run(compute_dtype=torch.float32)``: 32 packed
+   forward and 16 backward launches a step, losses, step ms, peak memory;
 11b. the distributed layer (``[distributed]`` lines), olmo-1b at full width
    as in phase 11: (a) the first 3 of its batches through ``make_train_step``
    with ``GradCompressor(stochastic=False)`` and without it, from the same
@@ -175,8 +205,9 @@ Phases, in order; any failure raises and the script exits nonzero:
 14. the four examples (``[examples]`` lines).  First each kernel at the
    examples' shapes against its plain version, as phase 13 holds them
    (``EXAMPLE_PACKED``: lm-100m's packed rows of 256, D = 64; olmo-1b and
-   qwen3-8b at smoke size, D = 16, the mma.sync route; ``EXAMPLE_PAGED``:
-   qwen3-8b smoke decode over pages of 4); ``by_shape`` gains ``lm-100m
+   qwen3-8b at smoke size, D = 16, the mma.sync route, and in float32, as
+   the serving example runs it; ``EXAMPLE_PAGED``: qwen3-8b smoke decode
+   over pages of 4, bf16 and f32); ``by_shape`` gains ``lm-100m
    train stream``, ``olmo-1b smoke``, ``qwen3-8b smoke prefill`` (packed
    forward and backward, each beside phase 7's planted faults) and
    ``qwen3-8b smoke G=4`` (paged).  Then each example in a child
@@ -191,8 +222,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    own ``kernel launches:`` line.
 
 15. the other families trained at full width (``[family-train]`` lines),
-   after every earlier phase's tensors are freed: xlstm-125m (12 layers, 4
-   x 256 tokens, fp32) and jamba-v0.1-52b cut to its first layer (a Mamba
+   after every earlier phase's tensors are freed: xlstm-125m cut to 6 of
+   its 12 layers (one period: 4 x 256 tokens, fp32, 2 steps) and
+   jamba-v0.1-52b cut to its first layer (a Mamba
    block and a dense SwiGLU MLP, 2 x 1024) through ``launch.train.run`` on
    its pipeline's rows, seamless-m4t-medium (12 + 12 layers, 4 x 512
    tokens over 1024 frames) and internvl2-1b (24 layers, 4 rows of 256
@@ -214,7 +246,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    packed launches a step (2 x 36 forward and 36 backward for seamless, 48
    and 24 for internvl2, none for the recurrent two), held on the step and
    on the main path's own run, whose count a step the kernels line
-   prints; 3 steps' ms and losses, the peak memory, and one more step
+   prints; 3 steps' ms and losses (xlstm's 2), the peak memory, and one more step
    under ``torch.profiler``: device ms, busy share and, for the recurrent
    ones, the scans' forward share of device time.
 
@@ -222,7 +254,10 @@ Each phase prints its wall time; a failing phase raises with its name.
 The serving phases run before training, so that no ``torch.profiler``
 session precedes their host-bound decode steps (the profiler may leave the
 host's launch path slower for the rest of the process).
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}``: the grouped matmul,
+the paged kernel, the packed forward and backward (bf16), their float32
+instances and the paged kernel's windowed launch (each with its record,
+launches by path and by_shape); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -282,7 +317,7 @@ DIST_ARGV = ["--arch", "olmo-1b", "--shape", "train_4k", "--steps", str(DIST_STE
              "--batch-size", str(TRAIN["B"]), "--remat", "nothing",
              "--ckpt-every", "1000", "--mesh", "local"]
 # The packed kernels against the autograd of their plain version, in bf16
-# (the kernels take bf16 only; float32 on the card raises).  The output is
+# (their float32 instances: phase 7b, PACKED_F32_*).  The output is
 # held elementwise to test_kernels' bf16 TOLS.  The output and the gradients
 # are also held by ``rel_l2`` (kernels/packed_attention/ref.py): the whole
 # tensor's ||err|| / ||ref||, and the worst of the same ratio over the
@@ -301,6 +336,19 @@ DIST_ARGV = ["--arch", "olmo-1b", "--shape", "train_4k", "--steps", str(DIST_STE
 PACKED_TOLS = (2e-2, 2e-2)          # (rtol, atol), test_kernels TOLS in bf16
 PACKED_REL_L2 = (1e-2, 2e-2)        # (whole tensor, worst 64-row tile of a head)
 MULTI_SEGMENT_SEARCH = 16           # packed batches searched for 2+ documents a row
+# The packed kernels' float32 instances (phase 7b; SIMT, fp32 throughout, no
+# residual) against the plain version's autograd in fp32: the two differ in
+# the order of their sums only.  The forward is held elementwise to
+# test_kernels' f32 TOLS; the output and dQ, dK, dV by relative l2 within
+# PACKED_F32_REL_L2, far under the planted faults (a key tile hidden, delta
+# = 0 in dQ), which must read above it.  olmo-1b's train shape, cut to the
+# 2 rows the fp32 training phase takes, and the serving prefill shape, then
+# each head dim at 2 rows of 1024 tokens, 8 query over 2 KV heads, two
+# documents a row.
+PACKED_F32_TOLS = (2e-5, 2e-5)
+PACKED_F32_REL_L2 = (1e-5, 1e-4)
+F32_TRAIN_ROWS = 2
+F32_HEAD_DIMS = (16, 32, 64, 128)
 # The attention block at full width in bf16 (phase 8), kernels against the
 # plain flash_attention, on that multi-document batch: both paths share the
 # bf16 projections, RoPE and norms, and their attention cores both round p
@@ -357,6 +405,37 @@ DRYRUN_PREFILL = {"B": 8, "S": 1024, "archs": ("qwen3-8b", "xlstm-125m")}
 # generated tokens' K/V, the JAX package's prefill-to-decode fault, moves
 # the logits by 23% of max |logit| at its smoke size.
 FIRST_STEP_TOL = 0.05
+# Phase 9b: run_local on qwen3-8b in float32 (the JAX package's serving
+# dtype) through the kernels' float32 instances, against the same run on
+# the plain route (the plain flash path and the plain paged version):
+# prefill logits within F32_SERVE_TOL of max |logit|, every greedy token
+# equal.  Both compute in fp32 and differ in summation order only.
+F32_SERVE_TOL = 1e-4
+# Phase 10b: qwen3-8b's ragged serve with a sliding window set by
+# dataclasses.replace (no config of either package sets one: a check of
+# the semantics, not a model users run), WINDOW_STEPS decode steps; its
+# first step held to the port's windowed prefill of prompt + token within
+# FIRST_STEP_TOL, as phase 10's.
+SERVE_WINDOW = 256
+WINDOW_STEPS = 8
+# Phase 11d: olmo-1b trained in float32 compute at full width and depth,
+# train_4k rows, F32_TRAIN_ROWS of them (as many as fit beside phase 11's
+# cut; the bf16 phase peaks at 42.5 GiB with 4), remat "nothing", 3 steps.
+# Step 1's loss within F32_LOSS_REL of the plain route's (the plain flash
+# path), its named gradients within F32_GRAD_REL (relative l2), with the
+# attention projections tempered to a fan-in init's scale (``_tempered``,
+# as phase 15 holds the attention families).  At the JAX init's own scale
+# the scores reach the thousands and the softmax is near one-hot, so the
+# fp32 rounding of each score's sum (~1e-3 absolute) moves the near-tied
+# weights: on an H100 80GB HBM3 at 700 W the kernels read 1.3e-3 from the
+# plain route in loss and ~1.6 in the gradients, and the plain route
+# with every weight moved by one fp32 ulp 9.9e-5 and ~1.7 (printed, not
+# held).  A planted fault (a key tile hidden) must read above the limits.
+F32_TRAIN_STEPS = 3
+F32_LOSS_REL = 1e-5
+F32_GRAD_REL = 1e-4
+F32_TRAIN_LEAVES = ["embed", "blocks/0/mixer/wq[0]", "blocks/0/mixer/wk[0]",
+                    "blocks/0/mixer/wv[0]", "blocks/0/mixer/wo[0]", "blocks/0/ffn/w_down[0]"]
 L2_FLUSH_BYTES = 256 << 20  # over the 50 MB L2: each timed launch finds it cold
 # MoE serving (phase 12): qwen3-moe-30b-a3b at its published shape
 # (configs/qwen3_moe_30b_a3b.py, hf:Qwen/Qwen3-30B-A3B: 48 layers, d 2048,
@@ -909,10 +988,11 @@ def _decode_inputs(torch, np, dtype, shape=DECODE):
             torch.tensor(lens, dtype=torch.int32, device=dev)), lens
 
 
-def _sdpa_yardstick(torch, args, lens):
+def _sdpa_yardstick(torch, args, lens, window=0):
     """One library call for the same function: ``scaled_dot_product_attention``
     on K/V gathered beforehand to the longest live length (the gather is
-    left out of its time)."""
+    left out of its time), masked to each sequence's tokens (its last
+    ``window`` with a window)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention.ref import gather_pages
@@ -921,20 +1001,25 @@ def _sdpa_yardstick(torch, args, lens):
     n_live = -(-int(lens.max()) // k_pool.shape[1])
     k_d = gather_pages(k_pool, table[:, :n_live]).transpose(1, 2).contiguous()
     v_d = gather_pages(v_pool, table[:, :n_live]).transpose(1, 2).contiguous()
-    mask = (torch.arange(k_d.shape[2], device=q.device)[None, :]
-            < lens_t[:, None])[:, None, None, :]
+    t = torch.arange(k_d.shape[2], device=q.device)[None, :]
+    mask = t < lens_t[:, None]
+    if window > 0:
+        mask &= t >= lens_t[:, None] - window
+    mask = mask[:, None, None, :]
     q4 = q[:, :, None, :]
     return lambda: F.scaled_dot_product_attention(q4, k_d, v_d, attn_mask=mask,
                                                   enable_gqa=True)
 
 
-def _paged_bound(args, lens):
+def _paged_bound(args, lens, window=0):
     """(bound ms, what bounds it, bytes, flops) of a call: the live tokens'
-    K and V, q, out, the table and the lengths, each moved once."""
+    (each sequence's last ``window`` with a window) K and V, q, out, the
+    table and the lengths, each moved once."""
     q, k_pool, _, table, _ = args
     B, H, D = q.shape
     KVH = k_pool.shape[2]
-    item, tokens = q.element_size(), int(lens.sum())
+    item = q.element_size()
+    tokens = int((lens if window <= 0 else lens.clip(max=window)).sum())
     nbytes = (2 * tokens * KVH * D + 2 * B * H * D) * item + table.numel() * 4 + B * 4
     flops = 4.0 * tokens * H * D
     dtype = str(q.dtype).replace("torch.", "")
@@ -943,51 +1028,71 @@ def _paged_bound(args, lens):
             nbytes, flops)
 
 
-def _paged_case(torch, np, key, shape, name, flush):
+def _paged_case(torch, np, key, shape, name, flush, window=0):
     """The paged kernel against its plain version at one decode shape in
-    ``name``'s dtype; in bf16 (the serving dtype) its times beside the bound
-    and the library yardstick, returned as its record (else None)."""
+    ``name``'s dtype, over each sequence's last ``window`` tokens with a
+    window; in bf16 (the serving dtype), and with a window, its times beside
+    the bound and the library yardstick (with a window, the same call's
+    time without one too), returned as its record (else None).  With a
+    window, NaN in every page wholly before it must not reach the output."""
     from repro_torch.kernels.paged_attention.kernel import paged_decode_attention
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
     dtype = getattr(torch, name)
     args, lens = _decode_inputs(torch, np, dtype, shape)
-    out = paged_decode_attention(*args)
-    ref = paged_attention_ref(*args)
+    out = paged_decode_attention(*args, window)
+    ref = paged_attention_ref(*args, window)
     torch.cuda.synchronize()
     rtol, atol = PAGED_TOLS[name]
     err = (out.float() - ref.float()).abs().max().item()
     zero_row = int(np.flatnonzero(lens == 0)[0])
-    again = paged_decode_attention(*args)  # back to back: the counters reset
+    again = paged_decode_attention(*args, window)  # back to back: the counters reset
     checks = {
         "within TOLS": torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol),
         "finite": bool(torch.isfinite(out).all()),
         "length-0 row is 0": bool((out[zero_row] == 0).all()),
         "a second launch gives the same bits": torch.equal(again, out),
     }
-    print(f"[paged] {key} {name}: lens={lens.tolist()} max_abs_err={err:.3e} "
+    if window > 0:
+        q, k_pool, v_pool, table, lens_t = args
+        ps = k_pool.shape[1]
+        before = [int(table[b, i]) for b, n in enumerate(lens.tolist())
+                  for i in range(max(n - window, 0) // ps) if table[b, i] > 0]
+        kn, vn = k_pool.clone(), v_pool.clone()
+        kn[before], vn[before] = float("nan"), float("nan")
+        checks[f"{len(before)} pages before the windows unread"] = torch.equal(
+            paged_decode_attention(q, kn, vn, table, lens_t, window), out)
+        del kn, vn
+    label = f"{key} {name}" + (f" window {window}" if window else "")
+    print(f"[paged] {label}: lens={lens.tolist()} max_abs_err={err:.3e} "
           f"(rtol={rtol}, atol={atol}) {checks}")
     if not all(checks.values()):
         raise AssertionError(f"paged kernel disagrees with its plain version "
-                             f"at {key} in {name}: {checks}")
-    if name != "bfloat16":
+                             f"at {label}: {checks}")
+    if name != "bfloat16" and not window:
         return None
-    # the serving dtype: times, bound and library yardstick
-    library = _sdpa_yardstick(torch, args, lens)
+    # the serving dtype, or a window: times, bound and library yardstick
+    library = _sdpa_yardstick(torch, args, lens, window)
     reps = 50
-    ms = _time_ms(torch, lambda: paged_decode_attention(*args), reps, flush)
-    plain_ms = _time_ms(torch, lambda: paged_attention_ref(*args), reps, flush)
+    ms = _time_ms(torch, lambda: paged_decode_attention(*args, window), reps, flush)
+    plain_ms = _time_ms(torch, lambda: paged_attention_ref(*args, window), reps, flush)
     library_ms = _time_ms(torch, library, reps, flush)
-    ms_again = _time_ms(torch, lambda: paged_decode_attention(*args), reps, flush)
-    bound_ms, bound_by, nbytes, flops = _paged_bound(args, lens)
-    print(f"[paged] {key} bf16 at the decode shape: kernel {ms:.4f} ms (again "
+    ms_again = _time_ms(torch, lambda: paged_decode_attention(*args, window), reps, flush)
+    bound_ms, bound_by, nbytes, flops = _paged_bound(args, lens, window)
+    record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    if window:
+        record["window"] = window
+        record["unwindowed_ms"] = _time_ms(torch, lambda: paged_decode_attention(*args),
+                                           reps, flush)
+    print(f"[paged] {label} at the decode shape: kernel {ms:.4f} ms (again "
           f"{ms_again:.4f}), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB of "
           f"live K/V, q, out, table; {flops / 1e9:.3f} GFLOP); kernel at "
           f"{bound_ms / ms:.3f} of the bound, {nbytes / ms / 1e6:.1f} GB/s, "
-          f"{ms / library_ms:.3f}x sdpa")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+          f"{ms / library_ms:.3f}x sdpa"
+          + (f"; without the window {record['unwindowed_ms']:.4f} ms" if window else ""))
+    return record
 
 
 def paged_kernel_phase(torch, np):
@@ -1004,15 +1109,21 @@ def paged_kernel_phase(torch, np):
         record = _paged_case(torch, np, key, shape, name, flush)
         if record is not None:
             records[key] = record
+    # qwen3-8b's decode shape with phase 10b's sliding window, both dtypes
+    window = {}
+    for name in ("bfloat16", "float32"):
+        key = f"qwen3-8b G=4 window {SERVE_WINDOW} {name}"
+        window[key] = _paged_case(torch, np, "qwen3-8b G=4", DECODE, name, flush,
+                                  SERVE_WINDOW)
 
     del flush
     torch.cuda.empty_cache()
-    return records
+    return records, window
 
 
-def _train_batches():
-    """The batches the training pipeline packs for olmo-1b at 4096 tokens
-    (``launch/train.py``'s stream: the same documents, seed, rows)."""
+def _train_batches(B=TRAIN["B"]):
+    """The batches of ``B`` rows the training pipeline packs for olmo-1b at
+    4096 tokens (``launch/train.py``'s stream: the same documents, seed)."""
     from repro_torch.configs import get_config
     from repro_torch.data import StreamingPipeline, synthetic_documents
 
@@ -1020,7 +1131,7 @@ def _train_batches():
     return iter(StreamingPipeline(
         synthetic_documents(get_config("olmo-1b").vocab_size, mean_len=S // 3,
                             max_len=4 * S, seed=0),
-        seq_len=S, batch_size=TRAIN["B"], prefetch=0))
+        seq_len=S, batch_size=B, prefetch=0))
 
 
 def _multi_segment_batch():
@@ -1047,18 +1158,21 @@ def _packed_bound(kind, pairs, B, S, H, KVH, D, dtype, Skv=None, residual=False)
     """(bound ms, what bounds it) for the forward (``fwd``: S = QK^T and
     P.V, 4 D flops per visible pair and head) or the backward (``bwd``: S
     recomputed, dP, dV, dK, dQ, 10 D), each input read once and each output
-    written once: the forward writes the output's residual too
-    when ``residual`` (a training forward), the backward always reads it."""
-    item = 4 if dtype == "float32" else 2
+    written once: in bf16 the forward writes the output's residual too
+    when ``residual`` (a training forward), the backward always reads it;
+    in float32 there is none."""
+    f32 = dtype == "float32"
+    item = 4 if f32 else 2
+    lo = 0 if f32 else 1  # the residual's tensors
     Skv = S if Skv is None else Skv  # S is the queries' length
     q_el, kv_el = B * S * H * D, B * Skv * KVH * D
     seg_b, lse_b = (B * S + B * Skv) * 4, B * H * S * 4
     if kind == "fwd":
         flops = 4.0 * D * H * pairs
-        nbytes = ((3 if residual else 2) * q_el + 2 * kv_el) * item + seg_b + lse_b
+        nbytes = ((2 + lo * residual) * q_el + 2 * kv_el) * item + seg_b + lse_b
     else:
         flops = 10.0 * D * H * pairs
-        nbytes = (5 * q_el + 4 * kv_el) * item + seg_b + lse_b
+        nbytes = ((4 + lo) * q_el + 4 * kv_el) * item + seg_b + lse_b
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -1133,18 +1247,19 @@ def packed_kernel_phase(torch, np):
     from repro_torch.kernels.packed_attention.ref import census_rule, rel_l2, tile_shares
 
     dev = torch.device("cuda")
-    # the kernels take bf16 only: f32 on the card raises and launches nothing
+    # the kernels take q, k, v all bf16 or all float32: float32 beside bf16
+    # on the card raises and launches nothing
     z = torch.zeros((1, 64, 1, 64), device=dev)
     ones = torch.ones((1, 64), dtype=torch.int32, device=dev)
     before = (packed_ops.launches_fwd, packed_ops.launches_bwd)
     try:
-        packed_ops.packed_attention(z, z, z, ones, ones)
+        packed_ops.packed_attention(z, z.bfloat16(), z.bfloat16(), ones, ones)
         refused = False
     except TypeError:
         refused = True
     if not refused or (packed_ops.launches_fwd, packed_ops.launches_bwd) != before:
-        raise AssertionError("float32 on the card did not raise, or launched")
-    print("[packed] float32 on the card: TypeError, no launch")
+        raise AssertionError("float32 beside bf16 on the card did not raise, or launched")
+    print("[packed] float32 q beside bf16 k, v on the card: TypeError, no launch")
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     first = np.concatenate([next(_train_batches()).segment_ids,
@@ -1337,6 +1452,204 @@ def _packed_forward_case(torch, pk, packed_ops, rel_l2, flush, shp):
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": sdpa_ms}
+
+
+def packed_f32_phase(torch, np):
+    """Phase 7b: the packed kernels' float32 instances, forward and
+    backward, against the autograd of their plain version in fp32
+    (``_family_packed_case`` at phase 7b's limits, beside phase 7's planted
+    faults): olmo-1b's train shape cut to ``F32_TRAIN_ROWS`` rows (the
+    first batch phase 11d trains on), the serving prefill shape, then each
+    head dim; returns the by_shape records (forward, backward), the train
+    shape's first."""
+    from repro_torch.kernels.packed_attention import kernel as pk
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+
+    dev = torch.device("cuda")
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    rows = next(_train_batches(F32_TRAIN_ROWS)).segment_ids
+    S, H, KVH, D = (TRAIN[k] for k in ("S", "H", "KVH", "D"))
+    cases = [("train f32", F32_TRAIN_ROWS, S, H, KVH, D, rows, True),
+             ("prefill f32", PREFILL["B"], PREFILL["S"], PREFILL["H"], PREFILL["KVH"],
+              PREFILL["D"], None, False)]
+    cases += [(f"f32 D={d}", 2, 1024, 8, 2, d, _two_document_ids(np, 2, 1024, 1024), True)
+              for d in F32_HEAD_DIMS]
+    fwd, bwd = {}, {}
+    for name, B, S_, H_, KVH_, D_, seg, trained in cases:
+        fwd[name], bwd[name] = _family_packed_case(
+            torch, np, pk, packed_ops, name, B, S_, S_, H_, KVH_, D_, True, flush,
+            trained=trained, seg=seg, tag="packed-f32", dtype=torch.float32)
+    del flush
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+class _PlainPaged:
+    """Stands in for ``kernels.paged_attention.ops`` in ``models.layers``:
+    the plain version, on the card (the plain route)."""
+
+    @staticmethod
+    def paged_attention(q, k_pool, v_pool, page_table, seq_lens, *, window=0):
+        from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+        return paged_attention_ref(q, k_pool, v_pool, page_table, seq_lens, window)
+
+
+def serve_f32_phase(torch):
+    """Phase 9b: ``launch.serve.run_local`` on qwen3-8b at full width and
+    depth in float32 (weights and pool), as the JAX package's ``run_local``
+    serves, through the kernels' float32 instances; then the same run on the
+    plain route (the plain flash path and the plain paged version, on the
+    card).  Every greedy token equal, the prefill's logits within
+    ``F32_SERVE_TOL`` of max |logit|; returns the (paged, packed forward)
+    launches of the kernels' run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import layers
+
+    cfg = get_config("qwen3-8b")
+    runs = {}
+    for route in ("kernels", "plain"):
+        logits = []
+
+        def recording(lg, greedy=serve.greedy):
+            logits.append(lg.detach().clone())
+            return greedy(lg)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_patched(serve, "greedy", recording))
+            if route == "plain":
+                stack.enter_context(_routed(packed=_PlainPacked))
+                stack.enter_context(_patched(layers, "paged_ops", _PlainPaged))
+            _zero_counts()
+            stats = serve.run_local(serve.parse_args(SERVE_ARGV), dtype=torch.float32)
+            torch.cuda.synchronize()
+            counts = _counts()
+        runs[route] = (stats, logits, counts, torch.cuda.max_memory_allocated() / 2**30)
+    (got, got_logits, counts, peak), (ref, ref_logits, ref_counts, ref_peak) = (
+        runs["kernels"], runs["plain"])
+    n = cfg.n_layers
+    scale = ref_logits[0].abs().max().item()
+    prefill_gap = (got_logits[0] - ref_logits[0]).abs().max().item()
+    step_gaps = [(a - b).abs().max().item() for a, b in zip(got_logits[1:], ref_logits[1:])]
+    same_tokens = torch.equal(got["tokens"], ref["tokens"])
+    print("[serve-f32] " + json.dumps({
+        "dtype": "float32", "launches": counts, "plain_route_launches": ref_counts,
+        "prefill_s": got["prefill_s"], "plain_prefill_s": ref["prefill_s"],
+        "decode_ms_per_step": got["decode_s"] / got["gen_tokens"] * 1e3,
+        "plain_decode_ms_per_step": ref["decode_s"] / ref["gen_tokens"] * 1e3,
+        "tokens_per_s": got["sequences"] * got["gen_tokens"] / got["seconds"],
+        "peak_device_mem_gib": peak, "plain_peak_device_mem_gib": ref_peak,
+        "pages_used": got["pages_used"], "max_abs_logit": scale,
+        "prefill_max_abs_dlogit": prefill_gap, "decode_max_abs_dlogit": step_gaps,
+        "tokens_equal": same_tokens}))
+    checks = {
+        f"paged launches == {n} x {got['gen_tokens']}": counts["paged"] == n * got["gen_tokens"],
+        f"packed launches (forward, backward) == ({n}, 0)": (
+            counts["packed"], counts["packed_bwd"]) == (n, 0),
+        "the plain route launched nothing": not any(ref_counts.values()),
+        "all logits finite": got["logits_finite"] and all(
+            bool(torch.isfinite(x).all()) for x in got_logits),
+        f"prefill logits within {F32_SERVE_TOL} of max |logit|":
+            prefill_gap <= F32_SERVE_TOL * scale,
+        f"greedy tokens equal for {got['gen_tokens']} steps": same_tokens,
+        "tokens (8, 17)": tuple(got["tokens"].shape) == (8, 17),
+    }
+    print(f"[serve-f32] checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"float32 serving: {checks}")
+    del got_logits, ref_logits, runs
+    torch.cuda.empty_cache()
+    return counts["paged"], counts["packed"]
+
+
+def train_f32_phase(torch, np):
+    """Phase 11d: olmo-1b trained in float32 compute at full width and depth
+    (``F32_TRAIN_ROWS`` train_4k rows, remat "nothing", the packed kernels'
+    float32 instances): step 1's loss and named gradients on the kernels
+    against the plain route (the plain flash path) from the same masters and
+    batch, beside the plain route's one-ulp witness and a planted fault (a
+    segment boundary dropped); then ``F32_TRAIN_STEPS`` steps of
+    ``launch.train.run`` with ``compute_dtype=torch.float32`` from the same
+    masters.  Returns the packed (forward, backward) launches of the run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    cfg = get_config("olmo-1b")
+    model = build_model(cfg)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    print(f"[train-f32] torch.backends.cuda.matmul.allow_tf32 = {tf32[0]}, "
+          f"torch.backends.cudnn.allow_tf32 = {tf32[1]}; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held before the phase")
+    params = train.make_params(model, 0, dev)
+    first = next(_train_batches(F32_TRAIN_ROWS))
+    batch = {k: torch.from_numpy(getattr(first, k)).to(dev)
+             for k in ("tokens", "labels", "segment_ids", "positions")}
+    n = cfg.n_layers
+    per_step = {"gmm": 0, "paged": 0, "packed": 2 * n, "packed_bwd": n}
+    plain = {"packed": _PlainPacked}
+    # at the JAX init's scale (read, not held: chaotic, see F32_LOSS_REL),
+    # then with the attention projections tempered (held)
+    init_scale, _ = _family_routes(
+        torch, "olmo-1b f32 init scale", model, params, batch, torch.float32,
+        F32_TRAIN_LEAVES, plain, None, per_step, F32_GRAD_REL)
+    with _tempered(params, None) as (tempered, _):
+        routes, checks = _family_routes(
+            torch, "olmo-1b f32", model, tempered, batch, torch.float32, F32_TRAIN_LEAVES,
+            plain, {"packed": _HiddenKeyTile}, per_step, F32_GRAD_REL)
+    loss_rel = routes["trained_vs_plain"]["loss"]
+    checks[f"olmo-1b f32: step 1 loss within {F32_LOSS_REL} (relative) of the plain "
+           "route"] = loss_rel <= F32_LOSS_REL
+    print("[train-f32] step 1 routes at the init's scale (read): " + json.dumps(init_scale))
+    print("[train-f32] step 1 routes, attention projections tempered (held): "
+          + json.dumps(routes))
+    del batch
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="train_f32_", dir=ROOT / "build")
+    argv = ["--arch", "olmo-1b", "--shape", "train_4k", "--steps", str(F32_TRAIN_STEPS),
+            "--batch-size", str(F32_TRAIN_ROWS), "--remat", "nothing", "--mesh", "none",
+            "--ckpt-every", "1000", "--ckpt-dir", ckpt]
+    try:
+        stats = train.run(train.parse_args(argv), params=params,
+                          compute_dtype=torch.float32)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    fwd, bwd = stats["launches_fwd"], stats["launches_bwd"]
+    print("[train-f32] " + json.dumps({
+        "arch": stats["arch"], "compute_dtype": "float32", "allow_tf32": tf32[0],
+        "seq_len": stats["seq_len"], "batch_size": stats["batch_size"],
+        "steps": stats["steps"], "step_ms": stats["step_ms"],
+        "step_ms_p50": stats["step_ms_p50"],
+        "tokens_per_s_p50_step": stats["tokens_per_s_p50_step"],
+        "losses": stats["losses"], "grad_norms": stats["grad_norms"],
+        "launches_fwd": fwd, "launches_bwd": bwd,
+        "segments_per_row": stats["segments_per_row"],
+        "peak_device_mem_gib": stats["peak_device_mem_gib"]}))
+    checks.update({
+        f"olmo-1b f32: {F32_TRAIN_STEPS} steps, losses and grad norms finite":
+            stats["steps"] == F32_TRAIN_STEPS
+            and _finite(stats["losses"] + stats["grad_norms"]),
+        f"olmo-1b f32: forward launches == {n} x 2 x {F32_TRAIN_STEPS}":
+            fwd == 2 * n * F32_TRAIN_STEPS,
+        f"olmo-1b f32: backward launches == {n} x {F32_TRAIN_STEPS}":
+            bwd == n * F32_TRAIN_STEPS,
+        "TF32 off": not tf32[0],
+    })
+    print(f"[train-f32] checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"float32 training: {checks}")
+    del params
+    torch.cuda.empty_cache()
+    return fwd, bwd
 
 
 def block_phase(torch, np):
@@ -2131,7 +2444,11 @@ def _step_reading(torch, step, args):
 
 def ragged_phase(torch, np):
     """Phase 10: ragged prompts through prefill and paged decode at full
-    width; returns the decode launches and the packed forward's."""
+    width, then (10b) the same prompts with a sliding window; returns the
+    decode launches, the packed forward's, phase 11c's decode reading and
+    10b's launches."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.kernels.packed_attention import ops as packed_ops
     from repro_torch.kernels.paged_attention import ops
@@ -2156,6 +2473,7 @@ def ragged_phase(torch, np):
     for b, n in enumerate(lens):
         tokens[b, :n] = rng.integers(1, cfg.vocab_size, size=n)
         seg[b, :n] = 1
+    prompts = tokens.copy(), seg.copy()  # 10b's
     positions = torch.arange(S + 1, dtype=torch.int32, device=dev).expand(B, S + 1)
 
     def batch(width):
@@ -2163,7 +2481,7 @@ def ragged_phase(torch, np):
                 "segment_ids": torch.tensor(seg[:, :width], device=dev),
                 "positions": positions[:, :width]}
 
-    def new_cache():
+    def new_cache(model=model):
         return model.init_paged_cache(serve.paged_layout(cfg, 1024), serve.DTYPE, dev)
 
     cache = new_cache()
@@ -2242,9 +2560,63 @@ def ragged_phase(torch, np):
     print(f"[ragged] checks: {checks}")
     if not all(checks.values()):
         raise AssertionError(f"ragged serving: {checks}")
-    del params
+
+    # 10b. the same prompts with a sliding window: the packed forward's
+    # window in the prefill, the paged kernel's in each decode step
+    cfg_w = dataclasses.replace(cfg, sliding_window=SERVE_WINDOW)
+    model_w = build_model(cfg_w)
+    tokens[:], seg[:] = prompts
+    _zero_counts()
+    logits, cache = model_w.prefill(params, batch(S), new_cache(model_w))
+    tok = serve.greedy(logits)
+    torch.cuda.synchronize()
+    prefill_w = _counts()
+    _zero_counts()
+    finite = torch.isfinite(logits).all()
+    step_ms = []
+    for i in range(WINDOW_STEPS):
+        t0 = time.perf_counter()
+        logits, cache = model_w.decode_step(params, {"tokens": tok}, cache)
+        if i == 0:
+            first, tok0 = logits.clone(), tok.clone()
+        finite &= torch.isfinite(logits).all()
+        tok = serve.greedy(logits)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts_w = _counts()
+    del cache, logits
+    # the port's windowed prefill of prompt + first token, and a witness:
+    # the unwindowed prefill of the same tokens
+    for b, n in enumerate(lens):
+        tokens[b, n] = int(tok0[b, 0])
+        seg[b, n] = 1
+    ref, _ = model_w.prefill(params, batch(S + 1), new_cache(model_w))
+    full, _ = model.prefill(params, batch(S + 1), new_cache())
+    delta, scale = (first - ref).abs().max().item(), ref.abs().max().item()
+    witness = (first - full).abs().max().item()
+    print("[ragged-window] " + json.dumps({
+        "sliding_window": SERVE_WINDOW, "prompt_lens": lens.tolist(),
+        "decode_ms_per_step": sum(step_ms) / WINDOW_STEPS,
+        "decode_ms_p50": sorted(step_ms)[WINDOW_STEPS // 2],
+        "prefill_launches": prefill_w, "decode_launches": counts_w,
+        "first_step_max_abs_dlogit": delta, "max_abs_logit": scale,
+        "unwindowed_prefill_max_abs_dlogit": witness}))
+    checks = {
+        f"prefill: {cfg.n_layers} packed forward launches": (
+            prefill_w["packed"], prefill_w["packed_bwd"]) == (cfg.n_layers, 0),
+        f"paged launches == {cfg.n_layers} x {WINDOW_STEPS}":
+            counts_w["paged"] == cfg.n_layers * WINDOW_STEPS,
+        "all logits finite": bool(finite),
+        f"first step within {FIRST_STEP_TOL} of max |logit| of the windowed prefill":
+            delta <= FIRST_STEP_TOL * scale,
+        "the unwindowed prefill reads further (the window acts)": witness > delta,
+    }
+    print(f"[ragged-window] checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"windowed ragged serving: {checks}")
+    del params, first, ref, full
     torch.cuda.empty_cache()
-    return launches, prefill_packed[0], decode_reading
+    return launches, prefill_packed[0], decode_reading, counts_w["paged"]
 
 
 @contextlib.contextmanager
@@ -2563,18 +2935,24 @@ JAMBA_FIRST_STEP_TOL = 0.1
 
 
 def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, causal,
-                        flush, trained, seg=None, tag="family"):
+                        flush, trained, seg=None, tag="family", dtype=None):
     """The packed kernels, forward and backward, against the autograd of
     their plain version at one of the new shapes: TOLS and relative l2 as in
-    phase 7, a second launch bitwise equal, the tile census equal to
-    ``ref.tile_schedule``'s (at D = 64 and 128; the D = 16 and 32 kernels
-    keep none, and must read 0); times beside the bound and sdpa, the
+    phase 7 (phase 7b's in float32), a second launch bitwise equal, the tile
+    census equal to ``ref.tile_schedule``'s (in bf16 at D = 64 and 128, the
+    D = 16 and 32 kernels keeping none, which must read 0; in float32 at
+    every D); times beside the bound and sdpa, the
     forward's with the residual where the shape is ``trained`` (the
     training forward), without it where it is served, both printed.  ``seg``
     (B, Sq), when given, is the segment ids of queries and keys alike
     (packed rows), a pair of them those of the queries and of the keys;
     else every row is one segment.  Causal self-attention also gets phase
-    7's planted faults, which must read above the limits."""
+    7's planted faults, which must read above the limits.  ``dtype``: bf16
+    (the default) or float32."""
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    (rtol, atol), limits = ((PACKED_F32_TOLS, PACKED_F32_REL_L2) if f32 else
+                            (PACKED_TOLS, PACKED_REL_L2))
     import torch.nn.functional as F
 
     from repro_torch.kernels.packed_attention.ref import census_rule, rel_l2, visible_mask
@@ -2593,7 +2971,7 @@ def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, 
     mask = visible_mask(seg_q, seg_kv, causal=causal)
     pairs = int(mask.sum())
     gen = torch.Generator(device=dev).manual_seed(47)
-    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                   for shape in ((B, Sq, H, D), (B, Skv, KVH, D), (B, Skv, KVH, D),
                                 (B, Sq, H, D)))
     out, grads = _kernel_run(packed_ops, q, k, v, g, seg_q, seg_kv, causal)
@@ -2610,13 +2988,12 @@ def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, 
                                            residual=True)
     pk.packed_flash_attention_bwd(q, k, v, seg_q, seg_kv, o, lo, g, lse, causal=causal)
     census = pk.tile_census(on=False)
-    rule = (census_rule(seg_q, seg_kv, H, KVH, causal=causal) if D >= 64 else
+    rule = (census_rule(seg_q, seg_kv, H, KVH, causal=causal) if D >= 64 or f32 else
             {kern: dict.fromkeys(pk.CENSUS_CLASSES, 0) for kern in pk.CENSUS_KERNELS})
-    rtol, atol = PACKED_TOLS
     pad_q = seg_q == 0
     checks = {
         "out within TOLS": torch.allclose(out.float(), ref_out.float(), rtol=rtol, atol=atol),
-        f"out, dq, dk, dv within rel l2 {PACKED_REL_L2}": _within(readings, PACKED_REL_L2),
+        f"out, dq, dk, dv within rel l2 {limits}": _within(readings, limits),
         "finite": all(bool(torch.isfinite(t).all()) for t in (out, *grads)),
         "padded queries: output and dq 0": bool((out[pad_q] == 0).all())
         and bool((grads[0][pad_q] == 0).all()),
@@ -2630,7 +3007,7 @@ def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, 
         faults = _planted_faults(torch, packed_ops, rel_l2, q, k, v, g, seg_q,
                                  ref_out, ref_grads)
         checks["each planted fault reads above the limits"] = all(
-            not _within(f, PACKED_REL_L2) for f in faults.values())
+            not _within(f, limits) for f in faults.values())
     print(f"[{tag}] packed {name}: B={B} Sq={Sq} Skv={Skv} H={H} KVH={KVH} D={D} "
           f"causal={causal}; visible pairs {pairs}; max_abs_err out {err_out:.3e}, "
           f"dq/dk/dv {[f'{e:.3e}' for e in err_g]}; rel l2 (tensor/worst tile) "
@@ -2671,8 +3048,9 @@ def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, 
     sdpa_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
         sd, hs, gt, retain_graph=True), reps, flush)
     del sd, hs, gt, o, lse, lo
-    fb, fb_by = _packed_bound("fwd", pairs, B, Sq, H, KVH, D, "bfloat16", Skv, trained)
-    bb, bb_by = _packed_bound("bwd", pairs, B, Sq, H, KVH, D, "bfloat16", Skv)
+    dname = str(dtype).replace("torch.", "")
+    fb, fb_by = _packed_bound("fwd", pairs, B, Sq, H, KVH, D, dname, Skv, trained)
+    bb, bb_by = _packed_bound("bwd", pairs, B, Sq, H, KVH, D, dname, Skv)
     other = "without" if trained else "with"
     print(f"[{tag}] packed {name}: forward {fwd_ms[trained]:.4f} ms ({other} the "
           f"residual {fwd_ms[not trained]:.4f}), plain {plain_fwd_ms:.4f} ms, "
@@ -2687,6 +3065,7 @@ def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, 
              "rel_l2": readings["out"], "census": census["forward"]},
             {"max_abs_err": max(err_g), "ms": bwd_ms, "plain_ms": plain_bwd_ms,
              "bound_ms": bb, "bound_by": bb_by, "library_ms": sdpa_bwd_ms,
+             "rel_l2": {n: readings[n] for n in ("dq", "dk", "dv")},
              "census": census["dk/dv"]})
 
 
@@ -3205,6 +3584,10 @@ def families_phase(torch, np):
 EXAMPLE_PACKED = (("lm-100m train stream", 4, 256, 256, 10, 10, 64, True, "stream"),
                   ("olmo-1b smoke", 2, 64, 64, 4, 4, 16, True, None),
                   ("qwen3-8b smoke prefill", 4, 12, 12, 4, 1, 16, True, None))
+# torch_serve_microscopy serves in float32 (the JAX example's dtype): its
+# prefill through the float32 instances, phase 7b's limits
+SERVE_EXAMPLE = "torch_serve_microscopy"
+EXAMPLE_PACKED_F32 = (("qwen3-8b smoke prefill f32", 4, 12, 12, 4, 1, 16, True, None),)
 # torch_serve_microscopy's decode: qwen3-8b smoke over pages of 4 tokens, 16
 # a sequence, a 64-page pool; lengths 13-60 (its 12-token prompts and 8
 # generated tokens, and past them to the table's end).  Phase 6's limits.
@@ -3237,8 +3620,9 @@ def _example_stream_segments(np):
 
 def example_kernels(torch, np):
     """Phase 14, part 1: the packed kernels (forward and backward) and the
-    paged kernel at the examples' shapes against their plain versions;
-    returns the by_shape records (packed forward, packed backward, paged)."""
+    paged kernel at the examples' shapes against their plain versions, the
+    serving example's in float32 too; returns the by_shape records (packed
+    forward, packed backward, paged, packed float32 forward and backward)."""
     from repro_torch.kernels.packed_attention import kernel as pk
     from repro_torch.kernels.packed_attention import ops as packed_ops
 
@@ -3250,11 +3634,17 @@ def example_kernels(torch, np):
         fwd[name], bwd[name] = _family_packed_case(
             torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, causal, flush,
             trained="prefill" not in name, seg=seg, tag="examples")
+    fwd32, bwd32 = {}, {}
+    for name, B, Sq, Skv, H, KVH, D, causal, _ in EXAMPLE_PACKED_F32:
+        fwd32[name], bwd32[name] = _family_packed_case(
+            torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, causal, flush,
+            trained=False, tag="examples", dtype=torch.float32)
     for key, shape in EXAMPLE_PAGED:
         paged[key] = _paged_case(torch, np, key, shape, "bfloat16", flush)
+        _paged_case(torch, np, key, shape, "float32", flush)
     del flush
     torch.cuda.empty_cache()
-    return fwd, bwd, paged
+    return fwd, bwd, paged, fwd32, bwd32
 
 
 def _launch_line(out: str, name: str) -> dict:
@@ -3355,7 +3745,11 @@ def examples_phase(torch):
 # 512 decoder tokens over 1024 encoder frames and internvl2-1b on 4 rows of
 # 256 patch rows + 256 tokens, through ``make_train_step`` on
 # ``make_batch`` batches, each row cut into two documents.
-FT_XLSTM = {"B": 4, "S": 256}
+# xlstm-125m cut to one period of its layer pattern (6 of 12 layers) and
+# from FT_STEPS to 2 steps (PR 25: the script's new phases took ~90 s of
+# its 1200, and a slow host read 1210 s; xlstm's step at full depth is
+# 13-21 s, host-bound, and its phase ~150-200 s)
+FT_XLSTM = {"B": 4, "S": 256, "layers": 6, "steps": 2}
 FT_JAMBA = {"B": 2, "S": 1024, "layers": 1}
 FT_SEAMLESS = {"B": 4, "frames": 1024, "tokens": 512}
 FT_INTERNVL = {"B": 4, "S": 512}
@@ -3404,7 +3798,7 @@ FT_LEAVES = {
                             "dec_blocks/self_attn/wq[0]", "dec_blocks/cross_attn/wq[0]",
                             "final_norm/scale"],
     "internvl2-1b": ["embed", "blocks/0/mixer/wq[0]", "blocks/0/mixer/wk[0]",
-                     "blocks/0/mixer/wv[0]", "blocks/0/mixer/wo[0]", "final_norm/scale"],
+                     "blocks/0/mixer/wv[0]", "blocks/0/mixer/wo[0]", "blocks/0/ffn/w_down[0]"],
     "jamba-v0.1-52b": ["embed", "blocks/0/mixer/in_proj[0]", "blocks/0/mixer/A_log[0]",
                        "blocks/0/mixer/out_proj[0]", "final_norm/scale"],
 }
@@ -3420,6 +3814,20 @@ class _PlainPacked:
 
         return flash_attention(q, k, v, segment_ids, segment_ids_kv, causal=causal,
                                window=window)
+
+
+class _HiddenKeyTile:
+    """Planted fault: the kernels with each row's keys S/2 .. S/2 + 63
+    hidden from every query (phase 7's skipped tile)."""
+
+    @staticmethod
+    def packed_attention(q, k, v, segment_ids, segment_ids_kv, **kw):
+        from repro_torch.kernels.packed_attention import ops
+
+        S = segment_ids_kv.shape[1]
+        hidden = segment_ids_kv.clone()
+        hidden[:, S // 2:S // 2 + 64] = int(segment_ids_kv.max()) + 1
+        return ops.packed_attention(q, k, v, segment_ids, hidden, **kw)
 
 
 class _MergedSegments:
@@ -3514,12 +3922,14 @@ def _moved(torch, params, dtype):
     return tree_map(one, params)
 
 
-def _family_routes(torch, tag, model, params, batch, dtype, names, plain, fault, want):
+def _family_routes(torch, tag, model, params, batch, dtype, names, plain, fault, want,
+                   limit=None):
     """Step 1 through the trained route and the plain route from the same
     weights and batch, the plain route's one-ulp witness and a planted
     fault: the readings of the loss and ``names``, the trained route's
-    launches (held to ``want``)."""
-    limit = FT_LIMITS[tag]
+    launches (held to ``want``); ``limit`` (``FT_LIMITS[tag]``) holds the
+    trained route to the plain one."""
+    limit = FT_LIMITS[tag] if limit is None else limit
     _zero_counts()
     got = _step1_grads(torch, model, params, batch, dtype, names)
     torch.cuda.synchronize()
@@ -3528,20 +3938,21 @@ def _family_routes(torch, tag, model, params, batch, dtype, names, plain, fault,
         ref = _step1_grads(torch, model, params, batch, dtype, names)
         witness = _step1_grads(torch, model, _moved(torch, params, dtype), batch, dtype,
                                names)
-    with _routed(**fault):
-        planted = _step1_grads(torch, model, params, batch, dtype, names)
     r = {"trained_vs_plain": _rel(got, ref), "plain_one_ulp_witness": _rel(witness, ref),
-         "planted": _rel(planted, ref), "limit": limit, "launches_step": launches,
-         "loss_step1": got["loss"].item()}
+         "limit": limit, "launches_step": launches, "loss_step1": got["loss"].item()}
     checks = {
         f"{tag}: trained route within {limit} of the plain route":
             max(r["trained_vs_plain"].values()) <= limit,
-        f"{tag}: the planted fault reads above the limit":
-            max(r["planted"].values()) > limit,
         f"{tag}: launches a step {want}": launches == want,
         f"{tag}: loss and gradients finite": all(
             bool(torch.isfinite(t).all()) for t in got.values()),
     }
+    if fault is not None:
+        with _routed(**fault):
+            planted = _step1_grads(torch, model, params, batch, dtype, names)
+        r["planted"] = _rel(planted, ref)
+        checks[f"{tag}: the planted fault reads above the limit"] = (
+            max(r["planted"].values()) > limit)
     return r, checks
 
 
@@ -3753,7 +4164,8 @@ def _two_documents(torch, batch, cuts, frames=None):
 
 def _train_tokens(torch, tag, cfg, shape, dtype, names, none):
     """A token family: step 1's routes from the drawn masters on the first
-    row batch of ``launch.train.run``'s pipeline, then ``FT_STEPS`` steps of
+    row batch of ``launch.train.run``'s pipeline, then ``FT_STEPS`` steps
+    (``shape["steps"]`` where given) of
     ``launch.train.run`` (--mesh none) from the same masters, and one more
     step profiled after the run."""
     import shutil
@@ -3779,7 +4191,8 @@ def _train_tokens(torch, tag, cfg, shape, dtype, names, none):
 
     (ROOT / "build").mkdir(exist_ok=True)
     ckpt = tempfile.mkdtemp(prefix="family_train_", dir=ROOT / "build")
-    argv = ["--arch", cfg.name, "--steps", str(FT_STEPS),
+    steps = shape.get("steps", FT_STEPS)
+    argv = ["--arch", cfg.name, "--steps", str(steps),
             "--seq-len", str(shape["S"]), "--batch-size", str(shape["B"]),
             "--remat", "nothing", "--mesh", "none", "--ckpt-every", "1000",
             "--ckpt-dir", ckpt]
@@ -3799,7 +4212,7 @@ def _train_tokens(torch, tag, cfg, shape, dtype, names, none):
            "peak_device_mem_gib": stats["peak_device_mem_gib"],
            "launches_run": seen["launches"], "profile": seen["profile"]}
     checks.update({
-        f"{tag}: {FT_STEPS} steps, losses finite": stats["steps"] == FT_STEPS and _finite(
+        f"{tag}: {steps} steps, losses finite": stats["steps"] == steps and _finite(
             stats["losses"] + stats["grad_norms"]),
         f"{tag}: the run launched no kernel": seen["launches"] == none,
     })
@@ -3902,18 +4315,22 @@ def family_train_phase(torch, np, smi):
         readings[tag] = out
         checks.update(ok)
         # a step of the main path's own run, counted from 0 just before it
-        # (held to FT_STEPS x the step's count above)
-        launches[f"{tag} train step"] = {k: v // FT_STEPS
+        # (held to its steps x the step's count above)
+        launches[f"{tag} train step"] = {k: v // len(out["losses"])
                                          for k, v in out["launches_run"].items()}
         print(f"[family-train] {tag} " + json.dumps(out))
         gc.collect()
         torch.cuda.empty_cache()
 
-    # xlstm-125m: 12 layers, d 768, in fp32; no kernel on its path
+    # xlstm-125m cut to one period of its pattern (6 of 12 layers: five
+    # mLSTM blocks and the sLSTM), d 768, in fp32; no kernel on its path
     arch = "xlstm-125m"
     t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=FT_XLSTM["layers"])
+    print(f"[family-train] {arch}: reduced n_layers 12 -> {cfg.n_layers} (pattern "
+          f"{cfg.pattern!r}), {FT_XLSTM['steps']} steps")
     done(arch, t0, _train_tokens(
-        torch, arch, get_config(arch), FT_XLSTM, torch.float32, FT_LEAVES[arch], none))
+        torch, arch, cfg, FT_XLSTM, torch.float32, FT_LEAVES[arch], none))
 
     # seamless-m4t-medium: 12 + 12 layers; 36 packed calls a forward
     arch = "seamless-m4t-medium"
@@ -4032,13 +4449,17 @@ def main() -> None:
 
     # 6. the paged kernel against its plain version
     with _phase("kernel paged_attention"):
-        paged_records = paged_kernel_phase(torch, np)
+        paged_records, window_records = paged_kernel_phase(torch, np)
         paged_record = paged_records["qwen3-8b G=4"]
 
     # 7. the packed-attention kernels against their plain version
     with _phase("kernel packed_attention"):
         packed_records, packed_moe_record = packed_kernel_phase(torch, np)
         packed_fwd_record, packed_bwd_record = packed_records["train"]
+
+    # 7b. the packed kernels' float32 instances against their plain version
+    with _phase("kernel packed_attention f32"):
+        f32_fwd, f32_bwd = packed_f32_phase(torch, np)
 
     # 8. the attention block at full width, kernels against the plain path
     with _phase("attention block"):
@@ -4048,13 +4469,22 @@ def main() -> None:
     with _phase("serve run_local"):
         serve_launches, serve_packed = serve_phase(torch)
 
-    # 10. ragged prompts through prefill and paged decode
+    # 9b. the serving entry point in float32, kernels against the plain route
+    with _phase("serve run_local f32"):
+        serve_f32_paged, serve_f32_packed = serve_f32_phase(torch)
+
+    # 10. ragged prompts through prefill and paged decode; 10b with a window
     with _phase("ragged serve"):
-        ragged_launches, ragged_packed, decode_reading = ragged_phase(torch, np)
+        ragged_launches, ragged_packed, decode_reading, window_launches = ragged_phase(
+            torch, np)
 
     # 11. training at full width and depth
     with _phase("train"):
         train_fwd, train_bwd = train_phase(torch, np)
+
+    # 11d. training in float32 compute at full width and depth
+    with _phase("train f32"):
+        train_f32_fwd, train_f32_bwd = train_f32_phase(torch, np)
 
     # 11b. the distributed layer: gradient compression, --mesh local
     with _phase("distributed"):
@@ -4075,7 +4505,7 @@ def main() -> None:
 
     # 14. the four torch examples, each in a child interpreter
     with _phase("examples"):
-        ex_fwd, ex_bwd, ex_paged = example_kernels(torch, np)
+        ex_fwd, ex_bwd, ex_paged, ex_fwd32, ex_bwd32 = example_kernels(torch, np)
         ex_launches = examples_phase(torch)
     ex_path = {f"example {name}": c for name, c in ex_launches.items()}
 
@@ -4105,6 +4535,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/paged_attention/kernel.py:39",
         "launches": serve_launches,
         "launches_by_path": {"serve run_local": serve_launches,
+                             "serve run_local f32": serve_f32_paged,
                              "ragged serve": ragged_launches,
                              **{path: c["paged"] for path, c in moe_launches.items()
                                 if "paged" in c},
@@ -4120,12 +4551,15 @@ def main() -> None:
         "replaces": "src/repro/kernels/packed_attention/kernel.py:39",
         "launches": train_fwd,
         "launches_by_path": {"train": train_fwd, "serve run_local": serve_packed,
+                             "train f32": train_f32_fwd,
+                             "serve run_local f32": serve_f32_packed,
                              **{f"distributed {k}": v[0] for k, v in dist_launches.items()},
                              "ragged serve": ragged_packed,
                              **{path: c["packed"] for path, c in moe_launches.items()
                                 if "packed" in c},
                              **{path: c["packed"] for path, c in fam_launches.items()},
-                             **{p: c["packed_fwd"] for p, c in ex_path.items()},
+                             **{p: c["packed_fwd"] for p, c in ex_path.items()
+                                if SERVE_EXAMPLE not in p},
                              **{p: c["packed"] for p, c in ft_launches.items()}},
         **packed_fwd_record,
         "by_shape": {**{n: fwd for n, (fwd, _) in packed_records.items()},
@@ -4138,16 +4572,50 @@ def main() -> None:
         "replaces": "src/repro/models/layers.py:147",
         "launches": train_bwd,
         "launches_by_path": {"train": train_bwd, "serve run_local": 0,
+                             "train f32": train_f32_bwd, "serve run_local f32": 0,
                              **{f"distributed {k}": v[1] for k, v in dist_launches.items()},
                              "ragged serve": 0,
                              **{path: 0 for path, c in moe_launches.items()
                                 if "packed" in c},
                              **{path: c["packed_bwd"] for path, c in fam_launches.items()},
-                             **{p: c.get("packed_bwd", 0) for p, c in ex_path.items()},
+                             **{p: c.get("packed_bwd", 0) for p, c in ex_path.items()
+                                if SERVE_EXAMPLE not in p},
                              **{p: c["packed_bwd"] for p, c in ft_launches.items()}},
         **packed_bwd_record,
         "by_shape": {**{n: bwd for n, (_, bwd) in packed_records.items()}, **fam_bwd,
                      **ex_bwd},
+    }, {
+        "name": "packed_flash_attention_f32",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/packed_attention/csrc/packed_attention.cu",
+        "replaces": "src/repro/kernels/packed_attention/kernel.py:39",
+        "launches": train_f32_fwd,
+        "launches_by_path": {"train f32": train_f32_fwd,
+                             "serve run_local f32": serve_f32_packed,
+                             **{p: c["packed_fwd"] for p, c in ex_path.items()
+                                if SERVE_EXAMPLE in p}},
+        **f32_fwd["train f32"],
+        "by_shape": {**f32_fwd, **ex_fwd32},
+    }, {
+        "name": "packed_flash_attention_bwd_f32",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/packed_attention/csrc/packed_attention.cu",
+        "replaces": "src/repro/models/layers.py:147",
+        "launches": train_f32_bwd,
+        "launches_by_path": {"train f32": train_f32_bwd, "serve run_local f32": 0,
+                             **{p: c.get("packed_bwd", 0) for p, c in ex_path.items()
+                                if SERVE_EXAMPLE in p}},
+        **f32_bwd["train f32"],
+        "by_shape": {**f32_bwd, **ex_bwd32},
+    }, {
+        "name": "paged_decode_attention_window",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:39",
+        "launches": window_launches,
+        "launches_by_path": {"ragged serve window": window_launches},
+        **window_records[f"qwen3-8b G=4 window {SERVE_WINDOW} bfloat16"],
+        "by_shape": window_records,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -21,9 +21,9 @@ the allocator it prints is the one that placed the K/V.  The JAX hand-off
 from prefill to decode drops the generated tokens' K/V (the dense cache is
 as long as the prompt); the port keeps them, so only the first generated
 token and the first decode step match the JAX example's, and the later
-tokens may differ.  The weights are drawn from a seeded generator (bf16
-on the card, which the packed kernel needs; fp32 with ``--device cpu``,
-the JAX example's dtype).
+tokens may differ.  The weights are drawn from a seeded generator in
+fp32, the JAX example's dtype, on the card (the packed kernel's float32
+instances) as with ``--device cpu``.
 
 Usage:
   PYTHONPATH=src python examples/torch_serve_microscopy.py
@@ -93,12 +93,12 @@ def part1_engine(n_images: int = 200) -> List[Dict[str, Any]]:
     return summaries
 
 
-def part2_real_model(device: str = "cuda", dtype: Optional[torch.dtype] = None,
+def part2_real_model(device: str = "cuda", dtype: torch.dtype = torch.float32,
                      params: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Prefill 4 prompts of 12 tokens and decode 8 greedy tokens over the
     paged cache; return the prefill's and each step's logits, the tokens,
-    the allocator's counts and the kernels' launches.  ``dtype`` defaults
-    to bf16 on the card and fp32 on the CPU; ``params`` (in ``dtype``, on
+    the allocator's counts and the kernels' launches.  ``dtype`` (fp32)
+    is the weights' and the cache's; ``params`` (in ``dtype``, on
     ``device``) replace the drawn weights."""
     print()
     print("=" * 64)
@@ -108,7 +108,6 @@ def part2_real_model(device: str = "cuda", dtype: Optional[torch.dtype] = None,
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA card: pass --device cpu to run the plain version on the CPU")
-    dtype = dtype or (torch.bfloat16 if dev.type == "cuda" else torch.float32)
     cfg = get_config("qwen3-8b").smoke()
     model = build_model(cfg)
     if params is None:

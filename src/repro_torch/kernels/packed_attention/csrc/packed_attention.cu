@@ -11,7 +11,8 @@
 // (window > 0), where G = H / KVH query heads share a KV head.  q, out, dq
 // are (B, Sq, H, D); k, v, dk, dv are (B, Skv, KVH, D); the segment ids are
 // (B, S) int32.  Inputs and outputs are bf16 (the training and serving
-// dtype); softmax statistics, masks and every sum are fp32.
+// dtype) or, in the float32 kernels at the end (every head dim, SIMT), fp32;
+// softmax statistics, masks and every sum are fp32.
 //
 // Semantics the tests pin (those of the Pallas kernel and of jax.grad):
 //   - a query row with no visible key (segment 0, or alone in a window that
@@ -22,7 +23,9 @@
 //     scores are -0.7 x FLT_MAX, as in the Pallas kernel;
 //   - ragged lengths need no padding: rows past Sq or Skv read as zeros of
 //     segment 0 and are never written;
-//   - the output is rounded once to bf16; when a backward will follow, the
+//   - in fp32 nothing is rounded and no residual is written: delta =
+//     rowsum(dO * out), out being the fp32 output jax.grad takes delta from;
+//   - the bf16 output is rounded once; when a backward will follow, the
 //     forward also writes out_lo = bf16(o' - float(out)), o' = (sum_j
 //     bf16(p_j) v_j) / (sum_j bf16(p_j)), and the backward takes delta =
 //     rowsum(dO * (out + out_lo)).  A row of dS sums to (exact delta -
@@ -91,14 +94,17 @@
 // tests; they keep the previous design (mma.sync m16n8k16 on 64 x 64 tiles,
 // loads through registers, four warps), dispatched by D in the launchers.
 //
-// Limits, checked by the Python wrapper: bf16 only; D in {16, 32, 64, 128};
+// Limits, checked by the Python wrapper: bf16 or fp32 (all three of q, k,
+// v alike); D in {16, 32, 64, 128};
 // the pointers 16-byte aligned; segment ids >= 0 (the tile skip compares
 // their ranges).  Checked here, at D = 64 and 128: a block's tile schedule
 // (a byte per tile in range) fits the card's shared memory beside its
-// stages, which on an H100 holds rows of over 4 million keys and queries.
+// stages, which on an H100 holds rows of over 4 million keys and queries
+// (the float32 kernels, beside their fp32 tiles: over 3 million).
 //
 // Tile census.  packed_attn_tile_census turns on counting, per kernel
-// (forward, dK/dV, dQ at D = 64 and 128), of the tiles each block's schedule
+// (forward, dK/dV, dQ: the bf16 ones at D = 64 and 128, the float32 ones at
+// every D), of the tiles each block's schedule
 // classes skipped, masked and full; the counts are summed with atomics into
 // a device array apart from every output.  Off (the default) it costs a
 // load and a branch per warp and block.
@@ -431,23 +437,29 @@ packed_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 // Backward: delta for every head dim; dK/dV and dQ for head dims 16 and 32
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
 // delta[b, h, i] = sum_d dO[b, i, h, d] * (O + O_lo)[b, i, h, d] in fp32, O_lo
-// the forward's out_lo; a warp per row.
+// the forward's out_lo (bf16), or nothing (fp32: o_lo is null); a warp per
+// row.
+template <typename T>
 __global__ void __launch_bounds__(DELTA_THREADS)
-packed_attn_delta_kernel(const __nv_bfloat16* __restrict__ o,
-                         const __nv_bfloat16* __restrict__ o_lo,
-                         const __nv_bfloat16* __restrict__ dout,
-                         float* __restrict__ delta, int B, int Sq, int H, int D) {
+packed_attn_delta_kernel(const T* __restrict__ o, const T* __restrict__ o_lo,
+                         const T* __restrict__ dout, float* __restrict__ delta, int B, int Sq,
+                         int H, int D) {
     const long row = (long)blockIdx.x * (DELTA_THREADS / 32) + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (row >= (long)B * Sq * H) return;
-    const __nv_bfloat16* ob = o + row * D;
-    const __nv_bfloat16* lb = o_lo + row * D;
-    const __nv_bfloat16* gb = dout + row * D;
+    const T* ob = o + row * D;
+    const T* lb = o_lo == nullptr ? nullptr : o_lo + row * D;
+    const T* gb = dout + row * D;
     float s = 0.f;
-    for (int d = lane; d < D; d += 32)
-        s = fmaf(__bfloat162float(gb[d]), __bfloat162float(ob[d]) + __bfloat162float(lb[d]),
-                 s);
+    for (int d = lane; d < D; d += 32) {
+        float x = to_f32(ob[d]);
+        if (lb != nullptr) x += to_f32(lb[d]);
+        s = fmaf(to_f32(gb[d]), x, s);
+    }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
     if (lane == 0) {
@@ -1005,17 +1017,18 @@ __device__ __forceinline__ void query_range(int k0, int bk, int bq, int Sq, int 
     n = max(end - begin, 0);
 }
 
-// Every warp of the block classifies its share of the n tiles that the
-// fixed tile (`fixed`, at row f0) meets; cls[i] is tile begin + i's class.
-// With the census on, each warp adds its classes to g_census[CENSUS].
-template <int TF, int TV, bool FIXED_IS_QUERY, int CENSUS>
+// Every warp of the block (WARPS of them) classifies its share of the n
+// tiles that the fixed tile (`fixed`, at row f0) meets; cls[i] is tile
+// begin + i's class.  With the census on, each warp adds its classes to
+// g_census[CENSUS].
+template <int TF, int TV, bool FIXED_IS_QUERY, int CENSUS, int WARPS = HOP_WARPS>
 __device__ __forceinline__ void build_schedule(const int* seg_f, int f0, int nf,
                                                const int* seg_v, int nv, int begin, int n,
                                                int causal, int window, uint8_t* cls) {
     const int warp = threadIdx.x >> 5;
     const SegSummary fixed = seg_summary<TF>(seg_f, f0, nf);
     unsigned masked = 0, full = 0, all = 0;
-    for (int i = warp; i < n; i += HOP_WARPS) {
+    for (int i = warp; i < n; i += WARPS) {
         const int v0 = (begin + i) * TV;
         const SegSummary other = seg_summary<TV>(seg_v, v0, nv);
         const uint8_t c = FIXED_IS_QUERY
@@ -1764,6 +1777,502 @@ packed_attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
+// float32, every head dim: fp32 FMA on the CUDA cores (SIMT)
+// ---------------------------------------------------------------------------
+//
+// The bf16 kernels' function, grids and tile schedule (the forward and dQ
+// over 128 x 128 tile pairs, dK/dV over 64 queries by 128 keys, each pair
+// classed by build_schedule and counted in the tile census), in fp32
+// throughout: P is not rounded for P.V (the Pallas kernel rounds p to the
+// value type, which in fp32 leaves it as it is), and the forward writes no
+// residual, since its fp32 output is the output jax.grad takes delta from:
+// the backward's delta is rowsum(dO * out).  The products run as fp32 FMA,
+// not TF32: TF32's 10-bit mantissa would part the output from the fp32
+// reference by about 1e-3, far over the 2e-5 the tests hold it to.
+//
+// A block of 256 threads (a 16 x 16 grid, ty = tid / 16, tx = tid % 16)
+// walks its 128 fixed rows (queries in the forward and dQ, keys in dK/dV)
+// as two halves of 64, one after the other, and each kept tile of the
+// schedule in chunks of 64 rows of the other side; a chunk wholly outside
+// the half's causal or window limits is passed over (all its pairs are
+// masked: a no-op).  Tiles are fp32 in shared memory in the model layout,
+// rows padded by 16 bytes.  A thread owns rows ty + 16 i (i < 4) of the half:
+// columns tx + 16 j (j < 4) of a 64 x 64 score tile, which goes through
+// shared memory to the next product, and D / 16 columns of each (64, D) sum,
+// VEC of them side by side from VEC tx, in groups 16 VEC apart.  Each read
+// of shared memory in the products is 16 bytes a thread where D allows, free
+// of bank conflicts; a row's softmax statistics reduce over the 16 threads of
+// its half-warp.  Loads are plain (no pipeline): the kernels are bound by
+// the CUDA cores' FMAs, 4 D a visible pair forward and 14 D backward (S and
+// dP are recomputed in both dK/dV and dQ), at 67 TFLOP/s on an H100.
+
+constexpr int F32_THREADS = 256;
+constexpr int F32_WARPS = F32_THREADS / 32;
+constexpr int F32_ROWS = 64;  // a half of the fixed tile, a chunk of the other side
+
+// TILES (64, D) tiles and PTILES 64 x 64 score tiles, then the segment ids,
+// lse and delta of 64 rows each, then a class a tile of the schedule.
+template <int D, int TILES, int PTILES>
+struct F32Layout {
+    static constexpr int LD = D + 4, LDP = F32_ROWS + 16;
+    static constexpr int TILE = F32_ROWS * LD, PTILE = F32_ROWS * LDP;  // floats
+    static constexpr int STATS = TILES * TILE + PTILES * PTILE;
+    static constexpr int CLS = (STATS + 4 * F32_ROWS) * 4;               // bytes
+    static size_t bytes(int tiles) { return (size_t)CLS + tiles; }
+};
+template <int D> using F32Fwd = F32Layout<D, 3, 1>;   // Q, K, V; P
+template <int D> using F32Dkdv = F32Layout<D, 4, 2>;  // K, V, Q, dO; P^T, dS^T
+template <int D> using F32Dq = F32Layout<D, 4, 1>;    // Q, dO, K, V; dS
+
+template <int D> constexpr int F32_VEC = D >= 64 ? 4 : D / 16;  // columns side by side
+
+// Rows row0 .. row0 + 63 of one head (row stride rs) into a (64, D) tile;
+// rows at or past n are 0.
+template <int D>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int row0, int n,
+                                              long rs) {
+    constexpr int C4 = D / 4, LD = D + 4;
+    for (int i = threadIdx.x; i < F32_ROWS * C4; i += F32_THREADS) {
+        const int r = i / C4, c = (i - r * C4) * 4;
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row0 + r < n)
+            x = __ldg(reinterpret_cast<const float4*>(src + (long)(row0 + r) * rs + c));
+        *reinterpret_cast<float4*>(dst + r * LD + c) = x;
+    }
+}
+
+// s[i][j] = A[ty + 16 i] . B[tx + 16 j] over D, for (64, D) tiles A and B.
+template <int D>
+__device__ __forceinline__ void score_f32(float (&s)[4][4], const float* A, const float* B) {
+    constexpr int LD = D + 4;
+    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+        float4 a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * LD + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * LD + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                float x = fmaf(a[i].x, b[j].x, s[i][j]);
+                x = fmaf(a[i].y, b[j].y, x);
+                x = fmaf(a[i].z, b[j].z, x);
+                s[i][j] = fmaf(a[i].w, b[j].w, x);
+            }
+    }
+}
+
+// A thread's D / 16 columns of a row of a (64, D) tile.
+template <int D>
+__device__ __forceinline__ void load_cols(float (&m)[D / 16], const float* row) {
+    constexpr int VEC = F32_VEC<D>;
+    const int tx = threadIdx.x & 15;
+#pragma unroll
+    for (int g = 0; g < D / (16 * VEC); ++g) {
+        const float* p = row + VEC * tx + 16 * VEC * g;
+        if constexpr (VEC == 4) {
+            const float4 x = *reinterpret_cast<const float4*>(p);
+            m[4 * g] = x.x, m[4 * g + 1] = x.y, m[4 * g + 2] = x.z, m[4 * g + 3] = x.w;
+        } else if constexpr (VEC == 2) {
+            const float2 x = *reinterpret_cast<const float2*>(p);
+            m[2 * g] = x.x, m[2 * g + 1] = x.y;
+        } else {
+            m[g] = *p;
+        }
+    }
+}
+
+// The same columns of a row in device memory, each times `mul`.
+template <int D>
+__device__ __forceinline__ void store_cols(float* row, const float (&x)[D / 16], float mul) {
+    constexpr int VEC = F32_VEC<D>;
+    const int tx = threadIdx.x & 15;
+#pragma unroll
+    for (int g = 0; g < D / (16 * VEC); ++g) {
+        float* p = row + VEC * tx + 16 * VEC * g;
+        if constexpr (VEC == 4) {
+            *reinterpret_cast<float4*>(p) = make_float4(x[4 * g] * mul, x[4 * g + 1] * mul,
+                                                        x[4 * g + 2] * mul, x[4 * g + 3] * mul);
+        } else if constexpr (VEC == 2) {
+            *reinterpret_cast<float2*>(p) = make_float2(x[2 * g] * mul, x[2 * g + 1] * mul);
+        } else {
+            *p = x[g] * mul;
+        }
+    }
+}
+
+// acc[i] += sum_r P[ty + 16 i][r] M[r] (the thread's columns) over the 64
+// rows r of M, for a 64 x 64 score tile P and a (64, D) tile M.
+template <int D>
+__device__ __forceinline__ void mix_f32(float (&acc)[4][D / 16], const float* P,
+                                        const float* M) {
+    constexpr int LD = D + 4, LDP = F32_ROWS + 16;
+    const int ty = threadIdx.x >> 4;
+#pragma unroll 2
+    for (int r = 0; r < F32_ROWS; r += 4) {
+        float p[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float4 x = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * LDP + r);
+            p[i][0] = x.x, p[i][1] = x.y, p[i][2] = x.z, p[i][3] = x.w;
+        }
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+            float m[D / 16];
+            load_cols<D>(m, M + (r + rr) * LD);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int c = 0; c < D / 16; ++c) acc[i][c] = fmaf(p[i][rr], m[c], acc[i][c]);
+        }
+    }
+}
+
+// The thread's entries of a 64 x 64 score tile into shared memory.
+__device__ __forceinline__ void store_scores(float* P, const float (&s)[4][4]) {
+    constexpr int LDP = F32_ROWS + 16;
+    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) P[(ty + 16 * i) * LDP + tx + 16 * j] = s[i][j];
+}
+
+// x reduced over the 16 threads of a half-warp (the threads of one row).
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+    return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    return x;
+}
+
+// The 64 queries from q0 and the 64 keys from k0 hold no pair inside the
+// causal and window limits.
+__device__ __forceinline__ bool chunk_outside(int q0, int k0, int causal, int window) {
+    return (causal && k0 > q0 + F32_ROWS - 1) ||
+           (window > 0 && q0 - (k0 + F32_ROWS - 1) >= window);
+}
+
+// Forward: one block per (128 queries, head, row), the query tiles last to
+// first, as the bf16 forward takes them.
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+packed_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const int* __restrict__ seg_q,
+                           const int* __restrict__ seg_kv, float* __restrict__ out,
+                           float* __restrict__ lse, int Sq, int Skv, int H, int KVH, int causal,
+                           int window, float scale) {
+    using L = F32Fwd<D>;
+    constexpr int NC = D / 16, BT = 128;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float* Qs = reinterpret_cast<float*>(smem_raw);
+    float* Ks = Qs + L::TILE;
+    float* Vs = Ks + L::TILE;
+    float* Ps = Vs + L::TILE;
+    int* segq_s = reinterpret_cast<int*>(Ps + L::PTILE);
+    int* segk_s = segq_s + F32_ROWS;
+    uint8_t* cls = reinterpret_cast<uint8_t*>(smem_raw) + L::CLS;
+
+    const int nq = (Sq + BT - 1) / BT;
+    const int q0 = (nq - 1 - (int)blockIdx.x) * BT, h = blockIdx.y, b = blockIdx.z;
+    const int kh = h / (H / KVH);
+    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+    const long q_rs = (long)H * D, kv_rs = (long)KVH * D;
+    const int* sq_row = seg_q + (long)b * Sq;
+    const int* sk_row = seg_kv + (long)b * Skv;
+    const float* qb = q + (long)b * Sq * q_rs + (long)h * D;
+    const float* kb = k + (long)b * Skv * kv_rs + (long)kh * D;
+    const float* vb = v + (long)b * Skv * kv_rs + (long)kh * D;
+
+    int kt0, n;
+    key_range(q0, BT, BT, Skv, causal, window, kt0, n);
+    build_schedule<BT, BT, true, CENSUS_FWD, F32_WARPS>(sq_row, q0, Sq, sk_row, Skv, kt0, n,
+                                                        causal, window, cls);
+    for (int half = 0; half < 2; ++half) {
+        const int qh = q0 + F32_ROWS * half;
+        if (qh >= Sq) break;
+        __syncthreads();  // the schedule is in; the last half is done with Qs
+        load_tile_f32<D>(Qs, qb, qh, Sq, q_rs);
+        load_row<int>(segq_s, sq_row, qh, Sq, 0);
+        __syncthreads();
+        int qi[4], sq[4];
+        float m[4], l[4], acc[4][NC];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            qi[i] = qh + ty + 16 * i;
+            sq[i] = segq_s[ty + 16 * i];
+            m[i] = NEG_INF;
+            l[i] = 0.f;
+#pragma unroll
+            for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+        }
+        for (int t = 0; t < n; ++t) {
+            const uint8_t cl = cls[t];
+            if (cl == SKIP) continue;
+            for (int kc = 0; kc < BT / F32_ROWS; ++kc) {
+                const int k0 = (kt0 + t) * BT + F32_ROWS * kc;
+                if (k0 >= Skv || chunk_outside(qh, k0, causal, window)) continue;
+                __syncthreads();  // the last chunk's P.V is done with Ks, Vs and Ps
+                load_tile_f32<D>(Ks, kb, k0, Skv, kv_rs);
+                load_tile_f32<D>(Vs, vb, k0, Skv, kv_rs);
+                load_row<int>(segk_s, sk_row, k0, Skv, 0);
+                __syncthreads();
+                float s[4][4];
+                score_f32<D>(s, Qs, Ks);
+                uint32_t ok = 0xffffu;
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    float mx = NEG_INF;
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        const int kcol = tx + 16 * j;
+                        if (cl == MASKED &&
+                            !visible(qi[i], k0 + kcol, sq[i], segk_s[kcol], causal, window)) {
+                            ok &= ~(1u << (4 * i + j));
+                            s[i][j] = NEG_INF;
+                        } else {
+                            s[i][j] *= scale;
+                        }
+                        mx = fmaxf(mx, s[i][j]);
+                    }
+                    const float m_new = fmaxf(m[i], row_max(mx));
+                    const float alpha = expf(m[i] - m_new);
+                    float sum = 0.f;
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        s[i][j] = (ok >> (4 * i + j)) & 1u ? expf(s[i][j] - m_new) : 0.f;
+                        sum += s[i][j];
+                    }
+                    l[i] = alpha * l[i] + row_sum(sum);
+                    m[i] = m_new;
+#pragma unroll
+                    for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+                }
+                store_scores(Ps, s);
+                __syncthreads();
+                mix_f32<D>(acc, Ps, Vs);
+            }
+        }
+        const long o0 = (long)b * Sq * q_rs + (long)h * D;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            if (qi[i] >= Sq) continue;
+            store_cols<D>(out + o0 + (long)qi[i] * q_rs, acc[i], 1.f / fmaxf(l[i], 1e-30f));
+            if (tx == 0)
+                lse[((long)b * H + h) * Sq + qi[i]] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
+        }
+    }
+}
+
+// P and dS of the thread's entries of a 64 x 64 tile, in place of s (the
+// scores) and dp (the dO . V products); rows are queries (dQ) or keys (dK/dV).
+template <bool ROW_IS_QUERY>
+__device__ __forceinline__ void p_and_ds_f32(float (&s)[4][4], float (&dp)[4][4], uint8_t cl,
+                                             int row0, int col0, const int* seg_rows,
+                                             const int* seg_cols, const float* lse_s,
+                                             const float* delta_s, int causal, int window,
+                                             float scale) {
+    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int r = ty + 16 * i, c = tx + 16 * j;
+            const int qrow = ROW_IS_QUERY ? r : c;
+            const bool ok =
+                cl == FULL ||
+                (ROW_IS_QUERY ? visible(row0 + r, col0 + c, seg_rows[r], seg_cols[c], causal,
+                                        window)
+                              : visible(col0 + c, row0 + r, seg_cols[c], seg_rows[r], causal,
+                                        window));
+            const float p = ok ? expf(s[i][j] * scale - lse_s[qrow]) : 0.f;
+            s[i][j] = p;
+            dp[i][j] = p * (dp[i][j] - delta_s[qrow]);
+        }
+}
+
+// dK/dV: one block per (128 keys, KV head, row); the G query heads of its
+// KV head are summed in, each query tile's heads one after the other.
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+packed_attn_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const int* __restrict__ seg_q,
+                            const int* __restrict__ seg_kv, const float* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
+                            int H, int KVH, int causal, int window, float scale) {
+    using L = F32Dkdv<D>;
+    constexpr int NC = D / 16, BK_ = 128, BQ_ = 64;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float* Ks = reinterpret_cast<float*>(smem_raw);
+    float* Vs = Ks + L::TILE;
+    float* Qs = Vs + L::TILE;
+    float* dOs = Qs + L::TILE;
+    float* Ps = dOs + L::TILE;
+    float* dSs = Ps + L::PTILE;
+    int* segk_s = reinterpret_cast<int*>(dSs + L::PTILE);
+    int* segq_s = segk_s + F32_ROWS;
+    float* lse_s = reinterpret_cast<float*>(segq_s + F32_ROWS);
+    float* delta_s = lse_s + F32_ROWS;
+    uint8_t* cls = reinterpret_cast<uint8_t*>(smem_raw) + L::CLS;
+
+    const int k0 = blockIdx.x * BK_, kh = blockIdx.y, b = blockIdx.z;
+    const int G = H / KVH;
+    const int ty = threadIdx.x >> 4;
+    const long q_rs = (long)H * D, kv_rs = (long)KVH * D;
+    const long kv_off = (long)b * Skv * kv_rs + (long)kh * D;
+    const int* sq_row = seg_q + (long)b * Sq;
+    const int* sk_row = seg_kv + (long)b * Skv;
+
+    int qt0, n;
+    query_range(k0, BK_, BQ_, Sq, causal, window, qt0, n);
+    build_schedule<BK_, BQ_, false, CENSUS_DKDV, F32_WARPS>(sk_row, k0, Skv, sq_row, Sq, qt0, n,
+                                                            causal, window, cls);
+    for (int half = 0; half < 2; ++half) {
+        const int kh0 = k0 + F32_ROWS * half;
+        if (kh0 >= Skv) break;
+        __syncthreads();  // the schedule is in; the last half is done with Ks and Vs
+        load_tile_f32<D>(Ks, k + kv_off, kh0, Skv, kv_rs);
+        load_tile_f32<D>(Vs, v + kv_off, kh0, Skv, kv_rs);
+        load_row<int>(segk_s, sk_row, kh0, Skv, 0);
+        float gk[4][NC], gv[4][NC];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < NC; ++c) gk[i][c] = gv[i][c] = 0.f;
+        for (int t = 0; t < n; ++t) {
+            const uint8_t cl = cls[t];
+            const int q0 = (qt0 + t) * BQ_;
+            if (cl == SKIP || chunk_outside(q0, kh0, causal, window)) continue;
+            for (int hg = 0; hg < G; ++hg) {
+                const int h = kh * G + hg;
+                const long q_off = (long)b * Sq * q_rs + (long)h * D;
+                const long r_off = ((long)b * H + h) * Sq;
+                __syncthreads();  // the last products are done with Qs, dOs, Ps and dSs
+                load_tile_f32<D>(Qs, q + q_off, q0, Sq, q_rs);
+                load_tile_f32<D>(dOs, dout + q_off, q0, Sq, q_rs);
+                load_row<int>(segq_s, sq_row, q0, Sq, 0);
+                load_row<float>(lse_s, lse + r_off, q0, Sq, INFINITY);
+                load_row<float>(delta_s, delta + r_off, q0, Sq, 0.f);
+                __syncthreads();
+                // S^T = K Q^T and dP^T = V dO^T for the half's keys
+                float s[4][4], dp[4][4];
+                score_f32<D>(s, Ks, Qs);
+                score_f32<D>(dp, Vs, dOs);
+                p_and_ds_f32<false>(s, dp, cl, kh0, q0, segk_s, segq_s, lse_s, delta_s, causal,
+                                    window, scale);
+                store_scores(Ps, s);
+                store_scores(dSs, dp);
+                __syncthreads();
+                mix_f32<D>(gv, Ps, dOs);  // dV += P^T dO
+                mix_f32<D>(gk, dSs, Qs);  // dK += dS^T Q
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int kj = kh0 + ty + 16 * i;
+            if (kj >= Skv) continue;
+            store_cols<D>(dk + kv_off + (long)kj * kv_rs, gk[i], scale);
+            store_cols<D>(dv + kv_off + (long)kj * kv_rs, gv[i], 1.f);
+        }
+    }
+}
+
+// dQ: one block per (128 queries, head, row).
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+packed_attn_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const int* __restrict__ seg_q,
+                          const int* __restrict__ seg_kv, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          float* __restrict__ dq, int Sq, int Skv, int H, int KVH, int causal,
+                          int window, float scale) {
+    using L = F32Dq<D>;
+    constexpr int NC = D / 16, BT = 128;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float* Qs = reinterpret_cast<float*>(smem_raw);
+    float* dOs = Qs + L::TILE;
+    float* Ks = dOs + L::TILE;
+    float* Vs = Ks + L::TILE;
+    float* dSs = Vs + L::TILE;
+    int* segq_s = reinterpret_cast<int*>(dSs + L::PTILE);
+    int* segk_s = segq_s + F32_ROWS;
+    float* lse_s = reinterpret_cast<float*>(segk_s + F32_ROWS);
+    float* delta_s = lse_s + F32_ROWS;
+    uint8_t* cls = reinterpret_cast<uint8_t*>(smem_raw) + L::CLS;
+
+    const int nq = (Sq + BT - 1) / BT;
+    const int q0 = (nq - 1 - (int)blockIdx.x) * BT, h = blockIdx.y, b = blockIdx.z;
+    const int kh = h / (H / KVH);
+    const int ty = threadIdx.x >> 4;
+    const long q_rs = (long)H * D, kv_rs = (long)KVH * D;
+    const long q_off = (long)b * Sq * q_rs + (long)h * D;
+    const long kv_off = (long)b * Skv * kv_rs + (long)kh * D;
+    const long r_off = ((long)b * H + h) * Sq;
+    const int* sq_row = seg_q + (long)b * Sq;
+    const int* sk_row = seg_kv + (long)b * Skv;
+
+    int kt0, n;
+    key_range(q0, BT, BT, Skv, causal, window, kt0, n);
+    build_schedule<BT, BT, true, CENSUS_DQ, F32_WARPS>(sq_row, q0, Sq, sk_row, Skv, kt0, n,
+                                                       causal, window, cls);
+    for (int half = 0; half < 2; ++half) {
+        const int qh = q0 + F32_ROWS * half;
+        if (qh >= Sq) break;
+        __syncthreads();  // the schedule is in; the last half is done with Qs and dOs
+        load_tile_f32<D>(Qs, q + q_off, qh, Sq, q_rs);
+        load_tile_f32<D>(dOs, dout + q_off, qh, Sq, q_rs);
+        load_row<int>(segq_s, sq_row, qh, Sq, 0);
+        load_row<float>(lse_s, lse + r_off, qh, Sq, INFINITY);
+        load_row<float>(delta_s, delta + r_off, qh, Sq, 0.f);
+        float gq[4][NC];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < NC; ++c) gq[i][c] = 0.f;
+        for (int t = 0; t < n; ++t) {
+            const uint8_t cl = cls[t];
+            if (cl == SKIP) continue;
+            for (int kc = 0; kc < BT / F32_ROWS; ++kc) {
+                const int k0 = (kt0 + t) * BT + F32_ROWS * kc;
+                if (k0 >= Skv || chunk_outside(qh, k0, causal, window)) continue;
+                __syncthreads();  // the last dS K is done with Ks, Vs and dSs
+                load_tile_f32<D>(Ks, k + kv_off, k0, Skv, kv_rs);
+                load_tile_f32<D>(Vs, v + kv_off, k0, Skv, kv_rs);
+                load_row<int>(segk_s, sk_row, k0, Skv, 0);
+                __syncthreads();
+                float s[4][4], dp[4][4];
+                score_f32<D>(s, Qs, Ks);
+                score_f32<D>(dp, dOs, Vs);
+                p_and_ds_f32<true>(s, dp, cl, qh, k0, segq_s, segk_s, lse_s, delta_s, causal,
+                                   window, scale);
+                store_scores(dSs, dp);
+                __syncthreads();
+                mix_f32<D>(gq, dSs, Ks);  // dQ += dS K
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int qi = qh + ty + 16 * i;
+            if (qi < Sq) store_cols<D>(dq + q_off + (long)qi * q_rs, gq[i], scale);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
@@ -1949,19 +2458,72 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* se
     return static_cast<int>(cudaGetLastError());
 }
 
+// float32, every head dim: the SIMT kernels.
+template <int D>
+int launch_fwd_f32(const void* q, const void* k, const void* v, const void* seg_q,
+                   const void* seg_kv, void* out, void* lse, int B, int Sq, int Skv, int H,
+                   int KVH, int causal, int window, float scale, cudaStream_t st) {
+    const size_t smem = schedule_smem<F32Fwd<D>>((Skv + 127) / 128);
+    if (smem == 0) return ERR_TOO_LONG;
+    auto kernel = packed_attn_fwd_f32_kernel<D>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3((Sq + 127) / 128, H, B), F32_THREADS, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const int*>(seg_q),
+        static_cast<const int*>(seg_kv), static_cast<float*>(out), static_cast<float*>(lse),
+        Sq, Skv, H, KVH, causal, window, scale);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd_f32(const void* q, const void* k, const void* v, const void* seg_q,
+                   const void* seg_kv, const void* dout, const void* lse, const void* delta,
+                   void* dq, void* dk, void* dv, int B, int Sq, int Skv, int H, int KVH,
+                   int causal, int window, float scale, cudaStream_t st) {
+    const size_t kv_smem = schedule_smem<F32Dkdv<D>>((Sq + 63) / 64);
+    const size_t q_smem = schedule_smem<F32Dq<D>>((Skv + 127) / 128);
+    if (kv_smem == 0 || q_smem == 0) return ERR_TOO_LONG;
+    const float* qf = static_cast<const float*>(q);
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    const int* sq = static_cast<const int*>(seg_q);
+    const int* sk = static_cast<const int*>(seg_kv);
+    const float* go = static_cast<const float*>(dout);
+    const float* ls = static_cast<const float*>(lse);
+    const float* dl = static_cast<const float*>(delta);
+
+    auto dkdv = packed_attn_dkdv_f32_kernel<D>;
+    cudaError_t err = allow_smem(dkdv, kv_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dkdv<<<dim3((Skv + 127) / 128, KVH, B), F32_THREADS, kv_smem, st>>>(
+        qf, kf, vf, sq, sk, go, ls, dl, static_cast<float*>(dk), static_cast<float*>(dv), Sq,
+        Skv, H, KVH, causal, window, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    auto dqk = packed_attn_dq_f32_kernel<D>;
+    if ((err = allow_smem(dqk, q_smem)) != cudaSuccess) return static_cast<int>(err);
+    dqk<<<dim3((Sq + 127) / 128, H, B), F32_THREADS, q_smem, st>>>(
+        qf, kf, vf, sq, sk, go, ls, dl, static_cast<float*>(dq), Sq, Skv, H, KVH, causal,
+        window, scale);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_delta(const void* out, const void* out_lo, const void* dout, void* delta, int B,
                  int Sq, int H, int D, cudaStream_t st) {
     const long rows = (long)B * Sq * H;
     const int warps = DELTA_THREADS / 32;
-    packed_attn_delta_kernel<<<(unsigned)((rows + warps - 1) / warps), DELTA_THREADS, 0, st>>>(
-        static_cast<const bf16*>(out), static_cast<const bf16*>(out_lo),
-        static_cast<const bf16*>(dout), static_cast<float*>(delta), B, Sq, H, D);
+    packed_attn_delta_kernel<T><<<(unsigned)((rows + warps - 1) / warps), DELTA_THREADS, 0,
+                                  st>>>(
+        static_cast<const T*>(out), static_cast<const T*>(out_lo), static_cast<const T*>(dout),
+        static_cast<float*>(delta), B, Sq, H, D);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes), bf16 tensors.  Each launches on
+// Plain C entry points (bound with ctypes), bf16 tensors (the float32 ones
+// below take fp32 tensors).  Each launches on
 // `stream`, does not synchronise, and returns cudaGetLastError() after its
 // launches, or a negative code of its own (packed_attn_error_string).
 // packed_attn_fwd writes out_lo (the header's semantics) when `residual` is
@@ -1991,13 +2553,46 @@ extern "C" int packed_attn_bwd(const void* q, const void* k, const void* v,
                                int D, int causal, int window, float scale, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (D != 16 && D != 32 && D != 64 && D != 128) return ERR_UNSUPPORTED;
-    const int err = launch_delta(out, out_lo, dout, delta, B, Sq, H, D, st);
+    const int err = launch_delta<bf16>(out, out_lo, dout, delta, B, Sq, H, D, st);
     if (err != 0) return err;
     switch (D) {
         case 16: return launch_bwd_mma<16>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KVH, causal, window, scale, st);
         case 32: return launch_bwd_mma<32>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KVH, causal, window, scale, st);
         case 64: return launch_bwd_wgmma<64>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KVH, causal, window, scale, st);
         default: return launch_bwd_wgmma<128>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KVH, causal, window, scale, st);
+    }
+}
+
+// The float32 entries: the same, with no residual (packed_attn_bwd_f32
+// takes delta from out alone).
+extern "C" int packed_attn_fwd_f32(const void* q, const void* k, const void* v,
+                                   const void* seg_q, const void* seg_kv, void* out, void* lse,
+                                   int B, int Sq, int Skv, int H, int KVH, int D, int causal,
+                                   int window, float scale, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (D) {
+        case 16: return launch_fwd_f32<16>(q, k, v, seg_q, seg_kv, out, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        case 32: return launch_fwd_f32<32>(q, k, v, seg_q, seg_kv, out, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        case 64: return launch_fwd_f32<64>(q, k, v, seg_q, seg_kv, out, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        case 128: return launch_fwd_f32<128>(q, k, v, seg_q, seg_kv, out, lse, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        default: return ERR_UNSUPPORTED;
+    }
+}
+
+extern "C" int packed_attn_bwd_f32(const void* q, const void* k, const void* v,
+                                   const void* seg_q, const void* seg_kv, const void* out,
+                                   const void* dout, const void* lse, void* delta, void* dq,
+                                   void* dk, void* dv, int B, int Sq, int Skv, int H, int KVH,
+                                   int D, int causal, int window, float scale, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (D != 16 && D != 32 && D != 64 && D != 128) return ERR_UNSUPPORTED;
+    const int err = launch_delta<float>(out, nullptr, dout, delta, B, Sq, H, D, st);
+    if (err != 0) return err;
+    switch (D) {
+        case 16: return launch_bwd_f32<16>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        case 32: return launch_bwd_f32<32>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        case 64: return launch_bwd_f32<64>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KVH, causal, window, scale, st);
+        default: return launch_bwd_f32<128>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KVH, causal, window, scale, st);
     }
 }
 

@@ -9,7 +9,10 @@ delta from its fp32 output.  (The fp32 output there is the one whose
 weights, P rounded to bf16 for P.V, are renormalised to sum to one:
 ``csrc/packed_attention.cu``'s header says why.)  They take
 bf16 tensors (the training and serving dtype), with the softmax and every
-sum in fp32; any other dtype raises.  At head dims 64 and 128 they are
+sum in fp32, or fp32 tensors (the float32 entries: fp32 FMA on the CUDA
+cores at every head dim, the same tile schedule, no residual: the
+backward takes delta from the fp32 output itself); mixed or other dtypes
+raise.  In bf16, at head dims 64 and 128 they are
 warp-specialised: a producer warpgroup streams tiles by TMA into a ring of
 shared-memory stages, two consumer warpgroups run the products as
 ``wgmma``; at head dims 16 and 32 (the ``.smoke()`` configs) they run
@@ -44,10 +47,12 @@ import torch
 from ..nvcc import build_library
 
 __all__ = ["build", "packed_flash_attention", "packed_flash_attention_bwd",
-           "tile_census", "SOURCE", "HEAD_DIMS", "CENSUS_KERNELS", "CENSUS_CLASSES"]
+           "tile_census", "SOURCE", "HEAD_DIMS", "DTYPES", "CENSUS_KERNELS",
+           "CENSUS_CLASSES"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "packed_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)   # the kernels' template instances
+DTYPES = (torch.bfloat16, torch.float32)
 _MAX_GRID_YZ = 65535
 # the tile census's kernels and classes, in the library's order
 # (``ref.KERNEL_TILES`` gives each kernel's tiles)
@@ -73,6 +78,10 @@ def _library() -> ctypes.CDLL:
             lib.packed_attn_fwd.restype = i32
             lib.packed_attn_bwd.argtypes = [ptr] * 13 + [i32] * 8 + [ctypes.c_float, ptr]
             lib.packed_attn_bwd.restype = i32
+            lib.packed_attn_fwd_f32.argtypes = [ptr] * 7 + [i32] * 8 + [ctypes.c_float, ptr]
+            lib.packed_attn_fwd_f32.restype = i32
+            lib.packed_attn_bwd_f32.argtypes = [ptr] * 12 + [i32] * 8 + [ctypes.c_float, ptr]
+            lib.packed_attn_bwd_f32.restype = i32
             lib.packed_attn_tile_census.argtypes = [i32, ptr]
             lib.packed_attn_tile_census.restype = i32
             lib.packed_attn_error_string.argtypes = [i32]
@@ -96,8 +105,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be 16-byte aligned")
     if not all(t.device == q.device for _, t in named):
         raise ValueError("all inputs must be on one device")
-    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
-        raise TypeError(f"the kernels take bfloat16 q, k, v, got "
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in DTYPES:
+        raise TypeError(f"the kernels take q, k, v all bfloat16 or all float32, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if seg_q.dtype != torch.int32 or seg_kv.dtype != torch.int32:
         raise TypeError(f"segment ids must be int32, got {seg_q.dtype}, {seg_kv.dtype}")
@@ -130,7 +139,8 @@ def _raise_on(code: int, what: str) -> None:
 
 
 def tile_census(on: bool) -> Dict[str, Dict[str, int]]:
-    """The tiles the D = 64 and 128 kernels of the current CUDA device have
+    """The tiles the bf16 kernels at D = 64 and 128 and the float32 kernels
+    at every D of the current CUDA device have
     classed since the last call, per kernel (``CENSUS_KERNELS``) and class
     (``CENSUS_CLASSES``), summed over blocks: a head's (query tile, key
     tile) pair counts once per head in the forward and dQ and once per KV
@@ -158,25 +168,33 @@ def packed_flash_attention(
 
     Returns ``out`` (B, Sq, H, D) in q's dtype and ``lse`` (B, H, Sq) fp32,
     each row's logsumexp of its scaled visible scores (+inf for a row that
-    sees no key); with ``residual``, also ``out_lo`` (B, Sq, H, D) in q's
-    dtype, the fp32 output less ``out`` (rounded), which the backward
-    takes.  Without it the launch writes nothing more.
+    sees no key); with ``residual``, also ``out_lo``: in bf16 a (B, Sq, H,
+    D) tensor, the fp32 output less ``out`` (rounded), which the backward
+    takes; in fp32 an empty tensor (``out`` is the fp32 output, and nothing
+    more is written).  Without it the launch writes nothing more.
     Raises on any input it does not take and on a launch CUDA refuses;
     it never falls back to the plain version.
     """
     B, Sq, Skv, H, KVH, D = _check(q, k, v, segment_ids_q, segment_ids_kv)
+    f32 = q.dtype == torch.float32
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    out_lo = torch.empty_like(q) if residual else None
+    out_lo = (q.new_empty(0) if f32 else torch.empty_like(q)) if residual else None
     if out.numel():
         lib = _library()
         with torch.cuda.device(q.device):
-            code = lib.packed_attn_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                segment_ids_q.data_ptr(), segment_ids_kv.data_ptr(), out.data_ptr(),
-                out_lo.data_ptr() if residual else None, lse.data_ptr(), B, Sq, Skv, H,
-                KVH, D, int(causal), int(window), int(residual), 1.0 / math.sqrt(D),
-                torch.cuda.current_stream().cuda_stream)
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids_q.data_ptr(),
+                    segment_ids_kv.data_ptr(), out.data_ptr())
+            stream = torch.cuda.current_stream().cuda_stream
+            if f32:
+                code = lib.packed_attn_fwd_f32(
+                    *ptrs, lse.data_ptr(), B, Sq, Skv, H, KVH, D, int(causal), int(window),
+                    1.0 / math.sqrt(D), stream)
+            else:
+                code = lib.packed_attn_fwd(
+                    *ptrs, out_lo.data_ptr() if residual else None, lse.data_ptr(), B, Sq,
+                    Skv, H, KVH, D, int(causal), int(window), int(residual),
+                    1.0 / math.sqrt(D), stream)
         _raise_on(code, "forward")
     return (out, lse, out_lo) if residual else (out, lse)
 
@@ -188,7 +206,7 @@ def packed_flash_attention_bwd(
     segment_ids_q: torch.Tensor,
     segment_ids_kv: torch.Tensor,
     out: torch.Tensor,             # the forward's output
-    out_lo: torch.Tensor,          # its residual (``residual=True``)
+    out_lo: torch.Tensor,          # its residual (``residual=True``; empty in fp32)
     dout: torch.Tensor,            # the gradient of the loss by out
     lse: torch.Tensor,             # the forward's (B, H, Sq) logsumexps
     *,
@@ -198,25 +216,30 @@ def packed_flash_attention_bwd(
     """Launch the backward on the current stream: (dq, dk, dv) in the
     inputs' dtype and layouts.  Three kernels run: delta = rowsum(dO *
     (out + out_lo)) in fp32, then dK/dV and dQ.  (An ``out_lo`` of zeros
-    takes delta from the bf16 output alone.)"""
+    takes delta from the bf16 output alone.)  In fp32 ``out_lo`` is the
+    forward's empty one and delta = rowsum(dO * out)."""
     B, Sq, Skv, H, KVH, D = _check(q, k, v, segment_ids_q, segment_ids_kv,
                                    out=out, out_lo=out_lo, dout=dout, lse=lse)
-    if (out.shape != q.shape or out_lo.shape != q.shape or dout.shape != q.shape
-            or tuple(lse.shape) != (B, H, Sq)):
+    f32 = q.dtype == torch.float32
+    if (out.shape != q.shape or out_lo.shape != ((0,) if f32 else q.shape)
+            or dout.shape != q.shape or tuple(lse.shape) != (B, H, Sq)):
         raise ValueError(f"out {tuple(out.shape)}, out_lo {tuple(out_lo.shape)}, dout "
                          f"{tuple(dout.shape)} and lse {tuple(lse.shape)} do not match "
-                         f"q {tuple(q.shape)}")
+                         f"q {tuple(q.shape)} (out_lo is empty in float32)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = _library()
     with torch.cuda.device(q.device):
-        code = lib.packed_attn_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            segment_ids_q.data_ptr(), segment_ids_kv.data_ptr(), out.data_ptr(),
-            out_lo.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KVH, D, int(causal),
-            int(window), 1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids_q.data_ptr(),
+                segment_ids_kv.data_ptr(), out.data_ptr())
+        tail = (dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KVH, D, int(causal),
+                int(window), 1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+        if f32:
+            code = lib.packed_attn_bwd_f32(*head, *tail)
+        else:
+            code = lib.packed_attn_bwd(*head, out_lo.data_ptr(), *tail)
     _raise_on(code, "backward")
     return dq, dk, dv

@@ -9,7 +9,9 @@ the backward kernels.  When a backward will follow (grad mode on and an
 input that requires a gradient) the forward also writes and saves the
 output's residual (the fp32 output less the bf16 one), from which the
 backward takes its delta = rowsum(dO * O) as the fp32 output gives it;
-serving's forward writes none.  The JAX wrapper pads to block multiples
+serving's forward writes none, and neither does an fp32 forward (its
+output is the fp32 output: the residual comes back empty).  The JAX
+wrapper pads to block multiples
 with segment 0 and repeats the KV heads; the kernels mask ragged tails and
 index KV head ``h // (H // KVH)`` themselves, so the result is the same
 with neither.
@@ -78,11 +80,17 @@ def _bwd_launch(q, k, v, seg_q, seg_kv, out, out_lo, dout, lse, causal: bool, wi
     return dq, dk, dv
 
 
+def _residual(q, residual: bool) -> bool:
+    """Whether the forward writes a residual: asked for, and below fp32."""
+    return residual and q.dtype != torch.float32
+
+
 def _fwd_plain(q, k, v, seg_q, seg_kv, causal: bool, window: int, residual: bool):
     """The forward's outputs in plain PyTorch: ``packed_attention_plain``,
     each row's logsumexp of its scaled visible scores (+inf for a row that
     sees no key, as the kernel writes it) and, with ``residual``, the fp32
-    output less the rounded one, in q's dtype (zeros for fp32 inputs)."""
+    output less the rounded one, in q's dtype (empty for fp32 inputs, as
+    the kernel writes none)."""
     rep = q.shape[2] // k.shape[2]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                      k.repeat_interleave(rep, dim=2).float()) / math.sqrt(q.shape[3])
@@ -92,7 +100,7 @@ def _fwd_plain(q, k, v, seg_q, seg_kv, causal: bool, window: int, residual: bool
     o32 = packed_attention_plain(q.float(), k.float(), v.float(), seg_q, seg_kv,
                                  causal=causal, window=window)
     out = o32.to(q.dtype)
-    out_lo = (o32 - out.float()).to(q.dtype) if residual else q.new_empty(0)
+    out_lo = (o32 - out.float()).to(q.dtype) if _residual(q, residual) else q.new_empty(0)
     return out.contiguous(), lse, out_lo.contiguous()
 
 
@@ -109,7 +117,7 @@ def _bwd_plain(q, k, v, seg_q, seg_kv, out, out_lo, dout, lse, causal: bool, win
 def _fwd_fake(q, k, v, seg_q, seg_kv, causal: bool, window: int, residual: bool):
     B, Sq, H, _ = q.shape
     return (torch.empty_like(q), q.new_empty((B, H, Sq), dtype=torch.float32),
-            torch.empty_like(q) if residual else q.new_empty(0))
+            torch.empty_like(q) if _residual(q, residual) else q.new_empty(0))
 
 
 def _bwd_fake(q, k, v, seg_q, seg_kv, out, out_lo, dout, lse, causal: bool, window: int):
@@ -144,12 +152,13 @@ def _bwd_flops(q_shape, k_shape, v_shape, sq_shape, skv_shape, out_shape_, out_l
 
 
 def _fwd_moved(q, k, v, seg_q, seg_kv, causal, window, residual, out) -> float:
-    return nbytes(q, k, v, seg_q, seg_kv, *out)  # out_lo: empty without the residual
+    # out_lo: empty without the residual, and in fp32
+    return nbytes(q, k, v, seg_q, seg_kv, *out)
 
 
 def _bwd_moved(q, k, v, seg_q, seg_kv, out, out_lo, dout, lse, causal, window,
                grads) -> float:
-    return nbytes(q, k, v, seg_q, seg_kv, out, out_lo, dout, lse, *grads)
+    return nbytes(q, k, v, seg_q, seg_kv, out, out_lo, dout, lse, *grads)  # out_lo: empty in fp32
 
 
 _FWD = define(

@@ -69,7 +69,7 @@ def packed_attention_bwd_ref(
     segment_ids_q: torch.Tensor,   # (B, Sq)
     segment_ids_kv: torch.Tensor,  # (B, Skv)
     out: torch.Tensor,             # (B, Sq, H, D) the forward's output
-    out_lo: torch.Tensor,          # (B, Sq, H, D) the fp32 output less out
+    out_lo: torch.Tensor,          # (B, Sq, H, D) the fp32 output less out, or empty
     dout: torch.Tensor,            # (B, Sq, H, D)
     lse: torch.Tensor,             # (B, H, Sq) the forward's logsumexps
     *,
@@ -81,7 +81,8 @@ def packed_attention_bwd_ref(
     dP = dO V^T, delta = rowsum(dO * (out + out_lo)), dS = P (dP - delta),
     dV = P^T dO, dK = dS^T Q / sqrt(D), dQ = dS K / sqrt(D), each KV head's
     summed over its G = H / KVH query heads.  With ``out_lo`` zero, delta
-    comes from the rounded output alone."""
+    comes from the rounded output alone; an empty ``out_lo`` (the fp32
+    forward writes none) takes delta from ``out`` itself."""
     B, Sq, H, D = q.shape
     KVH = k.shape[2]
     G = H // KVH
@@ -92,7 +93,7 @@ def packed_attention_bwd_ref(
     s = qf @ kf.transpose(-1, -2) * scale
     p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
     do = dout.float().transpose(1, 2)
-    o = (out.float() + out_lo.float()).transpose(1, 2)
+    o = (out.float() + out_lo.float() if out_lo.numel() else out.float()).transpose(1, 2)
     delta = (do * o).sum(-1, keepdim=True)
     ds = p * (do @ vf.transpose(-1, -2) - delta)
     dq = ds @ kf * scale

@@ -4,7 +4,9 @@
 // Pallas TPU kernel behind paged_decode_attention.  It computes the same
 // function as ref.paged_attention_ref, not the same blocks:
 //   out[b, h*G + g, :] = softmax_t(q[b, h*G + g] . k[t] / sqrt(D)) @ v[t]
-// over the tokens t < seq_lens[b] of sequence b, where token t lives in
+// over the tokens t < seq_lens[b] of sequence b (and t >= seq_lens[b] -
+// window when window > 0: the sliding window of the JAX package's decode,
+// layers.py:_decode_attention_local), where token t lives in
 // slot t % page_size of page page_table[b, t / page_size] of the pools
 // (num_pages, page_size, KVH, D), and G = H / KVH query heads share KV head
 // h.  q, the pools and out are f32 or bf16; everything is computed in fp32
@@ -19,7 +21,10 @@
 //     package does (entries are also clamped below num_pages, so no table
 //     can make the kernel read outside the pools);
 //   - tokens at or past seq_len in the last live page are masked (never
-//     copied, never read).
+//     copied, never read);
+//   - with a window, pages wholly before seq_len - window are never read;
+//     the tokens before it on the window's first page are copied (they lie
+//     under seq_len) and masked: their scores are -inf, their weights 0.
 //
 // Design: split-KV (flash-decoding) with the combine inside the kernel.
 // The grid is (KV head, sequence, slot).  The host picks the chunk (whole
@@ -29,7 +34,10 @@
 // SM over all B*KVH pairs, of which three fit at once.  Each block reads
 // its sequence's length itself, in place of the TPU's scalar prefetch,
 // and takes its split: the sequence's live chunks dealt to the slots in
-// contiguous runs of ceil(chunks / slots).
+// contiguous runs of ceil(chunks / slots).  With a window the chunks start
+// at the window's first page, max(len - window, 0) / page_size, and the
+// host plans over the pages a window can touch, (window + page_size - 2) /
+// page_size + 1, rather than the whole table.
 //   - A slot past the sequence's splits returns at once and reads nothing;
 //     slot 0 always runs, so a sequence of length 0 still writes its
 //     (zero) output.
@@ -72,7 +80,8 @@
 // Limits, checked by the Python wrapper: G <= 16, D <= 256, D % 8 == 0,
 // and the shared memory of two chunks (their K and V rows, q, p, m, l)
 // within 227 KB; a chunk holds at least one page.  ptxas (-Xptxas -v,
-// CUDA 12.9): 78 registers in bf16, 64 in f32, no spills.
+// CUDA 12.9): 80 registers in bf16, 74 in f32 (78 and 64 before the window), no
+// spills.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -151,7 +160,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                   const int32_t* __restrict__ seq_lens, T* __restrict__ out,
                   float* __restrict__ ws, int* __restrict__ counters,
                   int H, int KVH, int D, int num_pages, int page_size,
-                  int max_pages, int chunk_pages, float scale) {
+                  int max_pages, int chunk_pages, int window, float scale) {
     constexpr int VEC = 16 / sizeof(T);  // elements per 16 bytes
     const int h = blockIdx.x;            // KV head
     const int b = blockIdx.y;            // sequence
@@ -162,12 +171,14 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     const int RS = D + VEC;                  // padded row stride in shared memory
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-    // this sequence's split: its live chunks dealt to the slots in
-    // contiguous runs of `per`; split 0 always runs
+    // this sequence's split: its live chunks, from the window's first page,
+    // dealt to the slots in contiguous runs of `per`; split 0 always runs
     const int len = max(seq_lens[b], 0);
     const int n_live = min((len + page_size - 1) / page_size, max_pages);
     const int live = min(len, n_live * page_size);  // tokens of the live pages
-    const int n_chunks = (n_live + chunk_pages - 1) / chunk_pages;
+    const int first = window > 0 ? max(len - window, 0) : 0;  // the window's first token
+    const int p0 = min(first / page_size, n_live);            // ... and its page
+    const int n_chunks = (n_live - p0 + chunk_pages - 1) / chunk_pages;
     const int per = (n_chunks + slots - 1) / slots;
     const int n_splits = per > 0 ? (n_chunks + per - 1) / per : 1;
     if (slot >= n_splits) return;  // past the live pages: nothing to read
@@ -189,12 +200,14 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     const size_t page_stride = (size_t)page_size * tok_stride;
     const int row_chunks = D / VEC;
 
+    const int tok_p0 = p0 * page_size;  // chunk c0 + s starts at tok_p0 + (c0 + s) TS
+
     // start the copy of chunk c0 + s into buffer `buf`: the K and V rows of
     // its tokens under seq_len, 16 bytes a copy
     auto issue = [&](int s, int buf) {
         T* ks = kv_s + (size_t)(2 * buf) * stage_elems;
         T* vs = ks + stage_elems;
-        const int tok0 = (c0 + s) * TS;
+        const int tok0 = tok_p0 + (c0 + s) * TS;
         const int nt = min(TS, live - tok0);
         for (int c = tid; c < nt * row_chunks; c += THREADS) {
             const int t = c / row_chunks, col = (c - t * row_chunks) * VEC;
@@ -229,7 +242,8 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         __syncthreads();
         const T* ks = kv_s + (size_t)(2 * buf) * stage_elems;
         const T* vs = ks + stage_elems;
-        const int nt = min(TS, live - (c0 + s) * TS);  // >= 1
+        const int tok0 = tok_p0 + (c0 + s) * TS;
+        const int nt = min(TS, live - tok0);  // >= 1, one at least in the window
 
         // scores: one (head, token) pair per thread, 16-byte reads across D
         for (int e = tid; e < G * nt; e += THREADS) {
@@ -243,7 +257,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
                 for (int i = 0; i < VEC; ++i) dot = fmaf(qg[c + i], kv[i], dot);
             }
-            p_s[g * TS + t] = dot * scale;
+            p_s[g * TS + t] = tok0 + t >= first ? dot * scale : NEG_INF;
         }
         __syncthreads();
 
@@ -371,7 +385,7 @@ template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* page_table, const void* seq_lens, void* out, int B,
            int H, int KVH, int D, int num_pages, int page_size, int max_pages,
-           float scale, int chunk_pages, int slots, void* workspace,
+           float scale, int chunk_pages, int slots, int window, void* workspace,
            void* counters, void* stream) {
     const size_t smem = shared_bytes(sizeof(T), H / KVH, D, page_size, chunk_pages);
     auto kernel = paged_attn_kernel<T>;
@@ -386,7 +400,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
         static_cast<const T*>(v_pool), static_cast<const int32_t*>(page_table),
         static_cast<const int32_t*>(seq_lens), static_cast<T*>(out),
         static_cast<float*>(workspace), static_cast<int*>(counters), H, KVH, D,
-        num_pages, page_size, max_pages, chunk_pages, scale);
+        num_pages, page_size, max_pages, chunk_pages, window, scale);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -396,27 +410,28 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 // does not synchronise, and returns cudaGetLastError() after the launch.
 // `workspace` holds B*KVH*slots*G*(D + 2) floats of partials and
 // `counters` B*KVH ints that are 0 on entry and 0 again when the kernel
-// ends; both may be null when slots == 1.
+// ends; both may be null when slots == 1.  `window` > 0 attends to the
+// last `window` tokens of each sequence only; 0 to all.
 extern "C" int paged_attn_f32(const void* q, const void* k_pool, const void* v_pool,
                               const void* page_table, const void* seq_lens, void* out,
                               int B, int H, int KVH, int D, int num_pages,
                               int page_size, int max_pages, float scale,
-                              int chunk_pages, int slots, void* workspace,
+                              int chunk_pages, int slots, int window, void* workspace,
                               void* counters, void* stream) {
     return launch<float>(q, k_pool, v_pool, page_table, seq_lens, out, B, H, KVH, D,
                          num_pages, page_size, max_pages, scale, chunk_pages,
-                         slots, workspace, counters, stream);
+                         slots, window, workspace, counters, stream);
 }
 
 extern "C" int paged_attn_bf16(const void* q, const void* k_pool, const void* v_pool,
                                const void* page_table, const void* seq_lens, void* out,
                                int B, int H, int KVH, int D, int num_pages,
                                int page_size, int max_pages, float scale,
-                               int chunk_pages, int slots, void* workspace,
+                               int chunk_pages, int slots, int window, void* workspace,
                                void* counters, void* stream) {
     return launch<__nv_bfloat16>(q, k_pool, v_pool, page_table, seq_lens, out, B, H,
                                  KVH, D, num_pages, page_size, max_pages, scale,
-                                 chunk_pages, slots, workspace, counters, stream);
+                                 chunk_pages, slots, window, workspace, counters, stream);
 }
 
 extern "C" size_t paged_attn_shared_bytes(int elem_bytes, int G, int D, int page_size,

@@ -7,8 +7,8 @@ GPU-specific happens at import, so CPU-only hosts import this module too.
 
 The kernel splits each sequence's pages across blocks and combines the
 splits inside the same launch (see the source's header).  ``split_plan``
-picks the split from the shapes alone, so a call never reads ``seq_lens``
-on the host.
+picks the split from the shapes (and the sliding window) alone, so a call
+never reads ``seq_lens`` on the host.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import torch
 from ..nvcc import build_library
 
 __all__ = ["build", "paged_decode_attention", "split_plan", "launch_plan",
-           "shared_bytes", "SOURCE", "MAX_G", "MAX_D"]
+           "window_pages", "shared_bytes", "SOURCE", "MAX_G", "MAX_D"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 MAX_G, MAX_D = 16, 256           # the kernel's register plan
@@ -53,8 +53,17 @@ def shared_bytes(elem_bytes: int, G: int, D: int, page_size: int,
     return 4 * ts * _row_bytes(elem_bytes, D) + (G * D + G * ts + 3 * G) * 4 + 4
 
 
+def window_pages(page_size: int, max_pages: int, window: int) -> int:
+    """The most table slots a sequence's attention reads: the whole table,
+    or with a window (> 0) the pages ``window`` tokens can touch, which
+    start anywhere in a page."""
+    if window <= 0:
+        return max_pages
+    return min(max_pages, (window + page_size - 2) // page_size + 1)
+
+
 def split_plan(elem_bytes: int, D: int, page_size: int, max_pages: int,
-               B: int, KVH: int) -> Tuple[int, int]:
+               B: int, KVH: int, window: int = 0) -> Tuple[int, int]:
     """``(chunk_pages, slots)`` for a call, from its shapes alone.
 
     A chunk is the whole pages whose K and V rows fit ``CHUNK_BYTES`` (at
@@ -66,10 +75,12 @@ def split_plan(elem_bytes: int, D: int, page_size: int, max_pages: int,
     waiting ones (both constants from a sweep at the serving decode shape
     on an H100, PERF.md).  The kernel deals a sequence's live chunks to its
     slots in contiguous runs, from its length, which only the card reads:
-    a decode step must not wait for ``seq_lens`` on the host.
+    a decode step must not wait for ``seq_lens`` on the host.  With a
+    ``window`` the chunks cover the window's pages only
+    (``window_pages``), from its first.
     """
     chunk = max(1, CHUNK_BYTES // (2 * page_size * _row_bytes(elem_bytes, D)))
-    chunks = max(1, -(-max_pages // chunk))
+    chunks = max(1, -(-window_pages(page_size, max_pages, window) // chunk))
     slots = max(1, min(chunks, SLOTS_PER_SM * SMS // max(B * KVH, 1)))
     return chunk, slots
 
@@ -87,7 +98,7 @@ def _library() -> ctypes.CDLL:
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             for fn in (lib.paged_attn_f32, lib.paged_attn_bf16):
                 fn.argtypes = ([ptr] * 6 + [i32] * 7 + [ctypes.c_float]
-                               + [i32] * 2 + [ptr] * 3)
+                               + [i32] * 3 + [ptr] * 3)
                 fn.restype = i32
             lib.paged_attn_shared_bytes.argtypes = [i32] * 5
             lib.paged_attn_shared_bytes.restype = ctypes.c_size_t
@@ -106,6 +117,7 @@ def paged_decode_attention(
     v_pool: torch.Tensor,      # (num_pages, page_size, KVH, D)
     page_table: torch.Tensor,  # (B, max_pages) int32, -1 = unused slot
     seq_lens: torch.Tensor,    # (B,) int32
+    window: int = 0,           # > 0: each sequence's last `window` tokens only
 ) -> torch.Tensor:
     """Launch the kernel on the current stream; return ``(B, H, D)`` in
     ``q.dtype``.  Raises on any input it does not take and on a launch the
@@ -162,7 +174,7 @@ def paged_decode_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    chunk, slots, smem = launch_plan(q, k_pool, page_table)
+    chunk, slots, smem = launch_plan(q, k_pool, page_table, window)
     if smem > MAX_SHARED:
         raise ValueError(
             f"one page of {page_size} tokens at D = {D}, G = {G} needs {smem} "
@@ -179,7 +191,7 @@ def paged_decode_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
             B, H, KVH, D, num_pages, page_size, page_table.shape[1], 1.0 / math.sqrt(D),
-            chunk, slots,
+            chunk, slots, max(int(window), 0),
             None if workspace is None else workspace.data_ptr(),
             None if counters is None else counters.data_ptr(),
             stream.cuda_stream,
@@ -191,14 +203,14 @@ def paged_decode_attention(
     return out
 
 
-def launch_plan(q: torch.Tensor, k_pool: torch.Tensor,
-                page_table: torch.Tensor) -> Tuple[int, int, int]:
-    """``(chunk_pages, slots, shared bytes)`` of a call, from the shapes
-    and the element size of its inputs: no value is read."""
+def launch_plan(q: torch.Tensor, k_pool: torch.Tensor, page_table: torch.Tensor,
+                window: int = 0) -> Tuple[int, int, int]:
+    """``(chunk_pages, slots, shared bytes)`` of a call, from the shapes,
+    the window and the element size of its inputs: no value is read."""
     B, H, D = q.shape
     page_size, KVH = k_pool.shape[1], k_pool.shape[2]
     chunk, slots = split_plan(q.element_size(), D, page_size, page_table.shape[1],
-                              B, KVH)
+                              B, KVH, window)
     return chunk, slots, shared_bytes(q.element_size(), H // KVH, D, page_size, chunk)
 
 

@@ -3,8 +3,9 @@
 Runs the IRM-scheduled continuous-batching engine against the
 discrete-time simulated backend (capacity planning / control-plane soak,
 ``--backend sim``), or a real model executing prefill and paged decode
-(``--backend local``): the bf16 weights are drawn from a seeded generator
-on the device, the KV cache is a bf16 First-Fit paged pool, and every
+(``--backend local``): the weights are drawn from a seeded generator on the
+device, the KV cache is a First-Fit paged pool, both bf16 (``run_local``'s
+``dtype`` takes float32, the JAX package's serving dtype), and every
 decode step's attention is the Hopper paged-attention kernel on the card;
 an MoE model's experts run through the grouped-matmul kernel there.  Every
 architecture serves: the recurrent layers carry their states in the cache,
@@ -42,7 +43,7 @@ from ..serving.kv_cache import PagedCacheLayout
 
 PAGE_SIZE = 16          # ReplicaConfig.page_size
 MAX_PAGES_PER_SEQ = 128
-DTYPE = torch.bfloat16  # weights and KV pool
+DTYPE = torch.bfloat16  # weights and KV pool, unless run_local is given another
 
 
 def run_sim(args: argparse.Namespace) -> None:
@@ -67,10 +68,11 @@ def run_sim(args: argparse.Namespace) -> None:
           f"p99 {s['p99_latency']:.2f}s  peak replicas {s['peak_replicas']}")
 
 
-def make_params(model, seed: int, device: torch.device):
-    """The model's bf16 weights, drawn leaf by leaf on ``device`` from ``seed``."""
+def make_params(model, seed: int, device: torch.device, dtype: torch.dtype = DTYPE):
+    """The model's weights in ``dtype`` (bf16 by default), drawn leaf by
+    leaf on ``device`` from ``seed``."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    return init_params(model.param_specs(), gen, DTYPE, device)
+    return init_params(model.param_specs(), gen, dtype, device)
 
 
 def paged_layout(cfg, num_pages: int) -> PagedCacheLayout:
@@ -83,10 +85,12 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return logits.argmax(dim=-1).to(torch.int32)[:, None]
 
 
-def run_local(args: argparse.Namespace) -> Dict[str, Any]:
+def run_local(args: argparse.Namespace, *, dtype: torch.dtype = DTYPE) -> Dict[str, Any]:
     """Prefill a batch of prompts, then decode ``--gen-tokens`` greedy
     tokens per sequence; print the ``served`` line and return the run's
-    counts and host-clock times (each ended by a device synchronise)."""
+    counts and host-clock times (each ended by a device synchronise).
+    ``dtype`` is the weights' and the KV pool's: bf16, or float32 as the
+    JAX package's ``run_local`` serves (its ``init_params`` default)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -97,7 +101,7 @@ def run_local(args: argparse.Namespace) -> Dict[str, Any]:
     if args.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     model = build_model(cfg)
-    params = make_params(model, 0, device)
+    params = make_params(model, 0, device, dtype)
     rng = np.random.default_rng(0)
 
     B = min(args.requests, 8)
@@ -120,7 +124,7 @@ def run_local(args: argparse.Namespace) -> Dict[str, Any]:
         batch["vision_embeds"] = torch.from_numpy(
             rng.normal(size=(B, cfg.frontend_tokens, cfg.d_model)) * 0.02
         ).float().to(device)
-    cache = model.init_paged_cache(paged_layout(cfg, args.pages), DTYPE, device)
+    cache = model.init_paged_cache(paged_layout(cfg, args.pages), dtype, device)
 
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     sync()

@@ -10,7 +10,8 @@ online-softmax (flash) form in plain PyTorch (``flash_attention``): peak
 memory O(chunk^2) instead of O(S^2), differentiable by autograd.  Decode
 attends one new token per sequence against its pages through
 ``kernels.paged_attention`` (the Hopper kernel on the card): its own K/V
-pages, or the encoder's cross K/V pages (``cross_attention_decode``).
+pages, the last ``sliding_window`` tokens of them where the config sets
+one, or the encoder's cross K/V pages (``cross_attention_decode``).
 
 Conventions (the JAX package's):
   q: (B, S, H, D)   k/v: (B, S, KVH, D)   segment_ids: (B, S) int32, 0 = pad
@@ -565,6 +566,8 @@ def decode_attention_distributed(
     v_pool: torch.Tensor,
     page_table: torch.Tensor,  # (B, max_pages) int32, -1 = unused slot
     seq_lens: torch.Tensor,    # (B,) valid tokens per sequence
+    *,
+    window: int = 0,           # > 0: each sequence's last `window` tokens only
 ) -> Optional[torch.Tensor]:
     """Decode attention over a paged pool whose pages a mesh shards: the
     JAX package's distributed flash-decode, on pages.
@@ -604,7 +607,10 @@ def decode_attention_distributed(
     pos0 = pos0.scatter(0, at, (torch.arange(table.shape[1], device=kl.device)
                                 * page_size).repeat(B))[:n_pages]
     lens_of = torch.cat([lens, lens.new_zeros(1)])[seq_of]          # 0 for no sequence
-    valid = (pos0[:, None] + torch.arange(page_size, device=kl.device)) < lens_of[:, None]
+    pos = pos0[:, None] + torch.arange(page_size, device=kl.device)
+    valid = pos < lens_of[:, None]
+    if window > 0:  # the JAX package's window: idx >= cache_len - window
+        valid &= pos >= lens_of[:, None] - window
     q_of = torch.cat([qf, qf.new_zeros(1, H, D)])[seq_of].reshape(n_pages, KVH, G, D)
     s = (q_of @ kl.transpose(-1, -2)) / math.sqrt(D)                # (pages, KVH, G, slots)
     valid = valid[:, None, None, :]
@@ -644,9 +650,10 @@ def attention_decode(
     The token goes to slot ``(cache_len - 1) % page_size`` of page
     ``page_table[b, (cache_len - 1) // page_size]``, which the allocator
     gave it.  The pools are updated in place: the cache is never copied.
+    With ``cfg.sliding_window`` the token attends to the last that many
+    tokens (itself included), as the JAX package's decode does; the pages
+    before them stay allocated, as JAX's dense cache keeps them.
     """
-    if cfg.sliding_window > 0:
-        raise NotImplementedError("the paged decode kernel has no sliding window")
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)
     pos = position.reshape(B, 1)
@@ -664,13 +671,15 @@ def attention_decode(
         _write_local(k_pool, dims, page, slot, k[:, 0])
         _write_local(v_pool, dims, page, slot, v[:, 0])
     return _out_proj(_paged_core(q[:, 0].to(k_pool.dtype), k_pool, v_pool, page_table,
-                                 cache_len).to(x.dtype)[:, None], p["wo"])
+                                 cache_len, cfg.sliding_window).to(x.dtype)[:, None],
+                     p["wo"])
 
 
-def _paged_core(q, k_pool, v_pool, page_table, seq_lens) -> torch.Tensor:
+def _paged_core(q, k_pool, v_pool, page_table, seq_lens, window: int = 0) -> torch.Tensor:
     """The distributed flash-decode where a mesh shards the pools' pages,
     as the JAX package wires it; the paged kernel otherwise."""
-    out = decode_attention_distributed(q, k_pool, v_pool, page_table, seq_lens)
+    out = decode_attention_distributed(q, k_pool, v_pool, page_table, seq_lens,
+                                       window=window)
     if out is None:
         if isinstance(k_pool, DTensor):  # the host's table and lengths, replicated
             mesh = k_pool.device_mesh
@@ -678,7 +687,8 @@ def _paged_core(q, k_pool, v_pool, page_table, seq_lens) -> torch.Tensor:
                 t if isinstance(t, DTensor) else
                 DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
                 for t in (page_table, seq_lens))
-        out = paged_ops.paged_attention(q, k_pool, v_pool, page_table, seq_lens)
+        out = paged_ops.paged_attention(q, k_pool, v_pool, page_table, seq_lens,
+                                        window=window)
     return out
 
 
@@ -693,7 +703,8 @@ def cross_attention_decode(
 ) -> torch.Tensor:
     """One decode step's cross attention: the token's query (no RoPE)
     against the encoder K/V that prefill wrote into the sequence's cross
-    pages, through the paged kernel.  Nothing is written."""
+    pages, through the paged kernel, with no window (as in the JAX
+    package).  Nothing is written."""
     q = _project_q(p, cfg, x)
     out = _paged_core(q[:, 0].to(k_pool.dtype), k_pool, v_pool, page_table, enc_len)
     return _out_proj(out.to(x.dtype)[:, None], p["wo"])

@@ -286,7 +286,7 @@ def test_paged_decode_on_card_launches_once_per_layer_and_step():
 # packed attention, forward and backward
 # ---------------------------------------------------------------------------
 
-# The kernels take bf16 only (float32 on the card raises).  Forward:
+# In bf16 (the float32 kernels' cases follow below).  Forward:
 # tests/test_kernels.py's bf16 TOLS.  Output and gradients: ``rel_l2``
 # (ref.py), ||err|| / ||ref|| over the whole tensor and over each 64-row
 # tile of one head, within REL_L2; the kernels round P and dS to bf16 as
@@ -409,14 +409,18 @@ def test_packed_kernels_are_bitwise_repeatable_on_card(D):
 
 @pytest.mark.cuda
 def test_packed_kernels_refuse_float32_on_card():
+    """float32 beside bf16 (or float16 alone): the kernels take q, k, v all
+    bf16 or all float32, and refuse any other mix before a launch."""
     _need_card()
     from repro_torch.kernels.packed_attention import ops as packed_ops
 
     x = torch.zeros((1, 64, 2, 32), device="cuda")
     seg = torch.ones((1, 64), dtype=torch.int32, device="cuda")
     before = (packed_ops.launches_fwd, packed_ops.launches_bwd)
-    with pytest.raises(TypeError, match="bfloat16"):
-        packed_ops.packed_attention(x, x, x, seg, seg)
+    with pytest.raises(TypeError, match="bfloat16 or all float32"):
+        packed_ops.packed_attention(x, x.bfloat16(), x.bfloat16(), seg, seg)
+    with pytest.raises(TypeError, match="bfloat16 or all float32"):
+        packed_ops.packed_attention(x.half(), x.half(), x.half(), seg, seg)
     assert (packed_ops.launches_fwd, packed_ops.launches_bwd) == before
 
 
@@ -1163,3 +1167,122 @@ def test_family_train_step_matches_its_plain_route_on_card(arch):
         readings, checks = cs._family_routes(torch, arch, model, params, batch, dtype,
                                              cs.FT_LEAVES[arch], *routes)
     assert all(checks.values()), (checks, readings)
+
+
+# ---------------------------------------------------------------------------
+# packed attention in float32 (the SIMT kernels), paged decode with a window
+# ---------------------------------------------------------------------------
+
+# The float32 kernels against the plain version's autograd in fp32: both
+# compute in fp32 throughout and differ in the order of their sums only.
+# The output is held elementwise to test_kernels' f32 TOLS; the output and
+# gradients by rel_l2 (whole tensor, worst 64-row tile of a head) within
+# F32_REL_L2, far under the planted faults of chip_smoke.py's phase 7
+# (0.45 and above whole for delta = 0 in dQ).
+F32_TOLS = dict(rtol=2e-5, atol=2e-5)
+F32_REL_L2 = (1e-5, 1e-4)
+# (S, H, KVH, D, window, causal): every head dim, GQA up to G = 8, a
+# window, ragged lengths, non-causal
+F32_CASES = [(256, 4, 4, 16, 0, True), (384, 4, 1, 32, 0, True), (300, 8, 2, 64, 0, True),
+             (512, 16, 2, 128, 0, True), (640, 4, 2, 128, 192, True),
+             (1000, 4, 4, 64, 0, False), (256, 14, 2, 64, 64, True)]
+
+
+def _f32_packed(case, seed=0):
+    S, H, KVH, D, window, causal = case
+    B = 2
+    rng = np.random.default_rng(seed + S + H + D + window)
+
+    def t(shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32, device="cuda")
+
+    q, k, v, g = t((B, S, H, D)), t((B, S, KVH, D)), t((B, S, KVH, D)), t((B, S, H, D))
+    seg_np = _packed_segments(rng, B, S)
+    seg_np[0] = 1  # one document filling a row: full tiles
+    return (q, k, v, g, torch.tensor(seg_np, device="cuda"), seg_np,
+            dict(causal=causal, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_packed_f32_kernels_match_plain_on_card(case):
+    _need_card()
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+    from repro_torch.kernels.packed_attention.ref import rel_l2
+
+    q, k, v, g, seg, _, kw = _f32_packed(case)
+    before = (packed_ops.launches_fwd, packed_ops.launches_bwd)
+    out, grads = _packed_run(lambda *a: packed_ops.packed_attention(*a, seg, seg, **kw),
+                             q, k, v, g)
+    torch.cuda.synchronize()
+    assert (packed_ops.launches_fwd, packed_ops.launches_bwd) == (before[0] + 1,
+                                                                  before[1] + 1)
+    ref, ref_grads = _packed_run(
+        lambda *a: packed_ops.packed_attention_plain(*a, seg, seg, **kw), q, k, v, g)
+    torch.testing.assert_close(out, ref, **F32_TOLS)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (out, *grads), (ref, *ref_grads),
+                          strict=True):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        whole, tile = rel_l2(a, b)
+        assert whole <= F32_REL_L2[0] and tile <= F32_REL_L2[1], (name, whole, tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_CASES[2:5], ids=lambda c: "x".join(map(str, c)))
+def test_packed_f32_kernels_census_and_repeat_on_card(case):
+    """The float32 kernels class their tiles by the bf16 kernels' rule (the
+    census equals ``ref.tile_schedule``'s count), write no residual, and
+    repeat bitwise."""
+    _need_card()
+    from repro_torch.kernels.packed_attention import kernel as pk
+    from repro_torch.kernels.packed_attention.ref import census_rule
+
+    q, k, v, g, seg, seg_np, kw = _f32_packed(case, seed=1)
+    H, KVH = q.shape[2], k.shape[2]
+    pk.tile_census(on=True)
+    out, lse, lo = pk.packed_flash_attention(q, k, v, seg, seg, residual=True, **kw)
+    grads = pk.packed_flash_attention_bwd(q, k, v, seg, seg, out, lo, g, lse, **kw)
+    census = pk.tile_census(on=False)
+    assert lo.numel() == 0
+    assert census == census_rule(torch.tensor(seg_np), torch.tensor(seg_np), H, KVH, **kw)
+    out2, lse2 = pk.packed_flash_attention(q, k, v, seg, seg, **kw)
+    grads2 = pk.packed_flash_attention_bwd(q, k, v, seg, seg, out2, lo, g, lse2, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2, strict=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 7, 16, 17, 100, 5000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_with_a_window_on_card(dtype, window):
+    """Each sequence's last ``window`` tokens: inside a page, a page, one
+    past it, several pages, longer than every sequence; over the split
+    boundaries of ``_split_inputs`` (length 0, a chunk and one past it, the
+    table's capacity) with the window's plan, held to the plain version and
+    to the split algorithm under the same plan.  Pages wholly before the
+    window are never read: NaN there leaves the output as it is."""
+    _need_card()
+    args, _, _ = _split_inputs(4, 128, 16, dtype)
+    q, kp, vp, table, lens = args
+    elem = torch.tensor([], dtype=dtype).element_size()
+    chunk, slots = paged_kernel.split_plan(elem, 128, 16, table.shape[1], table.shape[0],
+                                           kp.shape[2], window)
+    before = paged_ops.launches
+    out = paged_ops.paged_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert paged_ops.launches == before + 1
+    assert torch.isfinite(out).all() and (out[0] == 0).all()
+    ref = paged_attention_ref(*args, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), **PAGED_TOLS[dtype])
+    split = paged_attention_split_ref(*args, chunk, slots, window=window)
+    torch.testing.assert_close(out.float(), split.float(), **PAGED_TOLS[dtype])
+    # NaN in every page wholly before a sequence's window
+    kn, vn = kp.clone(), vp.clone()
+    for b, n in enumerate(lens.tolist()):
+        for i in range(max(n - window, 0) // 16):
+            if table[b, i] > 0:
+                kn[table[b, i]] = float("nan")
+                vn[table[b, i]] = float("nan")
+    assert torch.equal(paged_ops.paged_attention(q, kn, vn, table, lens, window=window),
+                       out)

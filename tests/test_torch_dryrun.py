@@ -417,9 +417,12 @@ _DECODE_WORKER = textwrap.dedent('''
         q = placed(a["q"], ("batch", "heads", None))
         with activation_sharding(mesh, rules):
             out = decode_attention_distributed(q, k, v, a["table"], a["lens"])
+            out_w = decode_attention_distributed(q, k, v, a["table"], a["lens"],
+                                                 window=int(a["window"]))
             dims = _page_dims(k)
             _write_local(k, dims, a["page"], a["slot"], placed(a["new_k"], ("batch", "kv_heads", None)))
-        res = {"out": out.full_tensor().numpy(), "k_after": k.full_tensor().numpy(),
+        res = {"out": out.full_tensor().numpy(), "out_window": out_w.full_tensor().numpy(),
+               "k_after": k.full_tensor().numpy(),
                "placements": np.array([str(k.placements)])}
         if rank == 0:
             np.savez(sys.argv[3], **res)
@@ -438,7 +441,8 @@ def test_distributed_decode_on_four_ranks_matches_jax(tmp_path):
     ways by page, each sequence's pages scattered over the ranks: the
     distributed decode against JAX's single-device ``decode_attention`` on
     the same cache gathered dense, within 1e-5 of the output's largest
-    value (fp32 throughout; the partials combine in another order).  Then
+    value (fp32 throughout; the partials combine in another order), with
+    no window and with JAX's sliding window of 6 tokens.  Then
     each rank writes a token's K into the pages it holds: the gathered pool
     equals the same writes on one process, bit for bit."""
     import socket
@@ -467,14 +471,14 @@ def test_distributed_decode_on_four_ranks_matches_jax(tmp_path):
     def dense(pool):
         return pool[np.clip(table, 0, None)].reshape(B, max_pages * ps, KVH, D)
 
-    want = np.asarray(jax_decode_attention(
+    want, want_w = (np.asarray(jax_decode_attention(
         jnp.asarray(q[:, None]), jnp.asarray(dense(k_pool)), jnp.asarray(dense(v_pool)),
-        jnp.asarray(lens)))[:, 0]
+        jnp.asarray(lens), window=w))[:, 0] for w in (0, 6))
     k_after = k_pool.copy()
     k_after[page, slot] = new_k
     inputs = tmp_path / "in.npz"
     np.savez(inputs, q=q, k_pool=k_pool, v_pool=v_pool, table=table, lens=lens,
-             page=page, slot=slot, new_k=new_k)
+             page=page, slot=slot, new_k=new_k, window=np.int32(6))
     script = tmp_path / "worker.py"
     script.write_text(_DECODE_WORKER)
     with socket.socket() as s:
@@ -488,6 +492,8 @@ def test_distributed_decode_on_four_ranks_matches_jax(tmp_path):
     got = np.load(tmp_path / "out.npz")
     assert "Shard(dim=0), Shard(dim=0)" in str(got["placements"][0])
     assert np.abs(got["out"] - want).max() <= 1e-5 * np.abs(want).max()
+    assert np.abs(got["out_window"] - want_w).max() <= 1e-5 * np.abs(want_w).max()
+    assert np.abs(want_w - want).max() > 1e-2  # the window acts
     np.testing.assert_array_equal(got["k_after"], k_after)
 
 
@@ -555,9 +561,11 @@ def test_paged_operator_fake_matches_its_plain_version():
     k_pool, v_pool = torch.randn(6, 4, 2, 16, generator=g), torch.randn(6, 4, 2, 16, generator=g)
     table = torch.tensor([[0, 3, -1], [5, 1, 2]], dtype=torch.int32)
     lens = torch.tensor([6, 11], dtype=torch.int32)
-    _opcheck(torch.ops.repro_torch.paged_attention.default, (q, k_pool, v_pool, table, lens))
-    assert torch.equal(torch.ops.repro_torch.paged_attention(q, k_pool, v_pool, table, lens),
-                       paged_ops.paged_attention(q, k_pool, v_pool, table, lens))
+    for window in (0, 5):  # none, and a sliding window inside the table
+        args = (q, k_pool, v_pool, table, lens, window)
+        _opcheck(torch.ops.repro_torch.paged_attention.default, args)
+        assert torch.equal(torch.ops.repro_torch.paged_attention(*args),
+                           paged_ops.paged_attention(*args[:5], window=window))
 
 
 def test_meta_stand_ins_take_the_kernel_route_and_launch_nothing():

@@ -309,7 +309,7 @@ def paged_parts(torch, np, cs) -> None:
             lib = ctypes.CDLL(str(libs[name]))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.paged_attn_bf16.argtypes = ([ptr] * 6 + [i32] * 7 + [ctypes.c_float]
-                                            + [i32] * 2 + [ptr] * 3)
+                                            + [i32] * 3 + [ptr] * 3)
             lib.paged_attn_bf16.restype = i32
             lib.paged_attn_error_string.argtypes = [i32]
             lib.paged_attn_error_string.restype = ctypes.c_char_p
