@@ -71,14 +71,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    and each shape's record goes into the kernels
    line under ``by_shape``; then the forward alone at ``qwen3-moe-30b-a3b``'s
    prefill shape (8 x 1024, 32 query over 4 KV heads);
-7b. the packed kernels' float32 instances (SIMT, fp32 throughout, no
-   residual), forward and backward, against the autograd of their plain
-   version in fp32 (``PACKED_F32_TOLS``, ``PACKED_F32_REL_L2``, phase 7's
-   planted faults above them, a second launch bitwise equal, the tile
-   census equal to ``ref.tile_schedule``'s at every head dim): olmo-1b's
-   train shape cut to the 2 rows phase 11d trains, the serving prefill
-   shape, then D = 16, 32, 64 and 128 at 2 x 1024; times beside the bound
-   (fp32 on the CUDA cores, 67 TFLOP/s) and sdpa in fp32 with TF32 off;
+7b. the packed kernels' float32 instances (3xTF32 on the tensor cores,
+   no residual), forward and backward, against the autograd of their plain
+   version in fp32 (TF32 off: ``PACKED_F32_TOLS``, ``PACKED_F32_REL_L2``,
+   phase 7's planted faults above them and, at 2 x 1024 and D = 128, one
+   pass of plain TF32 (``ref.packed_attention_tf32``) as a third, a second
+   launch bitwise equal, the tile census equal to ``ref.tile_schedule``'s at
+   every head dim): olmo-1b's train shape cut to the 2 rows phase 11d
+   trains, the serving prefill shape, then D = 16, 32, 64 and 128 at 2 x
+   1024; times beside two bounds (fp32 on the CUDA cores, 67 TFLOP/s, and
+   3xTF32 on the tensor cores, 165 TFLOP/s), each as TFLOP/s of visible
+   work and its share of both, and sdpa in fp32 with TF32 off;
 8. the attention block at full width: the first layer's
    ``layers.attention`` of ``olmo-1b`` and of ``qwen3-8b`` on that
    multi-document batch, output and gradients of its input and its four
@@ -289,8 +292,10 @@ MP_RUNS = (("default", {}, 0.2), ("full", PAYLOAD_FULL, 2.0))
 FULL_TIME_SCALE, MAX_DEVICE_BUSY = 0.05, 0.4
 
 # H100 SXM data sheet, dense: fp32 on the CUDA cores, bf16 on the tensor
-# cores, device-memory bandwidth
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# cores, device-memory bandwidth; "tf32x3": fp32 products as three TF32
+# products on the tensor cores (495 TFLOP/s of TF32, a third of it), the
+# packed kernels' float32 route
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 
 # the paged kernel at the serving run's decode shape: 8 sequences, qwen3-8b's
@@ -336,17 +341,22 @@ DIST_ARGV = ["--arch", "olmo-1b", "--shape", "train_4k", "--steps", str(DIST_STE
 PACKED_TOLS = (2e-2, 2e-2)          # (rtol, atol), test_kernels TOLS in bf16
 PACKED_REL_L2 = (1e-2, 2e-2)        # (whole tensor, worst 64-row tile of a head)
 MULTI_SEGMENT_SEARCH = 16           # packed batches searched for 2+ documents a row
-# The packed kernels' float32 instances (phase 7b; SIMT, fp32 throughout, no
-# residual) against the plain version's autograd in fp32: the two differ in
-# the order of their sums only.  The forward is held elementwise to
-# test_kernels' f32 TOLS; the output and dQ, dK, dV by relative l2 within
-# PACKED_F32_REL_L2, far under the planted faults (a key tile hidden, delta
-# = 0 in dQ), which must read above it.  olmo-1b's train shape, cut to the
+# The packed kernels' float32 instances (phase 7b; 3xTF32 on the tensor
+# cores, no residual) against the plain version's autograd in fp32 (TF32
+# off): the two differ in the order of their sums and in the kernels'
+# dropped lo.lo partial products (about 2^-22 of each product).  The
+# forward is held elementwise to test_kernels' f32 TOLS; the output and dQ,
+# dK, dV by relative l2 within PACKED_F32_REL_L2, far under the planted
+# faults (a key tile hidden, delta = 0 in dQ, and one pass of plain TF32),
+# which must read above it.  olmo-1b's train shape, cut to the
 # 2 rows the fp32 training phase takes, and the serving prefill shape, then
 # each head dim at 2 rows of 1024 tokens, 8 query over 2 KV heads, two
 # documents a row.
 PACKED_F32_TOLS = (2e-5, 2e-5)
 PACKED_F32_REL_L2 = (1e-5, 1e-4)
+# where phase 7b plants one pass of plain TF32 as a fault, which must read
+# above PACKED_F32_REL_L2
+F32_TF32_FAULT_CASE = "f32 D=128"
 F32_TRAIN_ROWS = 2
 F32_HEAD_DIMS = (16, 32, 64, 128)
 # The attention block at full width in bf16 (phase 8), kernels against the
@@ -1154,26 +1164,31 @@ def _visible_pairs(np, seg):
     return pairs
 
 
-def _packed_bound(kind, pairs, B, S, H, KVH, D, dtype, Skv=None, residual=False):
-    """(bound ms, what bounds it) for the forward (``fwd``: S = QK^T and
-    P.V, 4 D flops per visible pair and head) or the backward (``bwd``: S
-    recomputed, dP, dV, dK, dQ, 10 D), each input read once and each output
-    written once: in bf16 the forward writes the output's residual too
-    when ``residual`` (a training forward), the backward always reads it;
-    in float32 there is none."""
+def _packed_flops(kind, pairs, H, D):
+    """The visible work: 4 D flops a visible pair and head forward (S = QK^T
+    and P.V), 10 D backward (S recomputed, dP, dV, dK, dQ)."""
+    return (4.0 if kind == "fwd" else 10.0) * D * H * pairs
+
+
+def _packed_bound(kind, pairs, B, S, H, KVH, D, dtype, Skv=None, residual=False, peak=None):
+    """(bound ms, what bounds it) for the forward (``fwd``) or the backward
+    (``bwd``): ``_packed_flops`` over the peak of ``dtype`` (or of ``peak``,
+    a key of PEAK_FLOPS: ``tf32x3`` for the float32 kernels' tensor-core
+    route), each input read once and each output written once: in bf16 the
+    forward writes the output's residual too when ``residual`` (a training
+    forward), the backward always reads it; in float32 there is none."""
     f32 = dtype == "float32"
     item = 4 if f32 else 2
     lo = 0 if f32 else 1  # the residual's tensors
     Skv = S if Skv is None else Skv  # S is the queries' length
     q_el, kv_el = B * S * H * D, B * Skv * KVH * D
     seg_b, lse_b = (B * S + B * Skv) * 4, B * H * S * 4
+    flops = _packed_flops(kind, pairs, H, D)
     if kind == "fwd":
-        flops = 4.0 * D * H * pairs
         nbytes = ((2 + lo * residual) * q_el + 2 * kv_el) * item + seg_b + lse_b
     else:
-        flops = 10.0 * D * H * pairs
         nbytes = ((4 + lo) * q_el + 4 * kv_el) * item + seg_b + lse_b
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / PEAK_FLOPS[peak or dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -1224,6 +1239,30 @@ def _planted_faults(torch, packed_ops, rel_l2, q, k, v, g, seg, ref_out, ref_gra
         delta = (g[b:b + 1].float() * ref_out[b:b + 1].float()).sum(-1, keepdim=True)
         dq0[b:b + 1] = ref_grads[0][b:b + 1].float() + delta * pk.float() / D ** 0.5
     return {"key tile hidden": tile, "delta = 0": {"dq": rel_l2(dq0, ref_grads[0])}}
+
+
+def _tf32_fault(torch, rel_l2, q, k, v, g, seg, ref_out, ref_grads):
+    """What the error measure reads for the float32 kernels' products taken
+    as one pass of plain TF32 (hi.hi: ``ref.packed_attention_tf32`` and
+    ``ref.packed_attention_bwd_tf32`` with ``passes=1``, causal, a row of
+    the batch at a time), against the plain version's output and gradients:
+    the fault 3xTF32 exists to avoid."""
+    from repro_torch.kernels.packed_attention.ref import (
+        packed_attention_bwd_tf32,
+        packed_attention_tf32,
+    )
+
+    out = torch.empty_like(ref_out, dtype=torch.float32)
+    grads = [torch.empty_like(t, dtype=torch.float32) for t in ref_grads]
+    for b in range(q.shape[0]):
+        rows = [t[b:b + 1] for t in (q, k, v)]
+        o, lse = packed_attention_tf32(*rows, seg[b:b + 1], seg[b:b + 1], passes=1)
+        out[b:b + 1] = o
+        for dst, x in zip(grads, packed_attention_bwd_tf32(
+                *rows, seg[b:b + 1], seg[b:b + 1], o, g[b:b + 1], lse, passes=1)):
+            dst[b:b + 1] = x
+    return {n: rel_l2(a, b) for n, a, b in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                                               (ref_out, *ref_grads))}
 
 
 def _kernel_run(packed_ops, q, k, v, g, seg, seg_kv=None, causal=True):
@@ -1465,6 +1504,8 @@ def packed_f32_phase(torch, np):
     from repro_torch.kernels.packed_attention import kernel as pk
     from repro_torch.kernels.packed_attention import ops as packed_ops
 
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("the plain version's fp32 products must not run in TF32")
     dev = torch.device("cuda")
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     rows = next(_train_batches(F32_TRAIN_ROWS)).segment_ids
@@ -1478,7 +1519,8 @@ def packed_f32_phase(torch, np):
     for name, B, S_, H_, KVH_, D_, seg, trained in cases:
         fwd[name], bwd[name] = _family_packed_case(
             torch, np, pk, packed_ops, name, B, S_, S_, H_, KVH_, D_, True, flush,
-            trained=trained, seg=seg, tag="packed-f32", dtype=torch.float32)
+            trained=trained, seg=seg, tag="packed-f32", dtype=torch.float32,
+            tf32_fault=name == F32_TF32_FAULT_CASE)
     del flush
     torch.cuda.empty_cache()
     return fwd, bwd
@@ -2935,7 +2977,7 @@ JAMBA_FIRST_STEP_TOL = 0.1
 
 
 def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, causal,
-                        flush, trained, seg=None, tag="family", dtype=None):
+                        flush, trained, seg=None, tag="family", dtype=None, tf32_fault=False):
     """The packed kernels, forward and backward, against the autograd of
     their plain version at one of the new shapes: TOLS and relative l2 as in
     phase 7 (phase 7b's in float32), a second launch bitwise equal, the tile
@@ -2947,8 +2989,11 @@ def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, 
     (B, Sq), when given, is the segment ids of queries and keys alike
     (packed rows), a pair of them those of the queries and of the keys;
     else every row is one segment.  Causal self-attention also gets phase
-    7's planted faults, which must read above the limits.  ``dtype``: bf16
-    (the default) or float32."""
+    7's planted faults, which must read above the limits; ``tf32_fault``
+    adds one more, the float32 kernels' products as one pass of plain TF32
+    (``ref.packed_attention_tf32`` with ``passes=1``).  ``dtype``: bf16 (the
+    default) or float32, whose readings also stand beside the 3xTF32
+    bound and as TFLOP/s of visible work."""
     dtype = dtype or torch.bfloat16
     f32 = dtype == torch.float32
     (rtol, atol), limits = ((PACKED_F32_TOLS, PACKED_F32_REL_L2) if f32 else
@@ -3006,6 +3051,9 @@ def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, 
     if causal and Sq == Skv:
         faults = _planted_faults(torch, packed_ops, rel_l2, q, k, v, g, seg_q,
                                  ref_out, ref_grads)
+        if tf32_fault:
+            faults["plain TF32 (1 pass)"] = _tf32_fault(torch, rel_l2, q, k, v, g, seg_q,
+                                                        ref_out, ref_grads)
         checks["each planted fault reads above the limits"] = all(
             not _within(f, limits) for f in faults.values())
     print(f"[{tag}] packed {name}: B={B} Sq={Sq} Skv={Skv} H={H} KVH={KVH} D={D} "
@@ -3057,16 +3105,34 @@ def _family_packed_case(torch, np, pk, packed_ops, name, B, Sq, Skv, H, KVH, D, 
           f"sdpa {sdpa_fwd_ms:.4f} ms, bound {fb:.4f} ms ({fb_by}); backward "
           f"{bwd_ms:.4f} ms, plain {plain_bwd_ms:.4f} ms, sdpa {sdpa_bwd_ms:.4f} ms, "
           f"bound {bb:.4f} ms ({bb_by})")
+    fwd_rec = {"max_abs_err": err_out, "ms": fwd_ms[trained], "plain_ms": plain_fwd_ms,
+               "bound_ms": fb, "bound_by": fb_by, "library_ms": sdpa_fwd_ms,
+               "residual": trained, f"{other}_residual_ms": fwd_ms[not trained],
+               "rel_l2": readings["out"], "census": census["forward"]}
+    bwd_rec = {"max_abs_err": max(err_g), "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+               "bound_ms": bb, "bound_by": bb_by, "library_ms": sdpa_bwd_ms,
+               "rel_l2": {n: readings[n] for n in ("dq", "dk", "dv")},
+               "census": census["dk/dv"]}
+    if f32:
+        # the same readings against the route's own ceiling: 3xTF32 on the
+        # tensor cores, beside the CUDA cores' fp32 bound above
+        for kind, rec, bound in (("fwd", fwd_rec, fb), ("bwd", bwd_rec, bb)):
+            b3, b3_by = _packed_bound(kind, pairs, B, Sq, H, KVH, D, dname, Skv,
+                                      trained and kind == "fwd", peak="tf32x3")
+            rec.update({"tflops": _packed_flops(kind, pairs, H, D) / rec["ms"] / 1e9,
+                        "bound_tf32x3_ms": b3, "bound_tf32x3_by": b3_by,
+                        "share_of_bound": bound / rec["ms"],
+                        "share_of_bound_tf32x3": b3 / rec["ms"]})
+        print(f"[{tag}] packed {name}: " + "; ".join(
+            f"{kind} {rec['tflops']:.1f} TFLOP/s of visible work, "
+            f"{rec['share_of_bound']:.3f} of the fp32 bound ({rec['bound_ms']:.4f} ms at "
+            f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s), {rec['share_of_bound_tf32x3']:.3f} "
+            f"of the 3xTF32 bound ({rec['bound_tf32x3_ms']:.4f} ms at "
+            f"{PEAK_FLOPS['tf32x3'] / 1e12:.0f} TFLOP/s)"
+            for kind, rec in (("forward", fwd_rec), ("backward", bwd_rec))))
     del q, k, v, g
     torch.cuda.empty_cache()
-    return ({"max_abs_err": err_out, "ms": fwd_ms[trained], "plain_ms": plain_fwd_ms,
-             "bound_ms": fb, "bound_by": fb_by, "library_ms": sdpa_fwd_ms,
-             "residual": trained, f"{other}_residual_ms": fwd_ms[not trained],
-             "rel_l2": readings["out"], "census": census["forward"]},
-            {"max_abs_err": max(err_g), "ms": bwd_ms, "plain_ms": plain_bwd_ms,
-             "bound_ms": bb, "bound_by": bb_by, "library_ms": sdpa_bwd_ms,
-             "rel_l2": {n: readings[n] for n in ("dq", "dk", "dv")},
-             "census": census["dk/dv"]})
+    return fwd_rec, bwd_rec
 
 
 def _cuts(n, B):

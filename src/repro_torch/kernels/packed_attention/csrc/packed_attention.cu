@@ -11,8 +11,8 @@
 // (window > 0), where G = H / KVH query heads share a KV head.  q, out, dq
 // are (B, Sq, H, D); k, v, dk, dv are (B, Skv, KVH, D); the segment ids are
 // (B, S) int32.  Inputs and outputs are bf16 (the training and serving
-// dtype) or, in the float32 kernels at the end (every head dim, SIMT), fp32;
-// softmax statistics, masks and every sum are fp32.
+// dtype) or, in the float32 kernels at the end (every head dim, 3xTF32 on
+// the tensor cores), fp32; softmax statistics, masks and every sum are fp32.
 //
 // Semantics the tests pin (those of the Pallas kernel and of jax.grad):
 //   - a query row with no visible key (segment 0, or alone in a window that
@@ -100,7 +100,8 @@
 // their ranges).  Checked here, at D = 64 and 128: a block's tile schedule
 // (a byte per tile in range) fits the card's shared memory beside its
 // stages, which on an H100 holds rows of over 4 million keys and queries
-// (the float32 kernels, beside their fp32 tiles: over 3 million).
+// (the float32 kernels at D = 128, beside their hi/lo tiles: 229 thousand
+// keys in the forward, 245 thousand in dQ, 106 thousand queries in dK/dV).
 //
 // Tile census.  packed_attn_tile_census turns on counting, per kernel
 // (forward, dK/dV, dQ: the bf16 ones at D = 64 and 128, the float32 ones at
@@ -1020,11 +1021,13 @@ __device__ __forceinline__ void query_range(int k0, int bk, int bq, int Sq, int 
 // Every warp of the block (WARPS of them) classifies its share of the n
 // tiles that the fixed tile (`fixed`, at row f0) meets; cls[i] is tile
 // begin + i's class.  With the census on, each warp adds its classes to
-// g_census[CENSUS].
+// g_census[CENSUS] (where `count`: of the blocks that share a fixed tile,
+// one counts it).
 template <int TF, int TV, bool FIXED_IS_QUERY, int CENSUS, int WARPS = HOP_WARPS>
 __device__ __forceinline__ void build_schedule(const int* seg_f, int f0, int nf,
                                                const int* seg_v, int nv, int begin, int n,
-                                               int causal, int window, uint8_t* cls) {
+                                               int causal, int window, uint8_t* cls,
+                                               bool count = true) {
     const int warp = threadIdx.x >> 5;
     const SegSummary fixed = seg_summary<TF>(seg_f, f0, nf);
     unsigned masked = 0, full = 0, all = 0;
@@ -1039,7 +1042,7 @@ __device__ __forceinline__ void build_schedule(const int* seg_f, int f0, int nf,
         full += c == FULL;
         ++all;
     }
-    if ((threadIdx.x & 31) == 0 && all > 0 && g_census_on) {
+    if ((threadIdx.x & 31) == 0 && all > 0 && count && g_census_on) {
         atomicAdd(&g_census[CENSUS][SKIP], (unsigned long long)(all - masked - full));
         atomicAdd(&g_census[CENSUS][MASKED], (unsigned long long)masked);
         atomicAdd(&g_census[CENSUS][FULL], (unsigned long long)full);
@@ -1777,197 +1780,447 @@ packed_attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// float32, every head dim: fp32 FMA on the CUDA cores (SIMT)
+// float32, every head dim: 3xTF32 on the tensor cores (wgmma)
 // ---------------------------------------------------------------------------
 //
 // The bf16 kernels' function, grids and tile schedule (the forward and dQ
 // over 128 x 128 tile pairs, dK/dV over 64 queries by 128 keys, each pair
-// classed by build_schedule and counted in the tile census), in fp32
-// throughout: P is not rounded for P.V (the Pallas kernel rounds p to the
-// value type, which in fp32 leaves it as it is), and the forward writes no
-// residual, since its fp32 output is the output jax.grad takes delta from:
-// the backward's delta is rowsum(dO * out).  The products run as fp32 FMA,
-// not TF32: TF32's 10-bit mantissa would part the output from the fp32
-// reference by about 1e-3, far over the 2e-5 the tests hold it to.
+// classed by build_schedule and counted in the tile census), in fp32: P is
+// not rounded for P.V (the Pallas kernel rounds p to the value type, which
+// in fp32 leaves it as it is), and the forward writes no residual, since
+// its fp32 output is the output jax.grad takes delta from: the backward's
+// delta is rowsum(dO * out).
 //
-// A block of 256 threads (a 16 x 16 grid, ty = tid / 16, tx = tid % 16)
-// walks its 128 fixed rows (queries in the forward and dQ, keys in dK/dV)
-// as two halves of 64, one after the other, and each kept tile of the
-// schedule in chunks of 64 rows of the other side; a chunk wholly outside
-// the half's causal or window limits is passed over (all its pairs are
-// masked: a no-op).  Tiles are fp32 in shared memory in the model layout,
-// rows padded by 16 bytes.  A thread owns rows ty + 16 i (i < 4) of the half:
-// columns tx + 16 j (j < 4) of a 64 x 64 score tile, which goes through
-// shared memory to the next product, and D / 16 columns of each (64, D) sum,
-// VEC of them side by side from VEC tx, in groups 16 VEC apart.  Each read
-// of shared memory in the products is 16 bytes a thread where D allows, free
-// of bank conflicts; a row's softmax statistics reduce over the 16 threads of
-// its half-warp.  Loads are plain (no pipeline): the kernels are bound by
-// the CUDA cores' FMAs, 4 D a visible pair forward and 14 D backward (S and
-// dP are recomputed in both dK/dV and dQ), at 67 TFLOP/s on an H100.
+// Products.  Each runs on the tensor cores as 3xTF32: every operand x is
+// split into x_hi = tf32(x), rounded to nearest with ties away from zero as
+// cvt.rna.tf32.f32 rounds, and x_lo = tf32(x - x_hi), and a product A.B is
+// A_lo.B_hi + A_hi.B_lo + A_hi.B_hi summed in fp32 (wgmma m64nNk8 .tf32,
+// fp32 accumulators).  Each partial product of two TF32 values is exact in
+// fp32 and only A_lo.B_lo (about 2^-22 of |A||B|) is dropped; one pass of
+// plain TF32 would part the output from fp32 by about 1e-3
+// (ref.packed_attention_tf32 models both; the tests hold the 3-pass model
+// to the 2e-5 of test_kernels and see the 1-pass one miss it, and phase 7b
+// plants it on the card).  The tensor core reads a .tf32 operand by
+// dropping its low 13 bits, so both parts are rounded to TF32 before they
+// are stored, and the dropped bits are zero.  The tensor core also adds
+// into its fp32 accumulator by truncation, whose bias grows with the
+// number of adds: each product of a chunk starts a fresh accumulator and
+// is added to the running sum by an FADD (rounded to nearest).  Softmax
+// statistics, masks and every sum stay fp32, with expf.
+//
+// Layout.  .tf32 wgmma reads its shared-memory operands K-major only (the
+// contraction contiguous): a (rows, C) fp32 operand is C / 32 boxes of
+// (rows, 32) with the 128-byte swizzle, head dims under 32 padded to 32.
+// Every tile goes through registers on its way in and is split there, once
+// per load.  A product over the sequence takes its score-tile operand from
+// the accumulator: as an A operand in registers (P.V, dS K), split there,
+// with the other operand stored transposed (V^T, K^T, the sequence
+// contiguous) -- an accumulator thread holds columns 2t and 2t + 1 of each
+// 8-column group where the TF32 A fragment takes columns t and t + 4, so
+// those tiles store sequence position j of each group of 8 at 4 (j & 1) +
+// j / 2 (f32_pos), which pairs each A column with its B row at no cost --
+// or, in dK/dV, as a B tile stored from the accumulator (P^T, dS^T, keys
+// by queries), with the A operand (dO^T, Q^T) read as fragments straight
+// from the natural Q and dO tiles (t_frags): no transposed copy of them.
+//
+// Shared memory decides the cuts: a 64-row tile of D = 128 is 64 KB as a
+// hi/lo pair, and the fixed tiles and one stage of the streamed ones fill
+// the card's 227 KB (no second stage).  A block has two warpgroups (256
+// threads); every thread helps fill the stage between two barriers, and
+// both warpgroups issue every product alike, on operands picked by
+// warpgroup (a wgmma on a branch is serialised by ptxas).
+//   - Forward: each warpgroup owns 64 of the block's 128 queries (Q hi/lo
+//     for all 128: 128 KB at D = 128) and takes the kept key tiles in
+//     chunks of BK keys (32 at D = 128, else 64): S = Q K^T, the online
+//     softmax, O += P V (in two halves of D's columns).  The next chunk's
+//     K and V stream into staging by cp.async while this one's products
+//     run: a load into registers would hold the products back, since
+//     wgmma.fence waits for the warp's outstanding loads.
+//   - dQ: one block per 64 of a 128-query tile (Q and dO hi/lo: 128 KB at
+//     D = 128), key chunks of BK with K, V and K^T (loaded into registers
+//     a chunk ahead: no room for staging); warpgroup 0 takes S = Q K^T and
+//     P, warpgroup 1 dP = dO V^T, they swap them through shared memory, and
+//     each forms dS = P (dP - delta) and takes half of dQ's columns.
+//   - dK/dV: one block per 64 of a 128-key tile (K and V hi/lo), query
+//     chunks of BQC (32 at D = 128, else 64) of each kept 64-query tile,
+//     each of the G heads in turn; warpgroup 0 takes S^T = K Q^T, P^T and
+//     dV^T += dO^T P^T, warpgroup 1 dP^T = V dO^T, dS^T and dK^T += Q^T
+//     dS^T, P^T handed over in fp32 (named barriers).  The G heads of a KV
+//     head sum into the same accumulators; no sum needs atomics.
+//   The tile schedule is the 128-row tile's: both blocks of a tile build
+//   it and one counts it in the census; a block passes over the chunks
+//   wholly outside its 64 rows' causal or window range.
+// The work is 4 D flops a visible pair forward and 14 D backward (S and dP
+// are recomputed in both dK/dV and dQ), three times over on the tensor
+// cores: 495 / 3 = 165 TFLOP/s of fp32 products on an H100, against 67 on
+// its CUDA cores.  At D = 128 the score products are 32 wide, where an
+// operand read from shared memory costs more than its product.
 
-constexpr int F32_THREADS = 256;
+constexpr int F32_THREADS = 2 * WG;
 constexpr int F32_WARPS = F32_THREADS / 32;
-constexpr int F32_ROWS = 64;  // a half of the fixed tile, a chunk of the other side
 
-// TILES (64, D) tiles and PTILES 64 x 64 score tiles, then the segment ids,
-// lse and delta of 64 rows each, then a class a tile of the schedule.
-template <int D, int TILES, int PTILES>
-struct F32Layout {
-    static constexpr int LD = D + 4, LDP = F32_ROWS + 16;
-    static constexpr int TILE = F32_ROWS * LD, PTILE = F32_ROWS * LDP;  // floats
-    static constexpr int STATS = TILES * TILE + PTILES * PTILE;
-    static constexpr int CLS = (STATS + 4 * F32_ROWS) * 4;               // bytes
-    static size_t bytes(int tiles) { return (size_t)CLS + tiles; }
-};
-template <int D> using F32Fwd = F32Layout<D, 3, 1>;   // Q, K, V; P
-template <int D> using F32Dkdv = F32Layout<D, 4, 2>;  // K, V, Q, dO; P^T, dS^T
-template <int D> using F32Dq = F32Layout<D, 4, 1>;    // Q, dO, K, V; dS
-
-template <int D> constexpr int F32_VEC = D >= 64 ? 4 : D / 16;  // columns side by side
-
-// Rows row0 .. row0 + 63 of one head (row stride rs) into a (64, D) tile;
-// rows at or past n are 0.
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int row0, int n,
-                                              long rs) {
-    constexpr int C4 = D / 4, LD = D + 4;
-    for (int i = threadIdx.x; i < F32_ROWS * C4; i += F32_THREADS) {
-        const int r = i / C4, c = (i - r * C4) * 4;
-        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row0 + r < n)
-            x = __ldg(reinterpret_cast<const float4*>(src + (long)(row0 + r) * rs + c));
-        *reinterpret_cast<float4*>(dst + r * LD + c) = x;
-    }
+// x rounded to TF32 (10 explicit mantissa bits, to nearest, ties away from
+// zero: the rounding cvt.rna.tf32.f32 does), as the fp32 pattern the tensor
+// core reads unchanged.  In integer arithmetic, the sign-magnitude pattern
+// plus half the dropped part, which carries into the exponent as rounding
+// does: two integer operations in place of a conversion, which issues on
+// the slower conversion pipe (two a value, with its remainder's).
+__device__ __forceinline__ float tf32_rna(float x) {
+    return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
 }
 
-// s[i][j] = A[ty + 16 i] . B[tx + 16 j] over D, for (64, D) tiles A and B.
-template <int D>
-__device__ __forceinline__ void score_f32(float (&s)[4][4], const float* A, const float* B) {
-    constexpr int LD = D + 4;
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+__device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
+    hi = tf32_rna(x);
+    lo = tf32_rna(x - hi);
+}
+
+// Where a transposed B tile keeps sequence position j of its chunk (the
+// header's pairing of accumulator and fragment columns).
+__device__ __forceinline__ int f32_pos(int j) {
+    return (j & ~7) | ((j & 1) << 2) | ((j & 7) >> 1);
+}
+
+// The byte offset of columns 4 c4 .. 4 c4 + 3 of row r of an (R, *) fp32
+// operand tile: boxes of (R, 32) with the 128-byte swizzle, as f32_desc and
+// f32_kofs read them.
+template <int R>
+__device__ __forceinline__ int f32_chunk(int r, int c4) {
+    return (c4 >> 3) * R * 128 + r * 128 + (((c4 & 7) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Copies into shared memory that write no register (cp.async): of 16 or 4
+// bytes, zero-filled where !valid (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "r"(valid ? 4 : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ROWS rows of one head (row stride rs; rows at or past n read as 0),
+// D floats each, as float4s spread over the block: a warp takes 8 rows by
+// 4 float4s, so that its stores into the swizzled tiles meet few bank
+// conflicts.
+template <int ROWS, int D>
+struct F32Rows {
+    static constexpr int N = ROWS * D / 4 / F32_THREADS;
+    static_assert(N * 4 * F32_THREADS == ROWS * D && ROWS % 8 == 0, "whole warps of rows");
+    float4 x[N];
+
+    __device__ static void where(int it, int& r, int& c4) {
+        const int e = threadIdx.x + F32_THREADS * it, lane = e & 31, bi = e >> 5;
+        r = 8 * (bi / (D / 16)) + (lane & 7);
+        c4 = 4 * (bi % (D / 16)) + (lane >> 3);
+    }
+
+    // The same rows copied into staging, each thread's float4s into slots
+    // of its own (it * F32_THREADS + thread), which only it reads back.
+    __device__ static __forceinline__ void stage(unsigned char* st, const float* src, int row0,
+                                                 int n, long rs) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+        for (int it = 0; it < N; ++it) {
+            int r, c4;
+            where(it, r, c4);
+            const bool in = row0 + r < n;
+            cp_async16(st + (it * F32_THREADS + threadIdx.x) * 16,
+                       in ? src + (long)(row0 + r) * rs + 4 * c4 : src, in);
+        }
+    }
+    __device__ __forceinline__ void unstage(const unsigned char* st) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-        float4 a[4], b[4];
+        for (int it = 0; it < N; ++it)
+            x[it] = *reinterpret_cast<const float4*>(st + (it * F32_THREADS + threadIdx.x) * 16);
+    }
+
+    __device__ __forceinline__ void load(const float* src, int row0, int n, long rs) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-            a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * LD + d);
+        for (int it = 0; it < N; ++it) {
+            int r, c4;
+            where(it, r, c4);
+            x[it] = row0 + r < n
+                        ? __ldg(reinterpret_cast<const float4*>(src + (long)(row0 + r) * rs + 4 * c4))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+    }
+
+    // Split into a (ROWS, D) hi/lo pair of K-major tiles.
+    __device__ __forceinline__ void put(unsigned char* hi, unsigned char* lo) const {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-            b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * LD + d);
+        for (int it = 0; it < N; ++it) {
+            int r, c4;
+            where(it, r, c4);
+            float4 h, l;
+            tf32_split(x[it].x, h.x, l.x);
+            tf32_split(x[it].y, h.y, l.y);
+            tf32_split(x[it].z, h.z, l.z);
+            tf32_split(x[it].w, h.w, l.w);
+            *reinterpret_cast<float4*>(hi + f32_chunk<ROWS>(r, c4)) = h;
+            *reinterpret_cast<float4*>(lo + f32_chunk<ROWS>(r, c4)) = l;
+        }
+    }
+
+    // Split into a (D, *) hi/lo pair of transposed tiles: row r goes to
+    // column f32_pos(r).
+    __device__ __forceinline__ void put_t(unsigned char* hi, unsigned char* lo) const {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int it = 0; it < N; ++it) {
+            int r, c4;
+            where(it, r, c4);
+            const int col = f32_pos(r);
+            const float v[4] = {x[it].x, x[it].y, x[it].z, x[it].w};
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                float x = fmaf(a[i].x, b[j].x, s[i][j]);
-                x = fmaf(a[i].y, b[j].y, x);
-                x = fmaf(a[i].z, b[j].z, x);
-                s[i][j] = fmaf(a[i].w, b[j].w, x);
+            for (int e = 0; e < 4; ++e) {
+                const int off = f32_chunk<D>(4 * c4 + e, col >> 2) + (col & 3) * 4;
+                float h, l;
+                tf32_split(v[e], h, l);
+                *reinterpret_cast<float*>(hi + off) = h;
+                *reinterpret_cast<float*>(lo + off) = l;
             }
+        }
+    }
+};
+
+// d (64 x N) = A . B over K (3xTF32), on the tensor cores.  A is rows
+// a_row0 .. a_row0 + 63 of an (AR, K) hi/lo pair, B an (N, K) pair, both
+// K-major in shared memory (the boxes and swizzle of f32_chunk); or A is
+// KS k-steps of hi/lo TF32 fragments in registers and B an (N, 8 KS) pair.
+// Each starts a fresh sum: the tensor core adds into its fp32 accumulator
+// by truncation, whose bias grows with the number of adds, so a product
+// over a chunk is summed into the running total by an FADD (rounded to
+// nearest) instead.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                              int scale_d);
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<8>(float (&d)[4], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<16>(float (&d)[8], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<32>(float (&d)[16], uint64_t a, uint64_t b,
+                                                int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<32>(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<64>(float (&d)[32], uint64_t a, uint64_t b,
+                                                int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// A K-major operand's descriptor (sw128_desc, lbo 0) at shared address
+// addr, and the offset of k-step kk (8 columns) in an (R, *) tile.
+__device__ __forceinline__ uint64_t f32_desc(uint32_t addr) {
+    return (static_cast<uint64_t>((1024 >> 4) | (1u << 30)) << 32) | ((addr & 0x3FFFF) >> 4);
+}
+template <int R>
+__device__ __forceinline__ uint32_t f32_kofs(int kk) {
+    return (kk >> 2) * R * 128 + (kk & 3) * 32;
+}
+
+// Shared addresses made opaque where the products are issued, so that their
+// descriptors are formed there (an add each) and not held across the loop
+// around them (64 of them at D = 128 would take 128 registers).
+__device__ __forceinline__ void opaque1(uint32_t& x) { asm volatile("" : "+r"(x)); }
+template <typename... T>
+__device__ __forceinline__ void opaque(T&... x) {
+    (opaque1(x), ...);
+}
+
+template <int K, int N, int AR>
+__device__ __forceinline__ void gemm3_ss(float (&d)[N / 2], const unsigned char* a_hi,
+                                         const unsigned char* a_lo, int a_row0,
+                                         const unsigned char* b_hi, const unsigned char* b_lo) {
+    uint32_t ah = smem_u32(a_hi) + a_row0 * 128, al = smem_u32(a_lo) + a_row0 * 128;
+    uint32_t bh = smem_u32(b_hi), bl = smem_u32(b_lo);
+    opaque(ah, al, bh, bl);
+#pragma unroll
+    for (int kk = 0; kk < K / 8; ++kk)
+        wgmma_tf32_ss<N>(d, f32_desc(al + f32_kofs<AR>(kk)), f32_desc(bh + f32_kofs<N>(kk)),
+                         kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < K / 8; ++kk)
+        wgmma_tf32_ss<N>(d, f32_desc(ah + f32_kofs<AR>(kk)), f32_desc(bl + f32_kofs<N>(kk)), 1);
+#pragma unroll
+    for (int kk = 0; kk < K / 8; ++kk)
+        wgmma_tf32_ss<N>(d, f32_desc(ah + f32_kofs<AR>(kk)), f32_desc(bh + f32_kofs<N>(kk)), 1);
+}
+
+// d = A . B, B rows b_row0 .. b_row0 + N - 1 of a (BR, 8 KS) pair.
+template <int N, int KS, int BR = N>
+__device__ __forceinline__ void gemm3_rs(float (&d)[N / 2], const uint32_t (&a_hi)[KS][4],
+                                         const uint32_t (&a_lo)[KS][4],
+                                         const unsigned char* b_hi, const unsigned char* b_lo,
+                                         int b_row0 = 0) {
+    uint32_t bh = smem_u32(b_hi) + b_row0 * 128, bl = smem_u32(b_lo) + b_row0 * 128;
+    opaque(bh, bl);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+        wgmma_tf32_rs<N>(d, a_lo[kk], f32_desc(bh + f32_kofs<BR>(kk)), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+        wgmma_tf32_rs<N>(d, a_hi[kk], f32_desc(bl + f32_kofs<BR>(kk)), 1);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+        wgmma_tf32_rs<N>(d, a_hi[kk], f32_desc(bh + f32_kofs<BR>(kk)), 1);
+}
+
+// The hi/lo TF32 A fragments of a 64 x N accumulator tile: k-step kk takes
+// columns 8 kk .. 8 kk + 7, fragment column t from accumulator column 2 t
+// and t + 4 from 2 t + 1 (f32_pos pairs the B rows with them).
+template <int N>
+__device__ __forceinline__ void split_frags(uint32_t (&hi)[N / 8][4], uint32_t (&lo)[N / 8][4],
+                                            const float (&s)[N / 2]) {
+#pragma unroll
+    for (int kk = 0; kk < N / 8; ++kk) {
+        const float v[4] = {s[4 * kk], s[4 * kk + 2], s[4 * kk + 1], s[4 * kk + 3]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            float h, l;
+            tf32_split(v[e], h, l);
+            hi[kk][e] = __float_as_uint(h);
+            lo[kk][e] = __float_as_uint(l);
+        }
     }
 }
 
-// A thread's D / 16 columns of a row of a (64, D) tile.
+// No pair of queries [q_first, q_last] and keys [k_first, k_last] lies
+// inside the causal and window limits.
+__device__ __forceinline__ bool f32_outside(int q_first, int q_last, int k_first, int k_last,
+                                            int causal, int window) {
+    return (causal && k_first > q_last) || (window > 0 && q_first - k_last >= window);
+}
+
+// The chunks of CH rows of the other side that a block walks: chunk kc of kept tile i of the schedule, TILE rows a tile, taken
+// in order, passing over chunks past the end or outside the fixed rows'
+// causal and window range.  seek moves (i, kc) to the next chunk at or
+// after it and says whether there is one.
+template <int TILE, int CH, bool FIXED_IS_QUERY>
+struct F32Chunks {
+    const uint8_t* cls;
+    int n, t0, len, f_first, f_last, causal, window;
+
+    __device__ __forceinline__ int row0(int i, int kc) const { return (t0 + i) * TILE + kc * CH; }
+
+    __device__ __forceinline__ bool seek(int& i, int& kc) const {
+        for (;; ++i, kc = 0) {
+            if (i >= n) return false;
+            if (cls[i] == SKIP) continue;
+            for (; kc < TILE / CH; ++kc) {
+                const int r0 = row0(i, kc);
+                if (r0 >= len) break;
+                const bool out = FIXED_IS_QUERY
+                                     ? f32_outside(f_first, f_last, r0, r0 + CH - 1, causal, window)
+                                     : f32_outside(r0, r0 + CH - 1, f_first, f_last, causal, window);
+                if (!out) return true;
+            }
+        }
+    }
+};
+
+// ---- forward ----
+
 template <int D>
-__device__ __forceinline__ void load_cols(float (&m)[D / 16], const float* row) {
-    constexpr int VEC = F32_VEC<D>;
-    const int tx = threadIdx.x & 15;
-#pragma unroll
-    for (int g = 0; g < D / (16 * VEC); ++g) {
-        const float* p = row + VEC * tx + 16 * VEC * g;
-        if constexpr (VEC == 4) {
-            const float4 x = *reinterpret_cast<const float4*>(p);
-            m[4 * g] = x.x, m[4 * g + 1] = x.y, m[4 * g + 2] = x.z, m[4 * g + 3] = x.w;
-        } else if constexpr (VEC == 2) {
-            const float2 x = *reinterpret_cast<const float2*>(p);
-            m[2 * g] = x.x, m[2 * g + 1] = x.y;
-        } else {
-            m[g] = *p;
-        }
-    }
-}
+struct F32Fwd {
+    static constexpr int DP = D < 32 ? 32 : D;   // the tiles' padded row
+    static constexpr int BQ = 128, BK = D == 128 ? 32 : 64;
+    static constexpr int QB = BQ * DP * 4, KB = BK * DP * 4, VB = D * BK * 4;
+    static constexpr int Q_HI = 0, Q_LO = QB;
+    static constexpr int K_HI = 2 * QB, K_LO = K_HI + KB;  // K: (BK, D)
+    static constexpr int V_HI = K_LO + KB, V_LO = V_HI + VB;  // V^T: (D, BK)
+    static constexpr int SK = V_LO + VB, SV = SK + BK * D * 4;  // the next chunk, raw
+    static constexpr int KSEG = SV + BK * D * 4;               // int [BK], and staged
+    static constexpr int CLS = KSEG + 2 * BK * 4;
+    static size_t bytes(int tiles) { return (size_t)CLS + tiles + 1024; }
+};
 
-// The same columns of a row in device memory, each times `mul`.
-template <int D>
-__device__ __forceinline__ void store_cols(float* row, const float (&x)[D / 16], float mul) {
-    constexpr int VEC = F32_VEC<D>;
-    const int tx = threadIdx.x & 15;
-#pragma unroll
-    for (int g = 0; g < D / (16 * VEC); ++g) {
-        float* p = row + VEC * tx + 16 * VEC * g;
-        if constexpr (VEC == 4) {
-            *reinterpret_cast<float4*>(p) = make_float4(x[4 * g] * mul, x[4 * g + 1] * mul,
-                                                        x[4 * g + 2] * mul, x[4 * g + 3] * mul);
-        } else if constexpr (VEC == 2) {
-            *reinterpret_cast<float2*>(p) = make_float2(x[2 * g] * mul, x[2 * g + 1] * mul);
-        } else {
-            *p = x[g] * mul;
-        }
-    }
-}
-
-// acc[i] += sum_r P[ty + 16 i][r] M[r] (the thread's columns) over the 64
-// rows r of M, for a 64 x 64 score tile P and a (64, D) tile M.
-template <int D>
-__device__ __forceinline__ void mix_f32(float (&acc)[4][D / 16], const float* P,
-                                        const float* M) {
-    constexpr int LD = D + 4, LDP = F32_ROWS + 16;
-    const int ty = threadIdx.x >> 4;
-#pragma unroll 2
-    for (int r = 0; r < F32_ROWS; r += 4) {
-        float p[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const float4 x = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * LDP + r);
-            p[i][0] = x.x, p[i][1] = x.y, p[i][2] = x.z, p[i][3] = x.w;
-        }
-#pragma unroll
-        for (int rr = 0; rr < 4; ++rr) {
-            float m[D / 16];
-            load_cols<D>(m, M + (r + rr) * LD);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int c = 0; c < D / 16; ++c) acc[i][c] = fmaf(p[i][rr], m[c], acc[i][c]);
-        }
-    }
-}
-
-// The thread's entries of a 64 x 64 score tile into shared memory.
-__device__ __forceinline__ void store_scores(float* P, const float (&s)[4][4]) {
-    constexpr int LDP = F32_ROWS + 16;
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) P[(ty + 16 * i) * LDP + tx + 16 * j] = s[i][j];
-}
-
-// x reduced over the 16 threads of a half-warp (the threads of one row).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-    return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    return x;
-}
-
-// The 64 queries from q0 and the 64 keys from k0 hold no pair inside the
-// causal and window limits.
-__device__ __forceinline__ bool chunk_outside(int q0, int k0, int causal, int window) {
-    return (causal && k0 > q0 + F32_ROWS - 1) ||
-           (window > 0 && q0 - (k0 + F32_ROWS - 1) >= window);
-}
-
-// Forward: one block per (128 queries, head, row), the query tiles last to
-// first, as the bf16 forward takes them.
+// One block per (128 queries, head, row), the query tiles last to first,
+// as the bf16 forward takes them.
 template <int D>
 __global__ void __launch_bounds__(F32_THREADS, 1)
 packed_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -1976,24 +2229,18 @@ packed_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict_
                            float* __restrict__ lse, int Sq, int Skv, int H, int KVH, int causal,
                            int window, float scale) {
     using L = F32Fwd<D>;
-    constexpr int NC = D / 16, BT = 128;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    float* Qs = reinterpret_cast<float*>(smem_raw);
-    float* Ks = Qs + L::TILE;
-    float* Vs = Ks + L::TILE;
-    float* Ps = Vs + L::TILE;
-    int* segq_s = reinterpret_cast<int*>(Ps + L::PTILE);
-    int* segk_s = segq_s + F32_ROWS;
-    uint8_t* cls = reinterpret_cast<uint8_t*>(smem_raw) + L::CLS;
+    constexpr int BT = L::BQ, BK = L::BK;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* sm = align1024(smem_raw);
+    int* kseg = reinterpret_cast<int*>(sm + L::KSEG);
+    uint8_t* cls = sm + L::CLS;
 
     const int nq = (Sq + BT - 1) / BT;
     const int q0 = (nq - 1 - (int)blockIdx.x) * BT, h = blockIdx.y, b = blockIdx.z;
     const int kh = h / (H / KVH);
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
     const long q_rs = (long)H * D, kv_rs = (long)KVH * D;
     const int* sq_row = seg_q + (long)b * Sq;
     const int* sk_row = seg_kv + (long)b * Skv;
-    const float* qb = q + (long)b * Sq * q_rs + (long)h * D;
     const float* kb = k + (long)b * Skv * kv_rs + (long)kh * D;
     const float* vb = v + (long)b * Skv * kv_rs + (long)kh * D;
 
@@ -2001,111 +2248,190 @@ packed_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict_
     key_range(q0, BT, BT, Skv, causal, window, kt0, n);
     build_schedule<BT, BT, true, CENSUS_FWD, F32_WARPS>(sq_row, q0, Sq, sk_row, Skv, kt0, n,
                                                         causal, window, cls);
-    for (int half = 0; half < 2; ++half) {
-        const int qh = q0 + F32_ROWS * half;
-        if (qh >= Sq) break;
-        __syncthreads();  // the schedule is in; the last half is done with Qs
-        load_tile_f32<D>(Qs, qb, qh, Sq, q_rs);
-        load_row<int>(segq_s, sq_row, qh, Sq, 0);
-        __syncthreads();
-        int qi[4], sq[4];
-        float m[4], l[4], acc[4][NC];
+    {
+        F32Rows<BT, D> rq;
+        rq.load(q + (long)b * Sq * q_rs + (long)h * D, q0, Sq, q_rs);
+        rq.put(sm + L::Q_HI, sm + L::Q_LO);
+    }
+    __syncthreads();  // the schedule is in
+
+    const int c = threadIdx.x / WG, tid = threadIdx.x % WG;
+    const int w = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+    const int qw0 = q0 + 64 * c;  // the warpgroup's rows
+    int qi[2], sq[2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            qi[i] = qh + ty + 16 * i;
-            sq[i] = segq_s[ty + 16 * i];
-            m[i] = NEG_INF;
-            l[i] = 0.f;
+    for (int hr = 0; hr < 2; ++hr) {
+        qi[hr] = qw0 + 16 * w + g + 8 * hr;
+        sq[hr] = qi[hr] < Sq ? __ldg(sq_row + qi[hr]) : 0;
+    }
+    // l: this thread's part of the row sums of p (its columns)
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    float o[D / 2];
 #pragma unroll
-            for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+    for (int x = 0; x < D / 2; ++x) o[x] = 0.f;
+
+    // The next chunk's K, V and key ids stream into staging by cp.async
+    // while this one's products run (a load into registers would hold the
+    // products back: wgmma.fence waits for the warp's outstanding loads);
+    // each thread splits its own staged rows into the stage once every
+    // product is done with it.
+    const F32Chunks<BT, BK, true> chunks{cls, n, kt0, Skv, q0, q0 + BT - 1, causal, window};
+    int* kseg_st = kseg + BK;
+    auto fetch = [&](int k1) {
+        F32Rows<BK, D>::stage(sm + L::SK, kb, k1, Skv, kv_rs);
+        F32Rows<BK, D>::stage(sm + L::SV, vb, k1, Skv, kv_rs);
+        if (threadIdx.x < BK) {
+            const bool in = k1 + threadIdx.x < Skv;
+            cp_async4(kseg_st + threadIdx.x, in ? sk_row + k1 + threadIdx.x : sk_row, in);
         }
-        for (int t = 0; t < n; ++t) {
-            const uint8_t cl = cls[t];
-            if (cl == SKIP) continue;
-            for (int kc = 0; kc < BT / F32_ROWS; ++kc) {
-                const int k0 = (kt0 + t) * BT + F32_ROWS * kc;
-                if (k0 >= Skv || chunk_outside(qh, k0, causal, window)) continue;
-                __syncthreads();  // the last chunk's P.V is done with Ks, Vs and Ps
-                load_tile_f32<D>(Ks, kb, k0, Skv, kv_rs);
-                load_tile_f32<D>(Vs, vb, k0, Skv, kv_rs);
-                load_row<int>(segk_s, sk_row, k0, Skv, 0);
-                __syncthreads();
-                float s[4][4];
-                score_f32<D>(s, Qs, Ks);
-                uint32_t ok = 0xffffu;
+        cp_async_commit();
+    };
+    int i = 0, kc = 0;
+    bool have = chunks.seek(i, kc);
+    if (have) fetch(chunks.row0(i, kc));
+    while (have) {
+        const int k0 = chunks.row0(i, kc);
+        const uint8_t cl = cls[i];
+        cp_async_wait<0>();
+        F32Rows<BK, D> rk, rv;
+        rk.unstage(sm + L::SK);
+        rv.unstage(sm + L::SV);
+        const int kseg_v = threadIdx.x < BK ? kseg_st[threadIdx.x] : 0;
+        __syncthreads();  // every product of the last chunk is done with the stage
+        rk.put(sm + L::K_HI, sm + L::K_LO);
+        rv.put_t(sm + L::V_HI, sm + L::V_LO);
+        if (threadIdx.x < BK) kseg[threadIdx.x] = kseg_v;
+        fence_async_smem();
+        __syncthreads();
+        ++kc;
+        have = chunks.seek(i, kc);
+        if (have) fetch(chunks.row0(i, kc));
+
+        float s[BK / 2];
+        wg_fence();
+        gemm3_ss<D, BK, BT>(s, sm + L::Q_HI, sm + L::Q_LO, 64 * c, sm + L::K_HI, sm + L::K_LO);
+        wg_commit();
+        wg_wait<0>();
+        keep(s);
+        // the online softmax; accumulator x is row half (x >> 1) & 1,
+        // column 8 (x >> 2) + 2 t + (x & 1)
+        uint32_t ok = ~0u;
+        float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    float mx = NEG_INF;
+        for (int x = 0; x < BK / 2; ++x) {
+            const int hr = (x >> 1) & 1, col = 8 * (x >> 2) + 2 * t + (x & 1);
+            if (cl == MASKED && !visible(qi[hr], k0 + col, sq[hr], kseg[col], causal, window))
+                ok &= ~(1u << x);
+            s[x] = (ok >> x) & 1u ? s[x] * scale : NEG_INF;
+            mx[hr] = fmaxf(mx[hr], s[x]);
+        }
+        float alpha[2], rs[2] = {0.f, 0.f};
 #pragma unroll
-                    for (int j = 0; j < 4; ++j) {
-                        const int kcol = tx + 16 * j;
-                        if (cl == MASKED &&
-                            !visible(qi[i], k0 + kcol, sq[i], segk_s[kcol], causal, window)) {
-                            ok &= ~(1u << (4 * i + j));
-                            s[i][j] = NEG_INF;
-                        } else {
-                            s[i][j] *= scale;
-                        }
-                        mx = fmaxf(mx, s[i][j]);
-                    }
-                    const float m_new = fmaxf(m[i], row_max(mx));
-                    const float alpha = expf(m[i] - m_new);
-                    float sum = 0.f;
+        for (int hr = 0; hr < 2; ++hr) {
+            float x = mx[hr];
+            x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+            x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+            const float m_new = fmaxf(m[hr], x);
+            alpha[hr] = expf(m[hr] - m_new);
+            m[hr] = m_new;
+        }
 #pragma unroll
-                    for (int j = 0; j < 4; ++j) {
-                        s[i][j] = (ok >> (4 * i + j)) & 1u ? expf(s[i][j] - m_new) : 0.f;
-                        sum += s[i][j];
-                    }
-                    l[i] = alpha * l[i] + row_sum(sum);
-                    m[i] = m_new;
+        for (int x = 0; x < BK / 2; ++x) {
+            const int hr = (x >> 1) & 1;
+            s[x] = (ok >> x) & 1u ? expf(s[x] - m[hr]) : 0.f;
+            rs[hr] += s[x];
+        }
 #pragma unroll
-                    for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-                }
-                store_scores(Ps, s);
-                __syncthreads();
-                mix_f32<D>(acc, Ps, Vs);
+        for (int hr = 0; hr < 2; ++hr) l[hr] = alpha[hr] * l[hr] + rs[hr];
+        uint32_t ph[BK / 8][4], pl[BK / 8][4];
+        split_frags<BK>(ph, pl, s);
+#pragma unroll
+        for (int part = 0; part < 2; ++part) {  // P V, half of D's columns at a time
+            float pv[D / 4];
+            wg_fence();
+            gemm3_rs<D / 2, BK / 8, D>(pv, ph, pl, sm + L::V_HI, sm + L::V_LO, part * D / 2);
+            wg_commit();
+            wg_wait<0>();
+            keep(pv);
+            keep(ph);
+            keep(pl);
+#pragma unroll
+            for (int x = 0; x < D / 4; ++x) {
+                float& ox = o[part * D / 4 + x];
+                ox = fmaf(ox, alpha[(x >> 1) & 1], pv[x]);
             }
         }
-        const long o0 = (long)b * Sq * q_rs + (long)h * D;
+    }
+
+    const long o0 = (long)b * Sq * q_rs + (long)h * D;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            if (qi[i] >= Sq) continue;
-            store_cols<D>(out + o0 + (long)qi[i] * q_rs, acc[i], 1.f / fmaxf(l[i], 1e-30f));
-            if (tx == 0)
-                lse[((long)b * H + h) * Sq + qi[i]] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
-        }
+    for (int hr = 0; hr < 2; ++hr) {
+        float x = l[hr];
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        if (qi[hr] >= Sq) continue;
+        const float inv = 1.f / fmaxf(x, 1e-30f);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+            *reinterpret_cast<float2*>(out + o0 + (long)qi[hr] * q_rs + 8 * j + 2 * t) =
+                make_float2(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
+        if (t == 0) lse[((long)b * H + h) * Sq + qi[hr]] = x > 0.f ? m[hr] + logf(x) : INFINITY;
     }
 }
 
-// P and dS of the thread's entries of a 64 x 64 tile, in place of s (the
-// scores) and dp (the dO . V products); rows are queries (dQ) or keys (dK/dV).
-template <bool ROW_IS_QUERY>
-__device__ __forceinline__ void p_and_ds_f32(float (&s)[4][4], float (&dp)[4][4], uint8_t cl,
-                                             int row0, int col0, const int* seg_rows,
-                                             const int* seg_cols, const float* lse_s,
-                                             const float* delta_s, int causal, int window,
-                                             float scale) {
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+// ---- dK/dV ----
+
+// Named barriers among the block's two warpgroups (256 threads) or one
+// (128, the warpgroup's own id).
+constexpr int NB_HAND = 1, NB_WG1 = 2, NB_WG = 3;
+
+__device__ __forceinline__ void nb_sync(int id, int count) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void nb_arrive(int id, int count) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+template <int D>
+struct F32Dkdv {
+    static constexpr int DP = D < 32 ? 32 : D;
+    static constexpr int BQ = 64;                  // the schedule's query tiles
+    static constexpr int BQC = D == 128 ? 32 : 64;  // a chunk of one
+    static constexpr int MT = D > 64 ? D / 64 : 1;  // 64-row tiles of dK^T, dV^T
+    static constexpr int KB = 64 * DP * 4, QB = BQC * DP * 4, PB = 64 * BQC * 4;
+    static constexpr int K_HI = 0, K_LO = KB, V_HI = 2 * KB, V_LO = 3 * KB;  // the half's keys
+    static constexpr int Q_HI = 4 * KB, Q_LO = Q_HI + QB, DO_HI = Q_LO + QB, DO_LO = DO_HI + QB;
+    static constexpr int PT_HI = DO_LO + QB, PT_LO = PT_HI + PB;     // P^T: (64 keys, BQC)
+    static constexpr int DST_HI = PT_LO + PB, DST_LO = DST_HI + PB;  // dS^T
+    static constexpr int STATS = DST_LO + PB;      // lse, delta, seg: [BQC] each
+    static constexpr int CLS = STATS + 3 * BQC * 4;
+    static constexpr int EXCH = DST_HI;            // P^T in fp32, before dS^T is stored
+    static size_t bytes(int tiles) { return (size_t)CLS + tiles + 1024; }
+};
+
+// The hi/lo TF32 A fragments of T^T's rows d0 + 16 w + g (+ 8), k-steps over
+// the BQC rows of T: T a natural (BQC, D) pair (already split), read in
+// place; rows d >= D of T^T read 0.  Fragment column t is T's row 8 kk + t.
+template <int D, int BQC>
+__device__ __forceinline__ void t_frags(uint32_t (&hi)[BQC / 8][4], uint32_t (&lo)[BQC / 8][4],
+                                        const unsigned char* t_hi, const unsigned char* t_lo,
+                                        int d0) {
+    const int tid = threadIdx.x % WG, w = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < BQC / 8; ++kk)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int r = ty + 16 * i, c = tx + 16 * j;
-            const int qrow = ROW_IS_QUERY ? r : c;
-            const bool ok =
-                cl == FULL ||
-                (ROW_IS_QUERY ? visible(row0 + r, col0 + c, seg_rows[r], seg_cols[c], causal,
-                                        window)
-                              : visible(col0 + c, row0 + r, seg_cols[c], seg_rows[r], causal,
-                                        window));
-            const float p = ok ? expf(s[i][j] * scale - lse_s[qrow]) : 0.f;
-            s[i][j] = p;
-            dp[i][j] = p * (dp[i][j] - delta_s[qrow]);
+        for (int e = 0; e < 4; ++e) {
+            const int d = d0 + 16 * w + g + 8 * (e & 1), r = 8 * kk + t + 4 * (e >> 1);
+            const int off = f32_chunk<BQC>(r, d >> 2) + (d & 3) * 4;
+            const bool in = D >= 64 || d < D;
+            hi[kk][e] = in ? *reinterpret_cast<const uint32_t*>(t_hi + off) : 0u;
+            lo[kk][e] = in ? *reinterpret_cast<const uint32_t*>(t_lo + off) : 0u;
         }
 }
 
-// dK/dV: one block per (128 keys, KV head, row); the G query heads of its
-// KV head are summed in, each query tile's heads one after the other.
+// One block per (64 of a tile's 128 keys, KV head, row); the G query heads
+// of its KV head are summed in, each query chunk's heads one after the
+// other.
 template <int D>
 __global__ void __launch_bounds__(F32_THREADS, 1)
 packed_attn_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -2115,83 +2441,202 @@ packed_attn_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict
                             float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
                             int H, int KVH, int causal, int window, float scale) {
     using L = F32Dkdv<D>;
-    constexpr int NC = D / 16, BK_ = 128, BQ_ = 64;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    float* Ks = reinterpret_cast<float*>(smem_raw);
-    float* Vs = Ks + L::TILE;
-    float* Qs = Vs + L::TILE;
-    float* dOs = Qs + L::TILE;
-    float* Ps = dOs + L::TILE;
-    float* dSs = Ps + L::PTILE;
-    int* segk_s = reinterpret_cast<int*>(dSs + L::PTILE);
-    int* segq_s = segk_s + F32_ROWS;
-    float* lse_s = reinterpret_cast<float*>(segq_s + F32_ROWS);
-    float* delta_s = lse_s + F32_ROWS;
-    uint8_t* cls = reinterpret_cast<uint8_t*>(smem_raw) + L::CLS;
+    constexpr int BT = 128, BQ = L::BQ, BQC = L::BQC, MT = L::MT;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* sm = align1024(smem_raw);
+    float* st_lse = reinterpret_cast<float*>(sm + L::STATS);
+    float* st_delta = st_lse + BQC;
+    int* st_seg = reinterpret_cast<int*>(st_delta + BQC);
+    float* exch = reinterpret_cast<float*>(sm + L::EXCH);
+    uint8_t* cls = sm + L::CLS;
 
-    const int k0 = blockIdx.x * BK_, kh = blockIdx.y, b = blockIdx.z;
+    const int k0 = (blockIdx.x >> 1) * BT, kh = blockIdx.y, b = blockIdx.z;
+    const int kh0 = k0 + 64 * (blockIdx.x & 1);  // the block's half of the 128 keys
+    if (kh0 >= Skv) return;
     const int G = H / KVH;
-    const int ty = threadIdx.x >> 4;
     const long q_rs = (long)H * D, kv_rs = (long)KVH * D;
     const long kv_off = (long)b * Skv * kv_rs + (long)kh * D;
     const int* sq_row = seg_q + (long)b * Sq;
     const int* sk_row = seg_kv + (long)b * Skv;
 
     int qt0, n;
-    query_range(k0, BK_, BQ_, Sq, causal, window, qt0, n);
-    build_schedule<BK_, BQ_, false, CENSUS_DKDV, F32_WARPS>(sk_row, k0, Skv, sq_row, Sq, qt0, n,
-                                                            causal, window, cls);
-    for (int half = 0; half < 2; ++half) {
-        const int kh0 = k0 + F32_ROWS * half;
-        if (kh0 >= Skv) break;
-        __syncthreads();  // the schedule is in; the last half is done with Ks and Vs
-        load_tile_f32<D>(Ks, k + kv_off, kh0, Skv, kv_rs);
-        load_tile_f32<D>(Vs, v + kv_off, kh0, Skv, kv_rs);
-        load_row<int>(segk_s, sk_row, kh0, Skv, 0);
-        float gk[4][NC], gv[4][NC];
+    query_range(k0, BT, BQ, Sq, causal, window, qt0, n);
+    build_schedule<BT, BQ, false, CENSUS_DKDV, F32_WARPS>(sk_row, k0, Skv, sq_row, Sq, qt0, n,
+                                                          causal, window, cls, kh0 == k0);
+    const int c = threadIdx.x / WG, tid = threadIdx.x % WG;
+    const int w = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+
+    {
+        __syncthreads();  // the schedule is in
+        {
+            F32Rows<64, D> rk;
+            rk.load(k + kv_off, kh0, Skv, kv_rs);
+            rk.put(sm + L::K_HI, sm + L::K_LO);
+            rk.load(v + kv_off, kh0, Skv, kv_rs);
+            rk.put(sm + L::V_HI, sm + L::V_LO);
+        }
+        int kj[2], sk[2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int hr = 0; hr < 2; ++hr) {
+            kj[hr] = kh0 + 16 * w + g + 8 * hr;
+            sk[hr] = kj[hr] < Skv ? __ldg(sk_row + kj[hr]) : 0;
+        }
+        float acc[MT][32];  // dV^T (warpgroup 0) or dK^T (warpgroup 1): rows d, columns keys
 #pragma unroll
-            for (int c = 0; c < NC; ++c) gk[i][c] = gv[i][c] = 0.f;
-        for (int t = 0; t < n; ++t) {
-            const uint8_t cl = cls[t];
-            const int q0 = (qt0 + t) * BQ_;
-            if (cl == SKIP || chunk_outside(q0, kh0, causal, window)) continue;
-            for (int hg = 0; hg < G; ++hg) {
-                const int h = kh * G + hg;
-                const long q_off = (long)b * Sq * q_rs + (long)h * D;
-                const long r_off = ((long)b * H + h) * Sq;
-                __syncthreads();  // the last products are done with Qs, dOs, Ps and dSs
-                load_tile_f32<D>(Qs, q + q_off, q0, Sq, q_rs);
-                load_tile_f32<D>(dOs, dout + q_off, q0, Sq, q_rs);
-                load_row<int>(segq_s, sq_row, q0, Sq, 0);
-                load_row<float>(lse_s, lse + r_off, q0, Sq, INFINITY);
-                load_row<float>(delta_s, delta + r_off, q0, Sq, 0.f);
-                __syncthreads();
-                // S^T = K Q^T and dP^T = V dO^T for the half's keys
-                float s[4][4], dp[4][4];
-                score_f32<D>(s, Ks, Qs);
-                score_f32<D>(dp, Vs, dOs);
-                p_and_ds_f32<false>(s, dp, cl, kh0, q0, segk_s, segq_s, lse_s, delta_s, causal,
-                                    window, scale);
-                store_scores(Ps, s);
-                store_scores(dSs, dp);
-                __syncthreads();
-                mix_f32<D>(gv, Ps, dOs);  // dV += P^T dO
-                mix_f32<D>(gk, dSs, Qs);  // dK += dS^T Q
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int x = 0; x < 32; ++x) acc[mt][x] = 0.f;
+
+        // chunks (i, qc) of kept tiles, each for every head hg in turn
+        const F32Chunks<BQ, BQC, false> chunks{cls, n, qt0, Sq, kh0, kh0 + 63, causal, window};
+        int i = 0, qc = 0, hg = 0;
+        bool have = chunks.seek(i, qc);
+        F32Rows<BQC, D> rq, rdo;
+        float n_lse = 0.f, n_delta = 0.f;
+        int n_seg = 0;
+        auto fetch = [&](int i_, int qc_, int hg_) {
+            const int q0c = chunks.row0(i_, qc_), hd = kh * G + hg_;
+            const long q_off = (long)b * Sq * q_rs + (long)hd * D;
+            rq.load(q + q_off, q0c, Sq, q_rs);
+            rdo.load(dout + q_off, q0c, Sq, q_rs);
+            if (threadIdx.x < BQC) {
+                const int qi = q0c + threadIdx.x;
+                const long ro = ((long)b * H + hd) * Sq + qi;
+                const bool in = qi < Sq;
+                n_lse = in ? __ldg(lse + ro) : INFINITY;
+                n_delta = in ? __ldg(delta + ro) : 0.f;
+                n_seg = in ? __ldg(sq_row + qi) : 0;
+            }
+        };
+        if (have) fetch(i, qc, hg);
+        while (have) {
+            const int q0c = chunks.row0(i, qc);
+            const uint8_t cl = cls[i];
+            __syncthreads();  // every product of the last chunk is done with the stage
+            rq.put(sm + L::Q_HI, sm + L::Q_LO);
+            rdo.put(sm + L::DO_HI, sm + L::DO_LO);
+            if (threadIdx.x < BQC) {
+                st_lse[threadIdx.x] = n_lse;
+                st_delta[threadIdx.x] = n_delta;
+                st_seg[threadIdx.x] = n_seg;
+            }
+            fence_async_smem();
+            __syncthreads();
+            // the next chunk: the next head of this one, else the next chunk
+            if (++hg == G) {
+                hg = 0;
+                ++qc;
+                have = chunks.seek(i, qc);
+            }
+
+            // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1), rows
+            // keys; every product is issued by both warpgroups alike, on
+            // operands picked by warpgroup (a wgmma on a branch is serialised)
+            float s[BQC / 2];
+            wg_fence();
+            gemm3_ss<D, BQC, 64>(s, sm + (c ? L::V_HI : L::K_HI), sm + (c ? L::V_LO : L::K_LO), 0,
+                                 sm + (c ? L::DO_HI : L::Q_HI), sm + (c ? L::DO_LO : L::Q_LO));
+            wg_commit();
+            // the next chunk's loads go out once the products are issued:
+            // wgmma.fence waits for a warp's loads in flight, and the next
+            // one is the second product's, after this one and the
+            // elementwise work
+            if (have) fetch(i, qc, hg);
+            wg_wait<0>();
+            keep(s);
+            if (c == 0) {
+                // P^T = exp(S^T scale - lse) on the visible pairs: to warpgroup 1
+                // in fp32, and split as the B operand of dV^T = dO^T P^T
+#pragma unroll
+                for (int x = 0; x < BQC / 2; ++x) {
+                    const int hr = (x >> 1) & 1, col = 8 * (x >> 2) + 2 * t + (x & 1);
+                    const bool ok = cl == FULL || visible(q0c + col, kj[hr], st_seg[col], sk[hr],
+                                                          causal, window);
+                    s[x] = ok ? expf(s[x] * scale - st_lse[col]) : 0.f;
+                    exch[x * WG + tid] = s[x];
+                }
+                nb_arrive(NB_HAND, 2 * WG);
+            } else {
+                nb_sync(NB_HAND, 2 * WG);
+                // dS^T = P^T (dP^T - delta)
+#pragma unroll
+                for (int x = 0; x < BQC / 2; ++x) {
+                    const int col = 8 * (x >> 2) + 2 * t + (x & 1);
+                    s[x] = exch[x * WG + tid] * (s[x] - st_delta[col]);
+                }
+                nb_sync(NB_WG1, WG);  // warpgroup 1 has read P^T where dS^T goes
+            }
+            {
+                unsigned char* th = sm + (c ? L::DST_HI : L::PT_HI);
+                unsigned char* tl = sm + (c ? L::DST_LO : L::PT_LO);
+#pragma unroll
+                for (int x = 0; x < BQC / 2; x += 2) {
+                    const int hr = (x >> 1) & 1, col = 8 * (x >> 2) + 2 * t;
+                    const int off = f32_chunk<64>(16 * w + g + 8 * hr, col >> 2) + (col & 3) * 4;
+                    float2 h, l;
+                    tf32_split(s[x], h.x, l.x);
+                    tf32_split(s[x + 1], h.y, l.y);
+                    *reinterpret_cast<float2*>(th + off) = h;
+                    *reinterpret_cast<float2*>(tl + off) = l;
+                }
+            }
+            fence_async_smem();
+            nb_sync(NB_WG + c, WG);  // the warpgroup's tile is in
+            // dV^T += dO^T P^T (warpgroup 0), dK^T += Q^T dS^T (warpgroup 1): A
+            // read from the natural tiles, B the (64 keys, BQC) tile
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+                uint32_t fh[BQC / 8][4], fl[BQC / 8][4];
+                t_frags<D, BQC>(fh, fl, sm + (c ? L::Q_HI : L::DO_HI), sm + (c ? L::Q_LO : L::DO_LO),
+                                64 * mt);
+                float part[32];
+                wg_fence();
+                gemm3_rs<64, BQC / 8>(part, fh, fl, sm + (c ? L::DST_HI : L::PT_HI),
+                                      sm + (c ? L::DST_LO : L::PT_LO));
+                wg_commit();
+                wg_wait<0>();
+                keep(part);
+                keep(fh);
+                keep(fl);
+#pragma unroll
+                for (int x = 0; x < 32; ++x) acc[mt][x] += part[x];
             }
         }
+
+        // acc[mt][4 j + 2 hr + e]: row d = 64 mt + 16 w + g + 8 hr, key kh0 + 8 j + 2 t + e
+        float* dst = (c == 0 ? dv : dk) + kv_off;
+        const float mul = c == 0 ? 1.f : scale;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int kj = kh0 + ty + 16 * i;
-            if (kj >= Skv) continue;
-            store_cols<D>(dk + kv_off + (long)kj * kv_rs, gk[i], scale);
-            store_cols<D>(dv + kv_off + (long)kj * kv_rs, gv[i], 1.f);
-        }
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int x = 0; x < 32; ++x) {
+                const int d = 64 * mt + 16 * w + g + 8 * ((x >> 1) & 1);
+                const int kj_ = kh0 + 8 * (x >> 2) + 2 * t + (x & 1);
+                if ((D >= 64 || d < D) && kj_ < Skv) dst[(long)kj_ * kv_rs + d] = acc[mt][x] * mul;
+            }
     }
 }
 
-// dQ: one block per (128 queries, head, row).
+// ---- dQ ----
+
+template <int D>
+struct F32Dq {
+    static constexpr int DP = D < 32 ? 32 : D;
+    static constexpr int BQ = 64;                  // the block's half of a query tile
+    static constexpr int BK = D == 128 ? 32 : 64;  // a chunk of a key tile
+    static constexpr int QB = BQ * DP * 4, KB = BK * DP * 4, TB = D * BK * 4;
+    static constexpr int Q_HI = 0, Q_LO = QB, DO_HI = 2 * QB, DO_LO = 3 * QB;
+    static constexpr int K_HI = 4 * QB, K_LO = K_HI + KB, V_HI = K_LO + KB, V_LO = V_HI + KB;
+    static constexpr int KT_HI = V_LO + KB, KT_LO = KT_HI + TB;  // K^T: (D, BK)
+    static constexpr int KSEG = KT_LO + TB;                       // int [BK]
+    static constexpr int CLS = KSEG + BK * 4;
+    // P and dP, (64, BK) fp32 each, go to the K and V pairs once S and dP are in
+    static_assert(64 * BK <= 2 * BK * DP, "P and dP fit in the K and V pairs");
+    static size_t bytes(int tiles) { return (size_t)CLS + tiles + 1024; }
+};
+
+// One block per (64 of a tile's 128 queries, head, row), the query tiles
+// last to first.
 template <int D>
 __global__ void __launch_bounds__(F32_THREADS, 1)
 packed_attn_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -2201,23 +2646,19 @@ packed_attn_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__
                           float* __restrict__ dq, int Sq, int Skv, int H, int KVH, int causal,
                           int window, float scale) {
     using L = F32Dq<D>;
-    constexpr int NC = D / 16, BT = 128;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    float* Qs = reinterpret_cast<float*>(smem_raw);
-    float* dOs = Qs + L::TILE;
-    float* Ks = dOs + L::TILE;
-    float* Vs = Ks + L::TILE;
-    float* dSs = Vs + L::TILE;
-    int* segq_s = reinterpret_cast<int*>(dSs + L::PTILE);
-    int* segk_s = segq_s + F32_ROWS;
-    float* lse_s = reinterpret_cast<float*>(segk_s + F32_ROWS);
-    float* delta_s = lse_s + F32_ROWS;
-    uint8_t* cls = reinterpret_cast<uint8_t*>(smem_raw) + L::CLS;
+    constexpr int BT = 128, BK = L::BK;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* sm = align1024(smem_raw);
+    int* kseg = reinterpret_cast<int*>(sm + L::KSEG);
+    float* p_s = reinterpret_cast<float*>(sm + L::K_HI);  // P, once S is in
+    float* dp_s = reinterpret_cast<float*>(sm + L::V_HI);  // dP, once it is in
+    uint8_t* cls = sm + L::CLS;
 
     const int nq = (Sq + BT - 1) / BT;
-    const int q0 = (nq - 1 - (int)blockIdx.x) * BT, h = blockIdx.y, b = blockIdx.z;
+    const int q0 = (nq - 1 - (int)(blockIdx.x >> 1)) * BT, h = blockIdx.y, b = blockIdx.z;
+    const int qh = q0 + 64 * (blockIdx.x & 1);  // the block's half of the 128 queries
+    if (qh >= Sq) return;
     const int kh = h / (H / KVH);
-    const int ty = threadIdx.x >> 4;
     const long q_rs = (long)H * D, kv_rs = (long)KVH * D;
     const long q_off = (long)b * Sq * q_rs + (long)h * D;
     const long kv_off = (long)b * Skv * kv_rs + (long)kh * D;
@@ -2228,46 +2669,113 @@ packed_attn_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__
     int kt0, n;
     key_range(q0, BT, BT, Skv, causal, window, kt0, n);
     build_schedule<BT, BT, true, CENSUS_DQ, F32_WARPS>(sq_row, q0, Sq, sk_row, Skv, kt0, n,
-                                                       causal, window, cls);
-    for (int half = 0; half < 2; ++half) {
-        const int qh = q0 + F32_ROWS * half;
-        if (qh >= Sq) break;
-        __syncthreads();  // the schedule is in; the last half is done with Qs and dOs
-        load_tile_f32<D>(Qs, q + q_off, qh, Sq, q_rs);
-        load_tile_f32<D>(dOs, dout + q_off, qh, Sq, q_rs);
-        load_row<int>(segq_s, sq_row, qh, Sq, 0);
-        load_row<float>(lse_s, lse + r_off, qh, Sq, INFINITY);
-        load_row<float>(delta_s, delta + r_off, qh, Sq, 0.f);
-        float gq[4][NC];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int c = 0; c < NC; ++c) gq[i][c] = 0.f;
-        for (int t = 0; t < n; ++t) {
-            const uint8_t cl = cls[t];
-            if (cl == SKIP) continue;
-            for (int kc = 0; kc < BT / F32_ROWS; ++kc) {
-                const int k0 = (kt0 + t) * BT + F32_ROWS * kc;
-                if (k0 >= Skv || chunk_outside(qh, k0, causal, window)) continue;
-                __syncthreads();  // the last dS K is done with Ks, Vs and dSs
-                load_tile_f32<D>(Ks, k + kv_off, k0, Skv, kv_rs);
-                load_tile_f32<D>(Vs, v + kv_off, k0, Skv, kv_rs);
-                load_row<int>(segk_s, sk_row, k0, Skv, 0);
-                __syncthreads();
-                float s[4][4], dp[4][4];
-                score_f32<D>(s, Qs, Ks);
-                score_f32<D>(dp, dOs, Vs);
-                p_and_ds_f32<true>(s, dp, cl, qh, k0, segq_s, segk_s, lse_s, delta_s, causal,
-                                   window, scale);
-                store_scores(dSs, dp);
-                __syncthreads();
-                mix_f32<D>(gq, dSs, Ks);  // dQ += dS K
-            }
+                                                       causal, window, cls, qh == q0);
+    const int c = threadIdx.x / WG, tid = threadIdx.x % WG;
+    const int w = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+
+    {
+        __syncthreads();  // the schedule is in
+        {
+            F32Rows<64, D> rq;
+            rq.load(q + q_off, qh, Sq, q_rs);
+            rq.put(sm + L::Q_HI, sm + L::Q_LO);
+            rq.load(dout + q_off, qh, Sq, q_rs);
+            rq.put(sm + L::DO_HI, sm + L::DO_LO);
         }
+        int qi[2], sq[2];
+        float lq[2], dl[2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int qi = qh + ty + 16 * i;
-            if (qi < Sq) store_cols<D>(dq + q_off + (long)qi * q_rs, gq[i], scale);
+        for (int hr = 0; hr < 2; ++hr) {
+            qi[hr] = qh + 16 * w + g + 8 * hr;
+            const bool in = qi[hr] < Sq;
+            sq[hr] = in ? __ldg(sq_row + qi[hr]) : 0;
+            lq[hr] = in ? __ldg(lse + r_off + qi[hr]) : INFINITY;
+            dl[hr] = in ? __ldg(delta + r_off + qi[hr]) : 0.f;
+        }
+        float gq[D / 4];  // the warpgroup's half of dQ's columns
+#pragma unroll
+        for (int x = 0; x < D / 4; ++x) gq[x] = 0.f;
+
+        // The next chunk's K, V and key ids are loaded into registers while
+        // this one's products run.
+        const F32Chunks<BT, BK, true> chunks{cls, n, kt0, Skv, qh, qh + 63, causal, window};
+        F32Rows<BK, D> rk, rv;
+        int kseg_next = 0;
+        auto fetch = [&](int k1) {
+            rk.load(k + kv_off, k1, Skv, kv_rs);
+            rv.load(v + kv_off, k1, Skv, kv_rs);
+            if (threadIdx.x < BK)
+                kseg_next = k1 + threadIdx.x < Skv ? __ldg(sk_row + k1 + threadIdx.x) : 0;
+        };
+        int i = 0, kc = 0;
+        bool have = chunks.seek(i, kc);
+        if (have) fetch(chunks.row0(i, kc));
+        while (have) {
+            const int k0 = chunks.row0(i, kc);
+            const uint8_t cl = cls[i];
+            __syncthreads();  // every product of the last chunk is done with the stage
+            rk.put(sm + L::K_HI, sm + L::K_LO);
+            rk.put_t(sm + L::KT_HI, sm + L::KT_LO);
+            rv.put(sm + L::V_HI, sm + L::V_LO);
+            if (threadIdx.x < BK) kseg[threadIdx.x] = kseg_next;
+            fence_async_smem();
+            __syncthreads();
+            ++kc;
+            have = chunks.seek(i, kc);
+
+            // S = Q K^T (warpgroup 0) or dP = dO V^T (warpgroup 1), on operands
+            // picked by warpgroup (a wgmma on a branch is serialised)
+            float s[BK / 2];
+            wg_fence();
+            gemm3_ss<D, BK, 64>(s, sm + (c ? L::DO_HI : L::Q_HI), sm + (c ? L::DO_LO : L::Q_LO), 0,
+                                sm + (c ? L::V_HI : L::K_HI), sm + (c ? L::V_LO : L::K_LO));
+            wg_commit();
+            // the next chunk's loads go out once the products are issued, as
+            // in dK/dV
+            if (have) fetch(chunks.row0(i, kc));
+            wg_wait<0>();
+            keep(s);
+            if (c == 0) {
+                // P = exp(S scale - lse) on the visible pairs, where K was
+#pragma unroll
+                for (int x = 0; x < BK / 2; ++x) {
+                    const int hr = (x >> 1) & 1, col = 8 * (x >> 2) + 2 * t + (x & 1);
+                    const bool ok = cl == FULL || visible(qi[hr], k0 + col, sq[hr], kseg[col],
+                                                          causal, window);
+                    p_s[x * WG + tid] = ok ? expf(s[x] * scale - lq[hr]) : 0.f;
+                }
+            } else {
+#pragma unroll
+                for (int x = 0; x < BK / 2; ++x) dp_s[x * WG + tid] = s[x];  // where V was
+            }
+            __syncthreads();  // P and dP are in
+            // dS = P (dP - delta) in both; each warpgroup takes half of dQ's
+            // columns: dQ[:, c D / 2 ..] += dS K[:, c D / 2 ..]
+#pragma unroll
+            for (int x = 0; x < BK / 2; ++x)
+                s[x] = p_s[x * WG + tid] * (dp_s[x * WG + tid] - dl[(x >> 1) & 1]);
+            uint32_t fh[BK / 8][4], fl[BK / 8][4];
+            split_frags<BK>(fh, fl, s);
+            float part[D / 4];
+            wg_fence();
+            gemm3_rs<D / 2, BK / 8, D>(part, fh, fl, sm + L::KT_HI, sm + L::KT_LO, c * D / 2);
+            wg_commit();
+            wg_wait<0>();
+            keep(part);
+            keep(fh);
+            keep(fl);
+#pragma unroll
+            for (int x = 0; x < D / 4; ++x) gq[x] += part[x];
+        }
+
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+            if (qi[hr] >= Sq) continue;
+            float* row = dq + q_off + (long)qi[hr] * q_rs + c * D / 2;
+#pragma unroll
+            for (int j = 0; j < D / 16; ++j)
+                *reinterpret_cast<float2*>(row + 8 * j + 2 * t) =
+                    make_float2(gq[4 * j + 2 * hr] * scale, gq[4 * j + 2 * hr + 1] * scale);
         }
     }
 }
@@ -2458,7 +2966,8 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* se
     return static_cast<int>(cudaGetLastError());
 }
 
-// float32, every head dim: the SIMT kernels.
+// float32, every head dim: the 3xTF32 wgmma kernels, two warpgroups a block;
+// dK/dV and dQ take a block for each 64-row half of their 128-row tiles.
 template <int D>
 int launch_fwd_f32(const void* q, const void* k, const void* v, const void* seg_q,
                    const void* seg_kv, void* out, void* lse, int B, int Sq, int Skv, int H,
@@ -2496,13 +3005,13 @@ int launch_bwd_f32(const void* q, const void* k, const void* v, const void* seg_
     auto dkdv = packed_attn_dkdv_f32_kernel<D>;
     cudaError_t err = allow_smem(dkdv, kv_smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    dkdv<<<dim3((Skv + 127) / 128, KVH, B), F32_THREADS, kv_smem, st>>>(
+    dkdv<<<dim3(2 * ((Skv + 127) / 128), KVH, B), F32_THREADS, kv_smem, st>>>(
         qf, kf, vf, sq, sk, go, ls, dl, static_cast<float*>(dk), static_cast<float*>(dv), Sq,
         Skv, H, KVH, causal, window, scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     auto dqk = packed_attn_dq_f32_kernel<D>;
     if ((err = allow_smem(dqk, q_smem)) != cudaSuccess) return static_cast<int>(err);
-    dqk<<<dim3((Sq + 127) / 128, H, B), F32_THREADS, q_smem, st>>>(
+    dqk<<<dim3(2 * ((Sq + 127) / 128), H, B), F32_THREADS, q_smem, st>>>(
         qf, kf, vf, sq, sk, go, ls, dl, static_cast<float*>(dq), Sq, Skv, H, KVH, causal,
         window, scale);
     return static_cast<int>(cudaGetLastError());

@@ -9,14 +9,15 @@ delta from its fp32 output.  (The fp32 output there is the one whose
 weights, P rounded to bf16 for P.V, are renormalised to sum to one:
 ``csrc/packed_attention.cu``'s header says why.)  They take
 bf16 tensors (the training and serving dtype), with the softmax and every
-sum in fp32, or fp32 tensors (the float32 entries: fp32 FMA on the CUDA
-cores at every head dim, the same tile schedule, no residual: the
-backward takes delta from the fp32 output itself); mixed or other dtypes
-raise.  In bf16, at head dims 64 and 128 they are
-warp-specialised: a producer warpgroup streams tiles by TMA into a ring of
-shared-memory stages, two consumer warpgroups run the products as
-``wgmma``; at head dims 16 and 32 (the ``.smoke()`` configs) they run
-``mma.sync`` on 64 x 64 tiles.  The plain version (``ref.py``) is the CPU
+sum in fp32, or fp32 tensors (the float32 entries: every product as
+3xTF32 on the tensor cores, each operand split into two TF32 parts, at
+every head dim, the same tile schedule, no residual: the backward takes
+delta from the fp32 output itself; ``ref.packed_attention_tf32`` models
+their arithmetic); mixed or other dtypes raise.  In bf16, at head dims 64
+and 128 they are warp-specialised: a producer warpgroup streams tiles by
+TMA into a ring of shared-memory stages, two consumer warpgroups run the
+products as ``wgmma``; at head dims 16 and 32 (the ``.smoke()`` configs)
+they run ``mma.sync`` on 64 x 64 tiles.  The plain version (``ref.py``) is the CPU
 path and the oracle on the card; ``ref.tile_schedule`` is their rule for
 which tiles they skip and which they compute without a mask, and
 ``tile_census`` counts the classes the D = 64 and 128 kernels gave their
@@ -28,7 +29,9 @@ repeated), and need no padding: ragged tails read as zeros of segment 0.
 At D = 64 and 128 a block keeps its tile schedule in shared memory, a byte
 per tile in range: on an H100 at D = 128 a row of more than about 8.5 million keys
 (the forward) or 4 million queries (dK/dV) does not fit, and the launch
-raises.
+raises (the float32 kernels at D = 128, beside their fp32 tiles: 229
+thousand keys in the forward, 245 thousand in dQ, 106 thousand queries in
+dK/dV).
 The source is compiled on first use (``kernels/nvcc.py``) and loaded with
 ``ctypes``; nothing GPU-specific happens at import, so CPU-only hosts import
 this module too.

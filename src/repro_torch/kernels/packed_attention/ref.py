@@ -5,7 +5,11 @@ and the oracle the Hopper kernels are held to on the card.  Its autograd is
 the plain version of the backward kernel; ``packed_attention_bwd_ref`` is
 the backward kernels' own arithmetic (P from the forward's logsumexps,
 delta from its output and residual), written out in fp32, which
-the operators' CPU route runs.  ``rel_l2`` is the error measure
+the operators' CPU route runs.  ``packed_attention_tf32`` and
+``packed_attention_bwd_tf32`` model the float32 kernels' products on the
+tensor cores (3xTF32, or one pass of plain TF32 for comparison); the tests
+and the card check hold them to the reference, and no path of the port
+runs them.  ``rel_l2`` is the error measure
 the kernels are held to by it.  ``tile_schedule`` is the kernels' rule for
 which (query tile, key tile) pairs they compute and which of those need a
 mask, in plain PyTorch; ``census_rule`` is what the kernels' own count of
@@ -18,8 +22,10 @@ import math
 
 import torch
 
-__all__ = ["KERNEL_TILES", "census_rule", "packed_attention_bwd_ref", "packed_attention_ref",
-           "rel_l2", "tile_counts", "tile_schedule", "tile_shares", "visible_mask"]
+__all__ = ["KERNEL_TILES", "census_rule", "packed_attention_bwd_ref",
+           "packed_attention_bwd_tf32", "packed_attention_ref", "packed_attention_tf32",
+           "rel_l2", "tf32_round", "tf32_split", "tile_counts", "tile_schedule",
+           "tile_shares", "visible_mask"]
 
 FULL, MASKED = "full", "masked"
 # each D = 64/128 kernel's (query, key) tiles, by its name in the tile census
@@ -62,6 +68,20 @@ def packed_attention_ref(
     return out.to(q.dtype)
 
 
+def _heads_first(q, k, v):
+    """(B, S, H, D) q and (B, S, KVH, D) k, v as fp32 (B, H, S, D), the KV
+    heads repeated for their G query heads."""
+    G = q.shape[2] // k.shape[2]
+    kf, vf = (t.float().repeat_interleave(G, dim=2).transpose(1, 2) for t in (k, v))
+    return q.float().transpose(1, 2), kf, vf
+
+
+def _per_kv_head(g: torch.Tensor, KVH: int) -> torch.Tensor:
+    """(B, H, S, D) gradients of the G = H / KVH query heads of each KV head
+    summed, as (B, S, KVH, D)."""
+    return g.unflatten(1, (KVH, g.shape[1] // KVH)).sum(2).transpose(1, 2)
+
+
 def packed_attention_bwd_ref(
     q: torch.Tensor,               # (B, Sq, H, D)
     k: torch.Tensor,               # (B, Skv, KVH, D)
@@ -83,12 +103,9 @@ def packed_attention_bwd_ref(
     summed over its G = H / KVH query heads.  With ``out_lo`` zero, delta
     comes from the rounded output alone; an empty ``out_lo`` (the fp32
     forward writes none) takes delta from ``out`` itself."""
-    B, Sq, H, D = q.shape
-    KVH = k.shape[2]
-    G = H // KVH
+    D = q.shape[3]
     scale = 1.0 / math.sqrt(D)
-    qf = q.float().transpose(1, 2)                                  # (B, H, Sq, D)
-    kf, vf = (t.float().repeat_interleave(G, dim=2).transpose(1, 2) for t in (k, v))
+    qf, kf, vf = _heads_first(q, k, v)                              # (B, H, S, D)
     mask = visible_mask(segment_ids_q, segment_ids_kv, causal=causal, window=window)[:, None]
     s = qf @ kf.transpose(-1, -2) * scale
     p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
@@ -98,11 +115,101 @@ def packed_attention_bwd_ref(
     ds = p * (do @ vf.transpose(-1, -2) - delta)
     dq = ds @ kf * scale
     dk, dv = ds.transpose(-1, -2) @ qf * scale, p.transpose(-1, -2) @ do
+    KVH = k.shape[2]
+    return dq.transpose(1, 2), _per_kv_head(dk, KVH), _per_kv_head(dv, KVH)
 
-    def per_kv_head(g: torch.Tensor) -> torch.Tensor:  # (B, H, S, D) -> (B, S, KVH, D)
-        return g.unflatten(1, (KVH, G)).sum(2).transpose(1, 2)
 
-    return dq.transpose(1, 2), per_kv_head(dk), per_kv_head(dv)
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    10 explicit mantissa bits, to nearest with ties away from zero, the low
+    13 bits of the pattern zero (subnormals keep their scale; a value past
+    the largest TF32 rounds to infinity); infinities and NaNs pass
+    through.  Bit arithmetic on the int32 view: the sign-magnitude pattern
+    plus half the dropped part rounds the magnitude away from zero."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    rounded = (bits + 0x1000) & ~0x1FFF
+    finite = (bits & 0x7F800000) != 0x7F800000
+    return torch.where(finite, rounded, bits).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo): hi = tf32(x), lo = tf32(x - hi), the two parts the float32
+    kernels store for the tensor cores (x - hi is exact in fp32)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.to(torch.float32) - hi)
+
+
+def _tf32_mm(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b as the tensor cores take it from split operands, summed in fp32:
+    3 passes lo.hi + hi.lo + hi.hi (3xTF32), or 1 pass hi.hi (plain TF32)."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    if passes != 3:
+        raise ValueError(f"passes is 1 or 3, got {passes}")
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def packed_attention_tf32(
+    q: torch.Tensor,               # (B, Sq, H, D)
+    k: torch.Tensor,               # (B, Skv, KVH, D)
+    v: torch.Tensor,               # (B, Skv, KVH, D)
+    segment_ids_q: torch.Tensor,   # (B, Sq)
+    segment_ids_kv: torch.Tensor,  # (B, Skv)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    passes: int = 3,
+):
+    """(out (B, Sq, H, D), lse (B, H, Sq)) of the float32 forward with its
+    products, S = Q K^T and P.V (P unnormalised, as the kernel holds it), on
+    TF32-split operands (``_tf32_mm``); the softmax, masks and sums in fp32.
+    A row that sees no key gives 0 and lse +inf."""
+    qf, kf, vf = _heads_first(q, k, v)
+    scale = 1.0 / math.sqrt(q.shape[3])
+    mask = visible_mask(segment_ids_q, segment_ids_kv, causal=causal, window=window)[:, None]
+    s = torch.where(mask, _tf32_mm(qf, kf.transpose(-1, -2), passes) * scale, -torch.inf)
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(torch.isinf(m), 0.0, m)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    out = _tf32_mm(p, vf, passes) / torch.where(l > 0, l, 1.0)
+    lse = torch.where(l > 0, m + torch.log(l), torch.inf)[..., 0]
+    return out.transpose(1, 2).contiguous(), lse
+
+
+def packed_attention_bwd_tf32(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_ids_q: torch.Tensor,
+    segment_ids_kv: torch.Tensor,
+    out: torch.Tensor,             # (B, Sq, H, D) the fp32 output
+    dout: torch.Tensor,            # (B, Sq, H, D)
+    lse: torch.Tensor,             # (B, H, Sq)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    passes: int = 3,
+):
+    """(dq, dk, dv) of the float32 backward in model layout:
+    ``packed_attention_bwd_ref``'s arithmetic (delta = rowsum(dO * out) in
+    fp32) with its five products, S, dP = dO V^T, dQ = dS K, dK = dS^T Q and
+    dV = P^T dO, on TF32-split operands."""
+    qf, kf, vf = _heads_first(q, k, v)
+    scale = 1.0 / math.sqrt(q.shape[3])
+    mask = visible_mask(segment_ids_q, segment_ids_kv, causal=causal, window=window)[:, None]
+    s = _tf32_mm(qf, kf.transpose(-1, -2), passes) * scale
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
+    do = dout.float().transpose(1, 2)
+    delta = (do * out.float().transpose(1, 2)).sum(-1, keepdim=True)
+    ds = p * (_tf32_mm(do, vf.transpose(-1, -2), passes) - delta)
+    dq = _tf32_mm(ds, kf, passes) * scale
+    dk = _tf32_mm(ds.transpose(-1, -2), qf, passes) * scale
+    dv = _tf32_mm(p.transpose(-1, -2), do, passes)
+    KVH = k.shape[2]
+    return dq.transpose(1, 2), _per_kv_head(dk, KVH), _per_kv_head(dv, KVH)
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor, block: int = 64):

@@ -1185,7 +1185,10 @@ F32_REL_L2 = (1e-5, 1e-4)
 # window, ragged lengths, non-causal
 F32_CASES = [(256, 4, 4, 16, 0, True), (384, 4, 1, 32, 0, True), (300, 8, 2, 64, 0, True),
              (512, 16, 2, 128, 0, True), (640, 4, 2, 128, 192, True),
-             (1000, 4, 4, 64, 0, False), (256, 14, 2, 64, 64, True)]
+             (1000, 4, 4, 64, 0, False), (256, 14, 2, 64, 64, True),
+             # ragged at D = 128 (rows past the last 128- and 64-row tile), and
+             # a window at D = 16 narrower than a chunk
+             (700, 8, 2, 128, 0, True), (333, 4, 1, 16, 40, True)]
 
 
 def _f32_packed(case, seed=0):
@@ -1250,6 +1253,33 @@ def test_packed_f32_kernels_census_and_repeat_on_card(case):
     torch.cuda.synchronize()
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
     assert all(torch.equal(a, b) for a, b in zip(grads, grads2, strict=True))
+
+
+@pytest.mark.cuda
+def test_packed_f32_kernels_run_on_the_tensor_cores():
+    """Each float32 kernel (forward, dK/dV, dQ) at every head dim runs its
+    products on the tensor cores: the built library's SASS holds TF32
+    warpgroup products (HGMMA.64xNx8.F32.TF32) in each."""
+    _need_card()
+    import re
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels.packed_attention import kernel as pk
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(pk.build())], capture_output=True,
+                          text=True, check=True).stdout
+    bodies = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, _, body = part.partition("\n")
+        m = re.search(r"packed_attn_(fwd|dkdv|dq)_f32_kernelILi(\d+)E", name)
+        if m:
+            bodies[(m.group(1), int(m.group(2)))] = body
+    for kind in ("fwd", "dkdv", "dq"):
+        for D in pk.HEAD_DIMS:
+            assert (kind, D) in bodies, (kind, D, sorted(bodies))
+            assert re.search(r"HGMMA\.64x\d+x8\.F32\.TF32", bodies[(kind, D)]), (kind, D)
 
 
 @pytest.mark.cuda
