@@ -109,6 +109,7 @@ def lower_cell(
     layout: str = "tp",
     mesh: Any = None,
     shape: Any = None,
+    top_held: int = 0,
 ) -> Dict[str, Any]:
     """Run one cell's step on stand-ins; return the roofline record.
 
@@ -116,7 +117,8 @@ def lower_cell(
     its ranks) and ``shape`` (default: ``SHAPES_BY_NAME[shape_name]``) let a
     caller count a step of its own on another mesh, such as the one-card
     (1, 1) mesh.  ``keep_hlo`` keeps the count itself (``_cost``), the
-    port's counterpart of the HLO text.
+    port's counterpart of the HLO text; ``top_held`` (debug, off by default)
+    lists in it the largest storages held at the peak.
     """
     cfg = get_config(arch)
     shape = shape or SHAPES_BY_NAME[shape_name]
@@ -151,7 +153,7 @@ def lower_cell(
 
     pod = NODE_GPUS if n_chips > 1 else 10**9
     with activation_sharding(mesh, rules), implicit_replication():
-        _, cost = analyze_step(step_fn, *args, pod_size=pod, mesh=mesh)
+        _, cost = analyze_step(step_fn, *args, pod_size=pod, mesh=mesh, top_held=top_held)
     count_s = time.time() - t0
 
     total_params, active_params = cfg.param_counts()

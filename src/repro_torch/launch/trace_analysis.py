@@ -119,6 +119,10 @@ class StepCost:
     peak_bytes: float = 0.0          # most live bytes at once, arguments included
     out_bytes: float = 0.0           # the result's storages that are new
     flops_by_op: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # ``analyze_step(..., top_held=n)`` only: the storages held at the peak
+    # (but the arguments'), as (op, shape, dtype, bytes), the largest first
+    held_at_peak: List[Tuple[str, Tuple[int, ...], str, int]] = dataclasses.field(
+        default_factory=list)
     # (kind, group, shape, dtype) -> [wire bytes over all calls, calls]
     collectives: Dict[Tuple[str, str, Tuple[int, ...], str], List[float]] = (
         dataclasses.field(default_factory=dict))
@@ -255,9 +259,12 @@ class _ChunkEnd(torch.autograd.Function):
 class _Counter(TorchDispatchMode):
     supports_higher_order_operators = True
 
-    def __init__(self, cost: StepCost, pod_size: int, groups: Dict[str, str]):
+    def __init__(self, cost: StepCost, pod_size: int, groups: Dict[str, str],
+                 top_held: int = 0):
         super().__init__()
         self.cost, self.pod_size, self.groups = cost, pod_size, groups
+        self.top_held = top_held  # > 0: name what is held at the peak
+        self.origin: Dict[int, Tuple[str, Tuple[int, ...], str]] = {}
         self.flop_registry = dict(flop_counter.flop_registry)
         self.live: Dict[int, int] = {}
         self.held = 0
@@ -267,8 +274,9 @@ class _Counter(TorchDispatchMode):
         self._cross: Dict[str, Tuple[bool, str]] = {}
 
     # ---- memory ---------------------------------------------------------
-    def hold(self, t: torch.Tensor) -> int:
-        """Count ``t``'s storage live until it is freed; its bytes if new."""
+    def hold(self, t: torch.Tensor, op: str = "argument") -> int:
+        """Count ``t``'s storage live until it is freed; its bytes if new.
+        ``op`` names what made it, for the ``top_held`` listing."""
         st = t.untyped_storage()
         key = st._cdata
         if key in self.live:
@@ -276,6 +284,10 @@ class _Counter(TorchDispatchMode):
         n = st.nbytes()
         self.live[key] = n
         self.held += n
+        if self.top_held:
+            self.origin[key] = (op, tuple(t.shape), str(t.dtype).replace("torch.", ""))
+            if self.held > self.cost.peak_bytes:
+                self.cost.held_at_peak = [(*self.origin[k], b) for k, b in self.live.items()]
         self.cost.peak_bytes = max(self.cost.peak_bytes, self.held)
         self.window = max(self.window, self.held)
         weakref.finalize(st, self._free, key)
@@ -395,7 +407,7 @@ class _Counter(TorchDispatchMode):
         if self.paused:  # ``repeated``'s stand-ins for the iterations not run
             out = func(*args, **kwargs)
             for t in _tensors(out):
-                self.hold(t)
+                self.hold(t, "stand-in")
             return out
         if isinstance(func, torch._ops.HigherOrderOperator):
             return func(*args, **kwargs)
@@ -424,7 +436,7 @@ class _Counter(TorchDispatchMode):
         if kind:
             self._collective(kind, args, out)
         for t in _tensors(out):
-            self.hold(t)
+            self.hold(t, str(packet).replace("aten.", ""))
         return out
 
 
@@ -437,13 +449,16 @@ def _group_labels(mesh: Any) -> Dict[str, str]:
 
 
 def analyze_step(fn: Callable[..., Any], *args: Any, pod_size: int = 10**9,
-                 mesh: Any = None) -> Tuple[Any, StepCost]:
+                 mesh: Any = None, top_held: int = 0) -> Tuple[Any, StepCost]:
     """Run ``fn(*args)`` under the counting mode; return its result and one
     device's ``StepCost``.  The arguments' storages (the local shards of
     DTensors) are live from the start; ``mesh`` names the collectives'
-    groups by mesh dim."""
+    groups by mesh dim.  ``top_held`` (a debug listing, off by default)
+    fills ``held_at_peak`` with the ``top_held`` largest storages held at
+    the peak, each with the op that made it (where a loop counted from one
+    chunk sets the peak, at the most held before that)."""
     cost = StepCost()
-    counter = _Counter(cost, pod_size, _group_labels(mesh))
+    counter = _Counter(cost, pod_size, _group_labels(mesh), top_held)
     arg_keys = set()
     for t in _tensors(args):
         t = _local(t)
@@ -460,6 +475,8 @@ def analyze_step(fn: Callable[..., Any], *args: Any, pod_size: int = 10**9,
     finally:
         counter.open = False
         scan_utils.LOOP_COUNTER.reset(token)
+    rows = [r for r in cost.held_at_peak if r[0] != "argument"]
+    cost.held_at_peak = sorted(rows, key=lambda r: -r[3])[:top_held]
     return out, cost
 
 

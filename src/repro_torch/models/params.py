@@ -167,9 +167,16 @@ def params_from_numpy(
 
 def abstract_params(specs: Tree, dtype: Optional[torch.dtype] = None) -> Tree:
     """Meta tensors of each spec's shape in ``dtype`` (default: the spec's
-    own): the dry-run's parameters, zero allocation."""
-    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype or s.dtype, device="meta"),
-                    specs)
+    own): the dry-run's parameters, zero allocation.  Their dicts are in
+    sorted key order, as ``init_params`` builds the card's: ``tree_map``
+    walks a tree in its dicts' order, and so does the optimizer, whose
+    peak falls in the update of the last leaf it walks."""
+    def build(tree: Tree) -> Tree:
+        if isinstance(tree, dict):
+            return {k: build(tree[k]) for k in sorted(tree)}
+        return torch.empty(tree.shape, dtype=dtype or tree.dtype, device="meta")
+
+    return build(specs)
 
 
 def tree_bytes(tree: Tree) -> int:

@@ -8,15 +8,14 @@ Usage (see ``--help`` per subcommand)::
     PYTHONPATH=src python -m repro_torch.obs diff SIM/events.jsonl LIVE/events.jsonl
     PYTHONPATH=src python -m repro_torch.obs schema-check RUN/events.jsonl
     PYTHONPATH=src python -m repro_torch.obs summary RUN/events.jsonl
+    PYTHONPATH=src python -m repro_torch.obs conformance RUN/events.jsonl
 
-Exit codes: 0 clean, 1 schema violations (``schema-check``) or missing
-data, 2 usage errors.
+Exit codes: 0 clean, 1 schema violations (``schema-check``) / protocol
+violations (``conformance``) or missing data, 2 usage errors.
 
-The JAX package's CLI has one more subcommand, ``conformance``: it replays a
-log against the protocol state machines that the repository's static
-checker extracts from the source tree (``analysis/protocol``).  That checker
-is a tool over the repository's sources, not a part of the system, and the
-port has no copy of it.
+``conformance`` replays the log against the delivery protocol's state
+machines, the ones ``repro_torch.analysis.protocol`` extracts from the
+port's runtime and pins in its ``protocol_manifest.json``.
 """
 
 from __future__ import annotations
@@ -79,7 +78,38 @@ def main(argv: Optional[List[str]] = None) -> int:
     p = sub.add_parser("summary", help="event counts and e2e percentiles")
     _add_log_arg(p)
 
+    p = sub.add_parser(
+        "conformance",
+        help="replay the log against the protocol state machines "
+             "(exit 1 on happens-before violations)",
+    )
+    _add_log_arg(p)
+    p.add_argument("--lenient-end", action="store_true",
+                   help="don't flag messages still in flight when the "
+                        "log ends (for logs truncated mid-run)")
+
     args = ap.parse_args(argv)
+
+    if args.cmd == "conformance":
+        # shares the replay core with rule R8 of repro_torch.analysis
+        from pathlib import Path
+
+        from ..analysis.protocol import load_committed_manifest, replay_events
+        from ..analysis.protocol.conformance import load_events_file
+
+        raw, errors = load_events_file(Path(args.events))
+        for err in errors:
+            print(f"warning: {err}", file=sys.stderr)
+        summary = replay_events(raw, load_committed_manifest(),
+                                strict_end=not args.lenient_end)
+        for v in summary.violations:
+            print(f"protocol violation: {v}", file=sys.stderr)
+        print(f"{summary.events} events replayed: "
+              f"{summary.completed} completed, "
+              f"{summary.requeued} requeued, "
+              f"{summary.backlog} left queued, "
+              f"{len(summary.violations)} violation(s)")
+        return 1 if summary.violations else 0
 
     if args.cmd == "diff":
         rep = drift_report(load_events(args.events_a),

@@ -19,8 +19,12 @@ JAX package's.
     same cache gathered dense, and the page-local K/V write;
   - ``torch.library.opcheck`` of each kernel operator's fake against its
     CPU (plain) implementation;
+  - a train step's peak: in AdamW's update of the last leaf it walks, in
+    sorted path order on stand-ins as on the card's parameters, equal to
+    what its shapes give and to the count over real CPU tensors;
   - on the card only (``cuda``): a smoke step's count on meta stand-ins
-    equal to ``FlopCounterMode``'s count of the same step run on the card.
+    equal to ``FlopCounterMode``'s count of the same step run on the card,
+    and a two-layer olmo-1b step's peak within 1.5% of the card's.
 
 JAX and the JAX package are imported inside the tests that use them, so
 that the card, which has neither, can run the ``cuda`` test.
@@ -37,7 +41,7 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-from torch.utils._pytree import tree_map_only
+from torch.utils._pytree import tree_leaves, tree_map_only
 
 from repro_torch.configs import ShapeConfig, get_config
 from repro_torch.kernels.grouped_matmul import ops as gmm_ops
@@ -623,6 +627,96 @@ def test_count_on_stand_ins_equals_the_count_on_the_card():
         step(params, init_opt_state(params), batch)
     torch.cuda.synchronize()
     assert fake.flops == fc.get_total_flops() > 0
+
+
+def _adamw_state(specs):
+    return {"m": abstract_params(specs), "v": abstract_params(specs),
+            "step": meta(dtype=torch.int32)}
+
+
+def test_train_step_peaks_in_the_update_of_the_last_leaf_in_sorted_order():
+    """A stack of identical layers (olmo-1b smoke, 4 layers, a vocabulary
+    of 2048 so that the embedding is the largest leaf), one train step
+    under remat ``"nothing"`` on one row of 16 tokens.  Its activations are
+    small: the step peaks in AdamW's update of the last leaf it walks, with
+    every other leaf's new m, v and parameter written, that leaf's new m
+    and v, and its ``m * mhat``, ``v * vhat`` and ``sqrt(v * vhat)`` live
+    beside the arguments and the bf16 gradients: arguments + gradients +
+    3 x the fp32 parameters + 2 x the last leaf + the scalars (11 of 4
+    bytes on the card).  The optimizer walks the trees in their dicts'
+    order, which ``init_params`` (the card's parameters) makes sorted: the
+    embedding comes last.  Stand-ins in the specs' order walked a feed-
+    forward leaf last, and olmo-1b's train step read 4.2% over the card.
+    The count on real CPU tensors from ``init_params`` peaks the same, and
+    the count's ``top_held`` listing names what is live at the peak."""
+    import dataclasses
+    import math
+
+    from repro_torch.models import init_params
+    from repro_torch.models.params import tree_paths
+    from repro_torch.models.registry import make_batch
+    from repro_torch.training import init_opt_state
+
+    cfg = dataclasses.replace(get_config("olmo-1b").smoke(), n_layers=4, vocab_size=2048)
+    model = build_model(cfg)
+    specs = model.param_specs()
+    step = make_train_step(model, OptimizerConfig(), remat_policy="nothing")
+    _, cost = analyze_step(step, abstract_params(specs), _adamw_state(specs),
+                           input_specs(cfg, ShapeConfig("s", "train", 16, 1)), top_held=5)
+    # the debug listing: the five largest storages at the peak are the
+    # embedding's new m and v and its three temporaries
+    assert sorted(op for op, *_ in cost.held_at_peak) == ["add", "add", "mul", "mul", "sqrt"]
+    assert {(shape, dtype) for _, shape, dtype, _ in cost.held_at_peak} == {
+        ((cfg.vocab_size, cfg.d_model), "float32")}
+    paths = tree_paths(specs)
+    sizes = [math.prod(spec.shape) for _, spec in paths]
+    assert paths[-1][0] == ("embed",) and sizes[-1] == max(sizes) > min(sizes)
+    want = cost.arg_bytes + 2 * sum(sizes) + 3 * 4 * sum(sizes) + 2 * 4 * sizes[-1]
+    assert want <= cost.peak_bytes <= want + 11 * 4
+
+    params = init_params(specs, torch.Generator().manual_seed(0))
+    _, real = analyze_step(step, params, init_opt_state(params), make_batch(cfg, "train", 1, 16))
+    assert (real.peak_bytes, real.arg_bytes) == (cost.peak_bytes, cost.arg_bytes)
+
+
+@pytest.mark.cuda
+def test_train_step_peak_on_stand_ins_is_the_cards():
+    """olmo-1b at full width, 2 of its 16 layers, a train step on one row
+    of 512 tokens: the peak counted on meta stand-ins within 1.5% of the
+    card's, read as ``chip_smoke.py`` phase 11c reads it (after a warm-up
+    step: ``max_memory_allocated()`` less what the process holds beside the
+    step's arguments)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    import gc
+
+    from repro_torch.models import init_params
+    from repro_torch.models.registry import make_batch
+    from repro_torch.training import init_opt_state
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=2)
+    model = build_model(cfg)
+    specs = model.param_specs()
+    step = make_train_step(model, OptimizerConfig(), remat_policy="nothing")
+    _, cost = analyze_step(step, abstract_params(specs), _adamw_state(specs),
+                           input_specs(cfg, ShapeConfig("s", "train", 512, 1)))
+    dev = torch.device("cuda")
+    params = init_params(specs, torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = {k: v.to(dev) for k, v in make_batch(cfg, "train", 1, 512).items()}
+    opt_state = init_opt_state(params)
+    params, opt_state, _ = step(params, opt_state, batch)  # warm-up
+    held = sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tree_leaves((params, opt_state, batch))
+                if isinstance(t, torch.Tensor)}.values())
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    beside = torch.cuda.memory_allocated() - held
+    step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - beside
+    assert abs(cost.peak_bytes - peak) <= 0.015 * peak, (cost.peak_bytes, peak)
 
 
 # ---------------------------------------------------------------------------
