@@ -23,6 +23,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    Each run's event log (an ``EventBus``) is replayed against the delivery
    protocol's state machines (``repro_torch.analysis.protocol``, strict
    end), and must show no violation (``{"conformance": ...}`` lines).
+   Then the invariant checker (``repro_torch.analysis``, rules R1-R8)
+   runs over the tree as shipped, R8 fed the three logs, and must find
+   nothing (one ``{"analysis": ...}`` line).
    It runs in a child process: this one has touched CUDA, and forked
    workers of such a process cannot use it;
 4. the grouped-matmul kernel against its plain PyTorch version on the
@@ -614,12 +617,15 @@ def multiproc_phase() -> None:
     """Phase 3, in a child process that never touches CUDA itself.  Each
     run's event log is replayed against the delivery protocol's machines
     (``repro_torch.analysis.protocol``, strict end: a message left in
-    flight is a violation); one ``{"conformance": ...}`` line a run."""
+    flight is a violation); one ``{"conformance": ...}`` line a run.  Then
+    rules R1-R8 of ``repro_torch.analysis`` over this checkout, R8 fed the
+    three logs: one ``{"analysis": ...}`` line, and any finding fails."""
     import dataclasses
     import tempfile
 
     import numpy as np
 
+    from repro_torch.analysis import RULES, RepoIndex, run_analysis
     from repro_torch.analysis.protocol import (load_committed_manifest, load_events_file,
                                                replay_events)
     from repro_torch.core.irm import IRM
@@ -695,6 +701,18 @@ def multiproc_phase() -> None:
             "device_ms_p99": float(np.percentile(dev_ms, 99)),
             "workers_spawned": stats["transport"]["workers_spawned"],
         }}))
+    t0 = time.perf_counter()
+    event_logs = sorted(Path(logs.name).rglob("events.jsonl"))
+    index = RepoIndex(ROOT)
+    findings = run_analysis(ROOT, index=index, events=event_logs)
+    print(json.dumps({"analysis": {
+        "rules": list(RULES), "findings": len(findings), "files": len(index.modules),
+        "event_logs": len(event_logs), "seconds": time.perf_counter() - t0}}))
+    for f in findings:
+        print(f"[analysis] {f.path}:{f.line}: [{f.rule}] {f.symbol}: {f.message}")
+    if findings or len(event_logs) != 1 + len(MP_RUNS):
+        raise AssertionError(f"the invariant checker: {len(findings)} findings "
+                             f"over {len(event_logs)} event logs")
     logs.cleanup()
 
 
@@ -4566,6 +4584,10 @@ def main() -> None:
                    if line.startswith('{"multiproc"')]
         if [r["payload"] for r in mp_runs] != [size for size, *_ in (*MP_RUNS, MP_KILL)]:
             raise RuntimeError(f"the child reported {mp_runs}")
+        analysis = [json.loads(line)["analysis"] for line in child.stdout.splitlines()
+                    if line.startswith('{"analysis"')]
+        if len(analysis) != 1 or analysis[0]["findings"]:
+            raise RuntimeError(f"the child's invariant checker reported {analysis}")
 
     # 4. the grouped matmul against its plain version
     with _phase("kernel grouped_matmul"):

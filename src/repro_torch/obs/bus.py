@@ -20,9 +20,10 @@ Every event carries the same envelope:
 
 plus per-type payload fields.  The payload schema of every event type is
 pinned in ``event_manifest.json`` and enforced two ways: rule R6 of
-``repro-analyze`` checks each ``bus.emit`` call site against the manifest
-at AST level, and the schema-equality test asserts all three backends
-emit identical field sets at runtime.
+``python -m repro_torch.analysis`` checks each ``bus.emit`` call site
+against the manifest at AST level, and the schema-equality test
+(``tests/test_torch_obs.py``) asserts all three backends emit identical
+field sets at runtime.
 
 Levels: ``"full"`` records everything including the IRM decision audit;
 ``"lifecycle"`` drops the (comparatively bulky) ``irm.pack`` events and

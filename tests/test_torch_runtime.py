@@ -223,7 +223,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert len(files) > 30
     # every subpackage of the port is scanned, the serving slice's included
     scanned = {p.relative_to(port).parts[0] for p in files if port in p.parents}
-    assert {"configs", "core", "kernels", "launch", "models", "obs", "runtime",
+    assert {"analysis", "configs", "core", "kernels", "launch", "models", "obs", "runtime",
             "scenarios", "serving"} <= scanned
     assert port / "kernels" / "paged_attention" / "ops.py" in files
     for rel_path in ("models/moe.py", "core/spark_baseline.py",
