@@ -36,8 +36,10 @@ Scope, per tree:
   (declared timing/measurement affinity) or inside an ``async def``
   (the loop's plumbing, not decision logic), or anywhere in
   ``runtime/clock.py`` — the one sanctioned wall-clock wrapper
-  (``ScaledClock``).  RNG and set-iteration checks get **no**
-  exemption anywhere.
+  (``ScaledClock``) — or in ``obs/spans.py``, the model path's one
+  measurement clock (spans and counters stamped on the profiler's clock,
+  recorded only while a profiler session records).  RNG and
+  set-iteration checks get **no** exemption anywhere.
 """
 
 from __future__ import annotations
@@ -53,9 +55,11 @@ CORE_PREFIX = "src/repro_torch/core/"
 #: trees where wall-clock reads are linted but annotated measurement
 #: sites (@worker_side / @loop_only / async def) are exempt
 REPLAY_PREFIXES = ("src/repro_torch/runtime/", "src/repro_torch/obs/")
-#: the sanctioned wall-clock wrapper — ScaledClock must read the host
-#: clock; everything else goes through it
-WALL_CLOCK_ALLOWED_MODULES = {"src/repro_torch/runtime/clock.py"}
+#: the sanctioned wall-clock readers — ScaledClock must read the host
+#: clock, and the model path's spans the profiler's; everything else goes
+#: through them
+WALL_CLOCK_ALLOWED_MODULES = {"src/repro_torch/runtime/clock.py",
+                              "src/repro_torch/obs/spans.py"}
 
 _WALL_CLOCK = {
     "time.time",

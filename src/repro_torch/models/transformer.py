@@ -27,7 +27,9 @@ JAX package's are ``lax.scan`` loops.  The cache is the paged one
 (``init_paged_cache``): a K pool and a V pool ``(n_attn_layers, num_pages,
 page_size, KVH, D)``, the port's ``PageAllocator``, the active sequence
 ids, their lengths and the recurrent states.  Both serving entry points
-update it in place and return it.
+update it in place and return it.  While a profiler session records,
+``loss`` and ``prefill`` record their spans, and ``prefill`` counts the
+positions it computes and the valid tokens among them (``obs.spans``).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from torch.utils.checkpoint import (
 
 from ..distributed.context import constrain
 from ..kernels.paged_attention.ops import page_table_from_allocator
+from ..obs import spans
 from ..serving.kv_cache import PageAllocator, PagedCacheLayout
 from . import ssm, xlstm
 from .layers import (
@@ -481,8 +484,11 @@ class DecoderLM:
         *,
         remat_policy: Optional[str] = "nothing",
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        x, aux = self.hidden_states(params, batch, remat_policy=remat_policy)
-        loss, metrics = chunked_cross_entropy(x, self._table(params), batch["labels"])
+        with spans.span("train.forward", mark=batch["tokens"]):
+            x, aux = self.hidden_states(params, batch, remat_policy=remat_policy)
+        with spans.span("train.cross_entropy", mark=x) as ce:
+            loss, metrics = spans.backward("train.cross_entropy.bwd", ce, chunked_cross_entropy,
+                                           x, self._table(params), batch["labels"])
         loss = loss + aux["moe_load_balance"] + aux["moe_z_loss"]
         metrics = dict(metrics, **aux, loss=loss)
         return loss, metrics
@@ -536,22 +542,27 @@ class DecoderLM:
             raise ValueError("prefill takes a cache that holds no sequence")
         seg, pos_ids = batch["segment_ids"], batch["positions"]
         B = seg.shape[0]
-        plan = write_plan(cache["alloc"], seg)
-
-        x = self._embed(params, batch)
-        n_attn, states = 0, []
-        for _, char, p in self._layers(params):
-            x = constrain(x, ("batch", "seq", None))
-            h = norm(p["ln1"], cfg.norm_type, x)
-            out, kept = _mixer(char, p["mixer"], cfg, h, seg, pos_ids)
-            if char == "A":
-                write_tokens(cache["k"][n_attn], cache["v"][n_attn], *kept, plan)
-                n_attn += 1
-            else:
-                states.append(kept)
-            x, _ = self._ffn(p, x + out)
-        x = norm(params["final_norm"], cfg.norm_type, x)
-        logits = self._logits(params, last_tokens(x, plan))
+        with spans.span("prefill"):
+            with spans.span("prefill.plan"):
+                plan = write_plan(cache["alloc"], seg)
+                spans.count("prefill.positions", seg.numel())
+                spans.count("prefill.tokens", plan.b_idx.numel())
+            with spans.span("prefill.layers"):
+                x = self._embed(params, batch)
+                n_attn, states = 0, []
+                for _, char, p in self._layers(params):
+                    x = constrain(x, ("batch", "seq", None))
+                    h = norm(p["ln1"], cfg.norm_type, x)
+                    out, kept = _mixer(char, p["mixer"], cfg, h, seg, pos_ids)
+                    if char == "A":
+                        write_tokens(cache["k"][n_attn], cache["v"][n_attn], *kept, plan)
+                        n_attn += 1
+                    else:
+                        states.append(kept)
+                    x, _ = self._ffn(p, x + out)
+                x = norm(params["final_norm"], cfg.norm_type, x)
+            with spans.span("prefill.logits"):
+                logits = self._logits(params, last_tokens(x, plan))
         cache["seqs"], cache["len"], cache["state"] = list(range(B)), plan.lens, states
         return logits, cache
 

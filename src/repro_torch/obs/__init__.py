@@ -13,6 +13,9 @@ One schema across all three backends (sim, live in-process, multiproc):
 - Analyzer — ``python -m repro_torch.obs``: latency decomposition, per-message
   critical paths, the "why did first-fit skip bin 3" audit render, and
   event-log drift reports.
+- :mod:`.spans` — spans and counters on the model path (the train step,
+  prefill), recorded only while a ``torch.profiler`` session records, on
+  the clock its device operations carry; not protocol events.
 
 Entry point for callers: ``run_scenario(..., obs=ObsConfig(...))`` or
 the CLI's ``--obs-out DIR --obs-level {lifecycle,full}``.

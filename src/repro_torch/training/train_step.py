@@ -25,6 +25,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from ..models.params import tree_leaves, tree_map, tree_unflatten
+from ..obs import spans
 from .optimizer import OptimizerConfig, adamw_update
 
 __all__ = ["make_train_step", "cast_params_for_compute"]
@@ -49,6 +50,11 @@ def _redistribute(t: torch.Tensor, sharding: Any) -> torch.Tensor:
     if isinstance(t, DTensor) and tuple(t.placements) != sharding.placements:
         return t.redistribute(t.device_mesh, sharding.placements)
     return t
+
+
+def _on_device(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """A tensor of the batch: the step's spans mark its device."""
+    return next(iter(batch.values()))
 
 
 def _microbatch_split(batch: Dict[str, torch.Tensor], n: int) -> List[Dict[str, torch.Tensor]]:
@@ -99,12 +105,13 @@ def make_train_step(
             compute = cast_params_for_compute(tree_unflatten(params, wrt), compute_dtype)
         with torch.enable_grad():
             loss, metrics = model.loss(compute, batch, remat_policy=remat_policy)
-            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+            with spans.span("train.backward", mark=loss):
+                grads = torch.autograd.grad(loss, wrt, allow_unused=True)
         grads = pin([torch.zeros_like(w) if g is None else g for w, g in zip(wrt, grads)])
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, tree_unflatten(params, grads)
 
-    def train_step(
+    def step(
         params: Tree, opt_state: Dict[str, Any], batch: Dict[str, torch.Tensor]
     ) -> Tuple[Tree, Dict[str, Any], Dict[str, torch.Tensor]]:
         if microbatches > 1:
@@ -124,9 +131,16 @@ def make_train_step(
         opt_core = {k: v for k, v in opt_state.items() if k != "ef"}
         if compressor is not None:
             grads, ef_state = compressor.apply(grads, ef_state)
-        params_new, opt_new, opt_metrics = adamw_update(params, grads, opt_core, opt_cfg)
+        with spans.span("train.adamw", mark=_on_device(batch)):
+            params_new, opt_new, opt_metrics = adamw_update(params, grads, opt_core, opt_cfg)
         if ef_state is not None:
             opt_new["ef"] = ef_state
         return params_new, opt_new, dict(metrics, **opt_metrics)
+
+    def train_step(
+        params: Tree, opt_state: Dict[str, Any], batch: Dict[str, torch.Tensor]
+    ) -> Tuple[Tree, Dict[str, Any], Dict[str, torch.Tensor]]:
+        with spans.span("train.step", mark=_on_device(batch)):
+            return step(params, opt_state, batch)
 
     return train_step

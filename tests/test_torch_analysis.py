@@ -499,6 +499,19 @@ def test_r5_torch_global_generator(tmp_path, call, fires):
            f"passed as generator=, or from a seeded default_rng")] if fires else [])
 
 
+@pytest.mark.timeout(30)
+def test_r5_allows_the_span_recorders_clock_and_no_other_in_obs(tmp_path):
+    """``obs/spans.py`` stamps spans on the profiler's clock, the model
+    path's one measurement clock: R5 stays quiet there and still fires on
+    the same read elsewhere in ``obs/``."""
+    clock = "import time\ndef stamp():\n    return time.time_ns()\n"
+    found = run_analysis(_write_tree(tmp_path, {"src/repro_torch/obs/spans.py": clock,
+                                                "src/repro_torch/obs/other.py": clock}),
+                         rules=["R5"])
+    assert [(f.path, f.line) for f in found] == [("src/repro_torch/obs/other.py", 3)]
+    assert "wall-clock read time.time_ns()" in found[0].message
+
+
 # ---------------------------------------------------------------------------
 # R6 — event-schema manifest
 # ---------------------------------------------------------------------------
