@@ -78,7 +78,13 @@ Phases, in order; any failure raises and the script exits nonzero:
    stand beside the bounds (the forward's with and without the residual),
    and each shape's record goes into the kernels
    line under ``by_shape``; then the forward alone at ``qwen3-moe-30b-a3b``'s
-   prefill shape (8 x 1024, 32 query over 4 KV heads);
+   prefill shape (8 x 1024, 32 query over 4 KV heads); then the forward
+   alone on one row holding 16 prompts as segments, as prefill packs ragged
+   rows (``PACKED_PREFILL_LENS``: 15,066 tokens, 32 query over 8 KV heads),
+   held as the shapes above are (a second launch bitwise equal, the key
+   tile hidden above the limits, the forward's tile census equal to its
+   rule and no backward tile counted), its plain version taken one KV
+   head's queries at a time;
 7b. the packed kernels' float32 instances (3xTF32 on the tensor cores,
    no residual), forward and backward, against the autograd of their plain
    version in fp32 (TF32 off: ``PACKED_F32_TOLS``, ``PACKED_F32_REL_L2``,
@@ -111,6 +117,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    36 x 32), the First-Fit watermark, and the first decode step's logits
    held to the port's own prefill of prompt + token, then two more decode
    steps under ``torch.profiler`` (one paged launch per layer and step);
+   that prefill of prompt + token, packed, against the same prefill on the
+   padded rows: the logits and every layer's K and V pools within
+   ``FIRST_STEP_TOL``, the lengths and pages equal, and the packed row with
+   its positions counted by index (a planted fault) above the limit;
 10b. the same prompts and weights with ``sliding_window`` set to 256 by
    ``dataclasses.replace`` (a check of the semantics: no config sets one):
    the prefill (36 packed launches, the kernel's window) and 8 decode steps
@@ -317,6 +327,11 @@ DECODE = {"B": 8, "H": 32, "KVH": 8, "D": 128, "page_size": 16,
           "num_pages": 1024, "max_pages": 128}
 PAGED_TOLS = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}  # test_kernels TOLS
 PREFILL = {"B": 8, "S": 1024, "H": 32, "KVH": 8, "D": 128}  # the serving prefill
+# phase 7's packed prefill row: the prompt lengths of the longest batch of
+# 16 in the benchmark's prefill-short traffic (portbench/traffic/
+# prefill-short.json, its fourth), one segment each, at PREFILL's heads
+PACKED_PREFILL_LENS = (359, 265, 1123, 940, 2010, 225, 1266, 395, 1478, 692, 997, 1804,
+                       1577, 784, 414, 737)
 # olmo-1b at train_4k: rows of 4096 tokens, 16 heads of 128 (MHA); the
 # global batch of 256 rows is cut to 4 for one card and the time limit
 TRAIN = {"B": 4, "S": 4096, "H": 16, "KVH": 16, "D": 128}
@@ -1356,9 +1371,10 @@ def _kernel_run(packed_ops, q, k, v, g, seg, seg_kv=None, causal=True):
 
 def packed_kernel_phase(torch, np):
     """Phase 7: the packed kernels against the autograd of their plain
-    version at the train shapes and the prefill shape; returns each shape's
-    records (forward, backward) for the kernels line, the train shape's
-    first."""
+    version at the train shapes and the prefill shape, then the forward
+    alone at the MoE prefill shape and on a packed prefill row; returns each
+    shape's records (forward, backward) for the kernels line, the train
+    shape's first (the packed row's backward None), and the MoE shape's."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.packed_attention import kernel as pk
@@ -1518,6 +1534,7 @@ def packed_kernel_phase(torch, np):
         del q, k, v, g
         torch.cuda.empty_cache()
     moe_record = _packed_forward_case(torch, pk, packed_ops, rel_l2, flush, MOE_PREFILL)
+    records["packed prefill"] = _packed_prefill_case(torch, np, pk, packed_ops, flush)
     del flush
     torch.cuda.empty_cache()
     return records, moe_record
@@ -1571,6 +1588,82 @@ def _packed_forward_case(torch, pk, packed_ops, rel_l2, flush, shp):
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": sdpa_ms}
+
+
+def _packed_prefill_case(torch, np, pk, packed_ops, flush):
+    """The packed forward on one row holding ``PACKED_PREFILL_LENS``'s
+    prompts as segments 1, 2, ..., as prefill packs ragged rows
+    (``transformer.pack_rows``), against its plain version: TOLS and
+    relative l2 as in phase 7, a second launch bitwise equal, the key tile
+    at T/2 hidden (phase 7's planted fault) above the limits, and the
+    serving forward's tile census equal to ``ref.tile_schedule``'s with no
+    backward tile counted.  Prefill runs no backward, so neither does this
+    case.  The plain version takes one KV head's query heads at a time: its
+    dense fp32 scores are T x T a head.  Returns the case's (forward,
+    backward) records for the kernels line, the backward's None."""
+    from repro_torch.kernels.packed_attention.ref import census_rule, rel_l2, tile_shares
+
+    dev = torch.device("cuda")
+    H, KVH, D = (PREFILL[k] for k in ("H", "KVH", "D"))
+    G, lens = H // KVH, PACKED_PREFILL_LENS
+    seg_np = np.repeat(np.arange(1, len(lens) + 1, dtype=np.int32), lens)[None]
+    T, seg = seg_np.shape[1], torch.tensor(seg_np, device=dev)
+    pairs = _visible_pairs(np, seg_np)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               for shape in ((1, T, H, D), (1, T, KVH, D), (1, T, KVH, D)))
+
+    def plain(seg_kv):
+        with torch.no_grad():
+            return torch.cat([packed_ops.packed_attention_plain(
+                q[:, :, h * G:(h + 1) * G], k[:, :, h:h + 1], v[:, :, h:h + 1], seg, seg_kv)
+                for h in range(KVH)], dim=2)
+
+    with torch.no_grad():
+        out = packed_ops.packed_attention(q, k, v, seg, seg)
+        again = packed_ops.packed_attention(q, k, v, seg, seg)
+    ref = plain(seg)
+    hidden = seg.clone()
+    hidden[:, T // 2:T // 2 + 64] = len(lens) + 1  # an id no query holds
+    fault = {"out": rel_l2(plain(hidden), ref)}
+    err = (out.float() - ref.float()).abs().max().item()
+    reading = rel_l2(out, ref)
+    pk.tile_census(on=True)
+    pk.packed_flash_attention(q, k, v, seg, seg)
+    census = pk.tile_census(on=False)
+    rule = census_rule(seg, seg, H, KVH)["forward"]
+    rtol, atol = PACKED_TOLS
+    checks = {
+        "out within TOLS": torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol),
+        f"rel l2 within {PACKED_REL_L2}": _within({"out": reading}, PACKED_REL_L2),
+        "finite": bool(torch.isfinite(out).all()),
+        "a second launch bitwise equal": torch.equal(out, again),
+        "the key tile hidden reads above the limits": not _within(fault, PACKED_REL_L2),
+        "forward tile census equal to ref.tile_schedule's, no backward tile": (
+            census["forward"] == rule
+            and not any(census[kern][c] for kern in ("dk/dv", "dq") for c in census[kern])),
+    }
+    tiles = tile_shares(census["forward"])
+    print(f"[packed] packed prefill row: T={T}, {len(lens)} segments of {list(lens)}, H={H} "
+          f"KVH={KVH} D={D}; visible pairs {pairs} of {T * (T + 1) // 2} causal; max_abs_err "
+          f"{err:.3e}, rel l2 (tensor/worst tile) {_fmt({'out': reading})}; planted fault "
+          f"key tile hidden {_fmt(fault)}; forward tiles skipped/full/masked "
+          f"{tiles['skipped']:.3f}/{tiles['full']:.3f}/{tiles['masked']:.3f} of "
+          f"{tiles['tiles']} {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"the packed forward disagrees with its plain version on a "
+                             f"packed prefill row: {checks}")
+    del out, again, ref
+    torch.cuda.empty_cache()
+    ms = _time_ms(torch, lambda: pk.packed_flash_attention(q, k, v, seg, seg), 5, flush)
+    bound, bound_by = _packed_bound("fwd", pairs, 1, T, H, KVH, D, "bfloat16")
+    print(f"[packed] packed prefill row: forward {ms:.4f} ms "
+          f"({4.0 * D * H * pairs / ms / 1e9:.1f} TFLOP/s of visible work), bound "
+          f"{bound:.4f} ms ({bound_by})")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return ({"max_abs_err": err, "ms": ms, "bound_ms": bound, "bound_by": bound_by,
+             "rel_l2": reading, "tiles": tiles}, None)
 
 
 def packed_f32_phase(torch, np):
@@ -2649,10 +2742,13 @@ def ragged_phase(torch, np):
     for b, n in enumerate(lens):
         tokens[b, n] = int(tok0[b, 0])
         seg[b, n] = 1
-    ref, _ = model.prefill(params, batch(S + 1), new_cache())
+    ref, ref_cache = model.prefill(params, batch(S + 1), new_cache())
     delta = (first - ref).abs().max().item()
     scale = ref.abs().max().item()
     rel_l2 = ((first - ref).norm() / ref.norm()).item()
+    packing, packing_checks = _packed_against_rows(torch, model, params, batch(S + 1), ref,
+                                                   ref_cache, new_cache)
+    del ref_cache
     peak = torch.cuda.max_memory_allocated() / 2**30
     decode_s = sum(step_ms) / 1e3
     print("[ragged] " + json.dumps({
@@ -2665,6 +2761,7 @@ def ragged_phase(torch, np):
         "pages_needed": need, "utilization": alloc.utilization(),
         "first_step_max_abs_dlogit": delta, "max_abs_logit": scale,
         "first_step_rel_l2": rel_l2, "peak_device_mem_gib": peak,
+        "packed_against_rows": packing,
     }))
     print("[ragged] decode profile: " + json.dumps(profile))
     checks = {
@@ -2678,6 +2775,7 @@ def ragged_phase(torch, np):
             profile["paged_kernel_launches_per_step"] == cfg.n_layers,
         f"first step within {FIRST_STEP_TOL} of max |logit|":
             delta <= FIRST_STEP_TOL * scale,
+        **packing_checks,
     }
     print(f"[ragged] checks: {checks}")
     if not all(checks.values()):
@@ -2739,6 +2837,56 @@ def ragged_phase(torch, np):
     del params, first, ref, full
     torch.cuda.empty_cache()
     return launches, prefill_packed[0], decode_reading, counts_w["paged"]
+
+
+def _packed_against_rows(torch, model, params, batch, logits, cache, new_cache):
+    """A packed prefill's ``logits`` and ``cache`` of ragged rows ``batch``
+    against the same prefill on the padded rows (``DecoderLM._packs`` held
+    False) and against a planted fault, the packed row with its positions
+    counted by index (0 .. T - 1, not each prompt's own): max |dlogit| as a
+    share of max |logit|, and the worst layer's relative l2 over its K or V
+    pool (both zero outside the written slots); returns the readings and
+    the checks: the row path within ``FIRST_STEP_TOL`` on both, with the
+    same lengths and pages, and the fault above it."""
+    from repro_torch.models import transformer
+
+    real = transformer.pack_rows
+
+    def by_index(batch, plan):
+        packed, plan = real(batch, plan)
+        pos = packed["positions"]
+        return dict(packed, positions=torch.arange(
+            pos.shape[1], dtype=pos.dtype, device=pos.device)[None]), plan
+
+    scale = logits.abs().max().item()
+
+    def gaps(other, other_cache):
+        kv = max(((other_cache[n][l].float() - cache[n][l].float()).norm()
+                  / cache[n][l].float().norm()).item()
+                 for n in ("k", "v") for l in range(cache[n].shape[0]))
+        return {"max_abs_dlogit_share": (other - logits).abs().max().item() / scale,
+                "kv_rel_l2_worst_layer": kv}
+
+    B = len(cache["seqs"])
+    with _patched(transformer.DecoderLM, "_packs", lambda *args: False):
+        rows, rows_cache = model.prefill(params, batch, new_cache())
+    readings = {"rows": gaps(rows, rows_cache)}
+    same = (torch.equal(cache["len"], rows_cache["len"])
+            and [cache["alloc"].seq_pages(b) for b in range(B)]
+            == [rows_cache["alloc"].seq_pages(b) for b in range(B)])
+    del rows, rows_cache
+    with _patched(transformer, "pack_rows", by_index):
+        fault, fault_cache = model.prefill(params, batch, new_cache())
+    readings["positions by index"] = gaps(fault, fault_cache)
+    del fault, fault_cache
+    torch.cuda.empty_cache()
+    return readings, {
+        f"packed prefill: logits and K/V within {FIRST_STEP_TOL} of the row path's":
+            all(r <= FIRST_STEP_TOL for r in readings["rows"].values()),
+        "packed prefill: lengths and pages the row path's": same,
+        "packed prefill: positions by index read above the limit": any(
+            r > FIRST_STEP_TOL for r in readings["positions by index"].values()),
+    }
 
 
 @contextlib.contextmanager
@@ -4732,7 +4880,7 @@ def main() -> None:
                                 if SERVE_EXAMPLE not in p},
                              **{p: c["packed_bwd"] for p, c in ft_launches.items()}},
         **packed_bwd_record,
-        "by_shape": {**{n: bwd for n, (_, bwd) in packed_records.items()}, **fam_bwd,
+        "by_shape": {**{n: bwd for n, (_, bwd) in packed_records.items() if bwd}, **fam_bwd,
                      **ex_bwd},
     }, {
         "name": "packed_flash_attention_f32",

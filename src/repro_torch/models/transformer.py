@@ -15,7 +15,10 @@ Entry points, with the JAX package's argument order and returns:
                       the First-Fit sequence packer fills with documents;
   - ``prefill``     : full-sequence forward; writes every valid token's K/V
                       into the pages the First-Fit allocator gives its row,
-                      and keeps each recurrent layer's final state;
+                      and keeps each recurrent layer's final state; where
+                      rows are padded and every layer is dense attention,
+                      the layers run on the valid tokens packed into one
+                      row (``pack_rows``);
   - ``decode_step`` : one new token per sequence, attending over its pages
                       through the paged-attention kernel and advancing each
                       recurrent state by one step.
@@ -29,7 +32,8 @@ page_size, KVH, D)``, the port's ``PageAllocator``, the active sequence
 ids, their lengths and the recurrent states.  Both serving entry points
 update it in place and return it.  While a profiler session records,
 ``loss`` and ``prefill`` record their spans, and ``prefill`` counts the
-positions it computes and the valid tokens among them (``obs.spans``).
+positions its layers compute, the valid tokens among them and whether it
+packed them (``obs.spans``).
 """
 
 from __future__ import annotations
@@ -64,8 +68,8 @@ from .layers import (
 from .moe import moe_layer, moe_specs
 from .params import Spec, tree_map
 
-__all__ = ["DecoderLM", "WritePlan", "chunked_cross_entropy", "full_rows_plan", "pad_vocab",
-           "write_plan"]
+__all__ = ["DecoderLM", "WritePlan", "chunked_cross_entropy", "full_rows_plan", "pack_rows",
+           "pad_vocab", "write_plan"]
 
 
 def pad_vocab(v: int, multiple: int = 256) -> int:
@@ -192,15 +196,18 @@ def _mixer(char: str, p: Dict[str, Any], cfg: Any, h: torch.Tensor,
 class WritePlan(NamedTuple):
     """Where prefill writes each valid token (``write_plan``): the rows'
     valid counts (B,), each valid token's row and column, its slot in a
-    pool flattened over (page, slot), and whether every row is full and
-    row b holds pages b P ... (b + 1) P - 1 (P pages a row), the layout a
-    page-sharded pool's ranks write without a plan (``layers.write_rows_local``)."""
+    pool flattened over (page, slot), whether every row is full and row b
+    holds pages b P ... (b + 1) P - 1 (P pages a row), the layout a
+    page-sharded pool's ranks write without a plan (``layers.write_rows_local``),
+    and whether the layers ran on the valid tokens packed into one row
+    (``pack_rows``), whose token i goes to slot ``dest[i]``."""
 
     lens: torch.Tensor
     b_idx: torch.Tensor
     t_idx: torch.Tensor
     dest: torch.Tensor
     full_rows: bool
+    packed: bool = False
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -270,12 +277,29 @@ def _plan(table: torch.Tensor, page_size: int, lens: torch.Tensor, b_idx: torch.
     return WritePlan(lens, b_idx, t_idx, dest, full_rows)
 
 
+def pack_rows(batch: Dict[str, torch.Tensor], plan: WritePlan
+              ) -> Tuple[Dict[str, torch.Tensor], WritePlan]:
+    """The valid tokens of ``batch``'s rows in one row (1, T), in the plan's
+    order (row b's in order, then row b + 1's), and the plan that writes
+    that row.  Each token keeps its position, and row b's tokens form
+    segment b + 1: within a segment's contiguous run, causality and a
+    window by index are causality and the window by position."""
+    b, t = plan.b_idx, plan.t_idx
+    packed = {"tokens": batch["tokens"][b, t][None],
+              "segment_ids": (b + 1).to(batch["segment_ids"].dtype)[None],
+              "positions": batch["positions"][b, t][None]}
+    return packed, plan._replace(packed=True)
+
+
 def last_tokens(x: torch.Tensor, plan: WritePlan) -> torch.Tensor:
-    """Each row's last valid position of ``x`` (B, S, d): the last column
-    where every row is full (a slice, which a DTensor takes as it is laid
-    out), else a gather by the rows' lengths."""
+    """Each sequence's last valid position of ``x`` (B, S, d): the last
+    column where every row is full (a slice, which a DTensor takes as it is
+    laid out), the end of its run in a packed row (1, T, d), else a gather
+    by the rows' lengths."""
     if plan.full_rows:
         return x[:, -1]
+    if plan.packed:
+        return x[0, plan.lens.long().cumsum(0) - 1]
     last = (plan.lens.long() - 1).clamp(min=0)
     return x[torch.arange(x.shape[0], device=x.device), last]
 
@@ -292,8 +316,9 @@ def grow(alloc: PageAllocator, seqs: List[int], device) -> Tuple[torch.Tensor, t
 def write_tokens(k_pool: torch.Tensor, v_pool: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, plan: WritePlan) -> None:
     """Write the valid tokens' K/V (B, S, KVH, D) into one layer's pools at
-    the slots of ``plan`` (``write_plan``).  A DTensor pool takes full rows
-    only, each rank writing into its own pages (``write_rows_local``)."""
+    the slots of ``plan`` (``write_plan``; a packed row's, in order, for a
+    packed plan).  A DTensor pool takes full rows only, each rank writing
+    into its own pages (``write_rows_local``)."""
     for pool, new in ((k_pool, k), (v_pool, v)):
         if isinstance(pool, DTensor):
             if not plan.full_rows:
@@ -301,7 +326,8 @@ def write_tokens(k_pool: torch.Tensor, v_pool: torch.Tensor, k: torch.Tensor,
                     "a DTensor pool is written by full rows on consecutive pages only")
             write_rows_local(pool, new)
         else:
-            pool.flatten(0, 1)[plan.dest] = new[plan.b_idx, plan.t_idx].to(pool.dtype)
+            rows = new[0] if plan.packed else new[plan.b_idx, plan.t_idx]
+            pool.flatten(0, 1)[plan.dest] = rows.to(pool.dtype)
 
 
 def _stack_period(cfg: Any, spec_tree: Any) -> Any:
@@ -523,6 +549,20 @@ class DecoderLM:
         }
 
     # ---- serving: prefill ---------------------------------------------------
+    def _packs(self, batch: Dict[str, torch.Tensor], plan: WritePlan) -> bool:
+        """Whether prefill runs the layers on the valid tokens packed into
+        one row: some row has padding, every layer is attention and none
+        has an MoE feed-forward (a recurrent state is a row's, and an
+        expert's capacity counts padding, as the JAX package's does), no vision
+        embeddings take the rows' first positions, and the segment ids are
+        no mesh's DTensor.  A dry-run's stand-ins plan full rows
+        (``write_plan``), so they keep their rows too."""
+        cfg, seg = self.cfg, batch["segment_ids"]
+        moe = cfg.moe is not None and any(
+            cfg.moe.is_moe_layer(pos) for pos in range(len(cfg.pattern)))
+        return (plan.b_idx.numel() < seg.numel() and set(cfg.pattern) == {"A"} and not moe
+                and "vision_embeds" not in batch and not isinstance(seg, DTensor))
+
     def prefill(
         self,
         params: Dict[str, Any],
@@ -536,6 +576,9 @@ class DecoderLM:
         each attention layer writes each valid token's K/V to slot ``i %
         page_size`` of its row's page ``i // page_size``, where i counts the
         row's valid tokens.  Each recurrent layer's final state is recorded.
+        Where ``_packs`` holds, the embedding, the layers and the final norm
+        run on the valid tokens packed into one row (``pack_rows``) instead
+        of the padded rows, with the same results.
         """
         cfg = self.cfg
         if cache["seqs"]:
@@ -545,6 +588,10 @@ class DecoderLM:
         with spans.span("prefill"):
             with spans.span("prefill.plan"):
                 plan = write_plan(cache["alloc"], seg)
+                if self._packs(batch, plan):
+                    batch, plan = pack_rows(batch, plan)
+                    seg, pos_ids = batch["segment_ids"], batch["positions"]
+                    spans.count("prefill.packed", 1)
                 spans.count("prefill.positions", seg.numel())
                 spans.count("prefill.tokens", plan.b_idx.numel())
             with spans.span("prefill.layers"):

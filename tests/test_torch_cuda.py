@@ -1316,3 +1316,66 @@ def test_paged_kernel_with_a_window_on_card(dtype, window):
                 vn[table[b, i]] = float("nan")
     assert torch.equal(paged_ops.paged_attention(q, kn, vn, table, lens, window=window),
                        out)
+
+
+# ---------------------------------------------------------------------------
+# prefill: ragged rows packed into one row, against the padded rows
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_prefill_matches_the_row_path_on_card(dtype):
+    """qwen3-8b smoke's prefill of ragged prompts across page edges, packed
+    into one row, against the same prefill on the padded rows: both through
+    the packed-attention kernels, one launch a layer each; the logits and
+    every layer's K/V pools within TOLS (float32) or the packed kernels'
+    REL_L2 (bf16, whose GEMMs sum in another order at another row count)."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.packed_attention import ops as packed_ops
+    from repro_torch.models import build_model, init_params, transformer
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving.kv_cache import PagedCacheLayout
+
+    cfg = get_config("qwen3-8b").smoke()
+    model = build_model(cfg)
+    params = tree_map(lambda t: t.to("cuda", dtype),
+                      init_params(model.param_specs(), torch.Generator().manual_seed(0)))
+    lens = [5, 17, 16, 33, 1, 40]
+    rng = np.random.default_rng(11)
+    B, S = len(lens), max(lens)
+    tok = torch.zeros(B, S, dtype=torch.int32)
+    seg = torch.zeros(B, S, dtype=torch.int32)
+    pos = torch.zeros(B, S, dtype=torch.int32)
+    for b, n in enumerate(lens):
+        tok[b, :n] = torch.from_numpy(rng.integers(1, cfg.vocab_size, n))
+        seg[b, :n], pos[b, :n] = 1, torch.arange(n)
+    batch = {"tokens": tok.cuda(), "segment_ids": seg.cuda(), "positions": pos.cuda()}
+    layout = PagedCacheLayout(num_pages=64, page_size=4, n_kv_heads=cfg.n_kv_heads,
+                              head_dim=cfg.head_dim_, max_pages_per_seq=16)
+
+    def prefill():
+        before = packed_ops.launches_fwd
+        out = model.prefill(params, batch, model.init_paged_cache(layout, dtype, "cuda"))
+        torch.cuda.synchronize()
+        assert packed_ops.launches_fwd == before + cfg.n_layers
+        return out
+
+    assert model._packs(batch, transformer.write_plan(
+        model.init_paged_cache(layout, dtype, "cuda")["alloc"], batch["segment_ids"]))
+    got, cache = prefill()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(transformer.DecoderLM, "_packs", lambda *args: False)
+        want, rows = prefill()
+    assert cache["len"].tolist() == rows["len"].tolist() == lens
+    assert [cache["alloc"].seq_pages(b) for b in range(B)] == [
+        rows["alloc"].seq_pages(b) for b in range(B)]
+    pairs = [(got, want)] + [(cache[n][l], rows[n][l]) for n in ("k", "v")
+                             for l in range(cfg.n_layers)]
+    for a, b in pairs:
+        assert torch.isfinite(a).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, **TOLS[dtype])
+        else:
+            assert _rel_l2(a, b) <= REL_L2[0], _rel_l2(a, b)

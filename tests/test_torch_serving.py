@@ -9,6 +9,10 @@ Tolerance: ``tests/test_kernels.py``'s f32 TOLS (2e-5), on logits of order
 1.  Both packages compute in f32 and differ only in summation order; the
 largest gap measured on these configurations is 1.8e-6.
 
+Ragged rows are prefilled packed into one row (``transformer.pack_rows``);
+the tests hold that path to JAX and to the row path, which ``rows_only``
+forces, and show which batches keep their rows.
+
 The decode oracle is JAX ``decode_step`` on the prefill's dense cache
 zero-padded to hold the new tokens, or JAX ``prefill`` of the longer
 prompt.  It is never JAX's own prefill-to-decode hand-off: that cache is
@@ -18,6 +22,7 @@ token past its end and JAX drops the write (see
 """
 
 import argparse
+import contextlib
 import dataclasses
 
 import jax
@@ -25,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from repro.configs import ARCH_NAMES as JAX_ARCH_NAMES
 from repro.configs import get_config as jax_get_config
@@ -36,12 +42,22 @@ from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.launch import serve
 from repro_torch.models import build_model, init_params, params_from_numpy
+from repro_torch.models import transformer
 from repro_torch.models.layers import flash_attention
 from repro_torch.models.params import Spec
+from repro_torch.obs import spans
 from repro_torch.serving.kv_cache import PagedCacheLayout
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 ARCHS = ["qwen3-8b", "olmo-1b"]
+
+
+def ragged_cases(first):
+    """(arch, lens) for ``first`` and for prompts across page edges (pages
+    of 4), ids as the arch alone for ``first``."""
+    cases = [(arch, lens) for lens in (first, [5, 17, 16, 33]) for arch in ARCHS]
+    return dict(argvalues=cases, ids=[
+        arch if lens == first else f"{arch}-{'-'.join(map(str, lens))}" for arch, lens in cases])
 
 
 @pytest.fixture(scope="module")
@@ -85,6 +101,30 @@ def paged_cache(model, cfg, num_pages=64, page_size=4):
                               n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
                               max_pages_per_seq=16)
     return model.init_paged_cache(layout, dtype=torch.float32)
+
+
+@contextlib.contextmanager
+def rows_only():
+    """Prefill on the padded rows whatever the batch."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(transformer.DecoderLM, "_packs", lambda *args: False)
+        yield
+
+
+def packed_prefills(fn):
+    """``fn()`` under a profiler session, and how many prefills it packed."""
+    spans.drain()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    return out, sum(r.value for r in spans.drain()
+                    if isinstance(r, spans.Count) and r.name == "prefill.packed")
+
+
+def slots(cache, b):
+    """Sequence b's slots in a pool flattened over (page, slot), in order."""
+    alloc = cache["alloc"]
+    ps = alloc.layout.page_size
+    return [p * ps + i for p in alloc.seq_pages(b) for i in range(ps)][:alloc.seq_len(b)]
 
 
 def jax_padded_cache(jcache, extra):
@@ -190,33 +230,53 @@ def test_prefill_matches_jax(arch, built):
     assert cache["len"].tolist() == [12, 12]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_ragged_prefill_matches_jax(arch, built):
+@pytest.mark.parametrize("arch,lens", **ragged_cases([20, 13, 7, 1]))
+def test_ragged_prefill_matches_jax(arch, lens, built):
+    """Ragged rows, prefilled packed, against JAX's prefill and the row
+    path: the logits, every layer's K/V at each sequence's slots, the
+    lengths and the pages."""
     cfg, jm, jp, model, tp = built(arch)
-    lens = [20, 13, 7, 1]
-    batch = ragged_batch(np.random.default_rng(1), cfg.vocab_size, lens, 20)
-    want, _ = jm.prefill(jp, to_jax(batch))
-    got, cache = model.prefill(tp, to_torch(batch), paged_cache(model, cfg))
+    batch = ragged_batch(np.random.default_rng(1), cfg.vocab_size, lens, max(lens))
+    want, jcache = jm.prefill(jp, to_jax(batch))
+    (got, cache), packed = packed_prefills(
+        lambda: model.prefill(tp, to_torch(batch), paged_cache(model, cfg)))
+    with rows_only():
+        rows, row_cache = model.prefill(tp, to_torch(batch), paged_cache(model, cfg))
+    assert packed == 1
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(), rows.numpy(), **TOL)
+    for name in ("k", "v"):
+        jax_kv = np.asarray(jcache["blocks"]["0"][name])  # (layers, B, S, KVH, D)
+        np.testing.assert_allclose(cache[name].numpy(), row_cache[name].numpy(), **TOL)
+        # K/V reach ~30, where TOL is for values of order 1: both paths sit
+        # within 2e-6 of the largest, so the gap is taken over it
+        scale = np.abs(jax_kv).max()
+        for b, n in enumerate(lens):
+            got_kv = cache[name].flatten(1, 2)[:, slots(cache, b)].numpy()
+            np.testing.assert_allclose(got_kv / scale, jax_kv[:, b, :n] / scale, **TOL)
+    assert cache["len"].tolist() == row_cache["len"].tolist() == lens
     alloc = cache["alloc"]
-    assert [alloc.seq_len(b) for b in range(4)] == lens
+    assert [alloc.seq_len(b) for b in range(len(lens))] == lens
+    assert [alloc.seq_pages(b) for b in range(len(lens))] == [
+        row_cache["alloc"].seq_pages(b) for b in range(len(lens))]
     # First-Fit on a fresh pool: rows take consecutive low pages
     assert alloc.highest_used_page() == alloc.used_pages == sum(
         alloc.layout.pages_for(n) for n in lens)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_paged_decode_matches_jax_on_a_padded_cache(arch, built):
+@pytest.mark.parametrize("arch,lens", **ragged_cases([20, 13, 7]))
+def test_paged_decode_matches_jax_on_a_padded_cache(arch, lens, built):
+    """Decode after a packed prefill of ragged rows."""
     cfg, jm, jp, model, tp = built(arch)
     rng = np.random.default_rng(2)
-    lens, steps = [20, 13, 7], 4
-    batch = ragged_batch(rng, cfg.vocab_size, lens, 20)
+    steps = 4
+    batch = ragged_batch(rng, cfg.vocab_size, lens, max(lens))
     _, jcache = jm.prefill(jp, to_jax(batch))
     jcache = jax_padded_cache(jcache, steps)
     _, cache = model.prefill(tp, to_torch(batch), paged_cache(model, cfg))
     before = ops.launches
     for _ in range(steps):
-        tok = rng.integers(1, cfg.vocab_size, size=(3, 1)).astype(np.int32)
+        tok = rng.integers(1, cfg.vocab_size, size=(len(lens), 1)).astype(np.int32)
         want, jcache = jm.decode_step(jp, {"tokens": jnp.asarray(tok)}, jcache)
         got, cache = model.decode_step(tp, {"tokens": torch.from_numpy(tok)}, cache)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -256,6 +316,67 @@ def test_jax_unpadded_hand_off_drops_the_new_tokens(built):
         got, cache = model.decode_step(tp, {"tokens": torch.from_numpy(tok)}, cache)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert np.abs(np.asarray(dropped) - np.asarray(want)).max() > 0.05
+
+
+# batches that keep their rows: (arch, lens, width, what changes the config)
+KEEP_ROWS = {
+    "full-rows": ("qwen3-8b", [12, 12], 12, {}),
+    "single-request": ("qwen3-8b", [9], 9, {}),
+    "moe": ("qwen3-moe-30b-a3b", [9, 5, 3], 9, {}),
+    "recurrent-hybrid": ("jamba-v0.1-52b", [9, 5, 3], 9, {"moe": None}),
+    "vision-embeds": ("internvl2-1b", [12, 9, 10], 12, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(KEEP_ROWS))
+def test_prefill_keeps_rows_where_packing_would_change_the_result(case):
+    """Full rows, a single request, MoE layers (an expert's capacity counts
+    padding), recurrent layers (a state is a row's) and vision embeddings
+    (the rows' first positions) keep the padded rows: nothing is packed,
+    and every output is the row path's, bit for bit."""
+    arch, lens, width, change = KEEP_ROWS[case]
+    cfg = dataclasses.replace(get_config(arch).smoke(), **change)
+    model = build_model(cfg)
+    params = init_params(model.param_specs(), torch.Generator().manual_seed(0))
+    batch = to_torch(ragged_batch(np.random.default_rng(6), cfg.vocab_size, lens, width))
+    if cfg.frontend == "vision":
+        batch["vision_embeds"] = 0.02 * torch.randn(
+            len(lens), cfg.frontend_tokens, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    (got, cache), packed = packed_prefills(
+        lambda: model.prefill(params, batch, paged_cache(model, cfg)))
+    with rows_only():
+        want, row_cache = model.prefill(params, batch, paged_cache(model, cfg))
+    assert packed == 0
+    assert torch.equal(got, want)
+    for name in ("k", "v", "len"):
+        assert torch.equal(cache[name], row_cache[name])
+    for a, b in zip(cache["state"], row_cache["state"], strict=True):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_prefill_packs_only_values_on_one_device():
+    """The gate reads the plan and the segment ids: ragged rows pack; the
+    same ids on the meta device (a dry-run's stand-ins, planned as full
+    rows) or as a DTensor (a mesh's) do not."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    cfg = get_config("qwen3-8b").smoke()
+    model = build_model(cfg)
+    batch = to_torch(ragged_batch(np.random.default_rng(7), cfg.vocab_size, [6, 3], 6))
+    plan = transformer.write_plan(paged_cache(model, cfg)["alloc"], batch["segment_ids"])
+    assert model._packs(batch, plan)
+    meta = dict(batch, segment_ids=batch["segment_ids"].to("meta"))
+    assert not model._packs(meta, transformer.write_plan(paged_cache(model, cfg)["alloc"],
+                                                         meta["segment_ids"]))
+    torch.distributed.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,))
+        seg = distribute_tensor(batch["segment_ids"], mesh, [Replicate()])
+        assert not model._packs(dict(batch, segment_ids=seg), plan)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_prefill_needs_an_empty_cache_and_decode_a_free_page(built):

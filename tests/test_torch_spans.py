@@ -7,7 +7,8 @@ step records ``train.step`` over ``train.forward``, ``train.cross_entropy``,
 ``train.backward`` (over ``train.cross_entropy.bwd``, whose parent is the
 forward's span) and ``train.adamw``, and leaves every number as it was; a
 prefill records ``prefill`` over its plan, layers and logits, and counts
-the positions it computes and the tokens among them.
+the positions its layers compute, the tokens among them and whether it
+packed them.
 """
 
 import contextlib
@@ -226,11 +227,16 @@ def test_a_mesh_train_step_records_its_spans_through_dtensors(model):
 
 @pytest.mark.parametrize("lens", [[5, 12, 9], [16, 16], [1]])
 def test_a_prefill_counts_its_positions_and_tokens(model, lens):
+    """The positions the layers compute: the valid tokens of ragged rows,
+    which prefill packs into one row (``prefill.packed``), else B x S."""
     cfg, m, params = model
     batch = prefill_inputs(cfg, lens)
     _, recs = traced(lambda: m.prefill(params, batch, paged_cache(m, cfg)))
     counts = {r.name: r.value for r in recs if isinstance(r, spans.Count)}
-    assert counts == {"prefill.positions": len(lens) * max(lens), "prefill.tokens": sum(lens)}
+    ragged = len(set(lens)) > 1
+    want = {"prefill.positions": sum(lens) if ragged else len(lens) * max(lens),
+            "prefill.tokens": sum(lens)}
+    assert counts == (dict(want, **{"prefill.packed": 1}) if ragged else want)
     got = by_name(recs)
     root = got["prefill"]
     assert set(got) == {"prefill", "prefill.plan", "prefill.layers", "prefill.logits"}
